@@ -1,0 +1,4 @@
+from repro_torch.workloads.random_access import random_access
+from repro_torch.workloads.nasa import nasa_trace, nasa_requests
+from repro_torch.workloads.fleet_scale import (WindowedArrivals,
+                                               poisson_arrivals)
