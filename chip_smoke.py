@@ -1,30 +1,40 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch / CUDA port (``src/repro_torch``) on one GPU.
 
-Drives the port's main path -- the paper's per-target LSTM closed loop -- on
-the card, through the hand-written CUDA kernel of ``kernels/csrc/lstm_seq.cu``:
+Drives the port's main paths -- the paper's per-target LSTM and
+Attention-Double-LSTM closed loops and its PPA-vs-HPA harness -- on the
+card, through the hand-written CUDA kernels of ``kernels/csrc/lstm_seq.cu``
+and ``kernels/csrc/attn_lstm_seq.cu``:
 
 1. device facts (``nvidia-smi`` name and power limit), TF32 off for float32
-   products, the kernel built from the checkout's source with ``nvcc``;
-2. every kernel wrapper against its plain PyTorch version at the main path's
-   shapes and at edge shapes, the autograd gradient against autograd through
-   the plain version, and each kernel's time beside the plain version's, a
-   library yardstick where one exists, and its bound on an H100;
+   products, both kernels built from the checkout's sources with ``nvcc``
+   (one process per source, started together);
+2. every kernel wrapper against its plain PyTorch version at the main
+   paths' shapes and at edge shapes, the autograd gradients against autograd
+   through the plain version, and each kernel's time beside the plain
+   version's, a library yardstick where one exists, and its bound on an
+   H100;
 3. the paper-scale closed loop of examples/multizone_control.py: a 1800 s
    collection run, 7 per-target LSTM(50) fits on the card, ``FleetController``
    + ``Updater(FINETUNE)`` over 30 simulated minutes of NASA + Random Access;
 4. a plane-scale ``FleetController`` tick at Z=4096 per-target LSTM(50)
    targets and one batched FINETUNE refit through the grouped kernel, with
    ``torch.profiler`` over five ticks (device busy share) that the tick
-   times leave out.
+   times leave out;
+5. phase 3 with ``AttnLSTMForecaster(window=8, hidden=50)`` in every zone;
+6. phase 4 with Z=4096 attn targets made from phase 5's model;
+7. the paper's §5 harness (``core/experiments.py``): ``run_scenario`` with
+   the scalar PPA and the attn forecaster against the reactive HPA on 30
+   simulated minutes of Random Access (tests/test_system.py on the card).
 
-Phases 3 and 4 each set the launch counts to 0 before they drive their path
+Phases 3 to 7 each set the launch counts to 0 before they drive their path
 and read them right after it, before the checks that launch kernels of
-their own; the counts must equal what the path needs (a fit forward an
-epoch, a stacked forecast a forecasting tick, a grouped forward a refit
-epoch), and each kernel must have launched.  Any failed check raises, so the
-script exits non-zero.  The last three lines are the kernels' JSON record,
-the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
+their own; the counts of all six wrappers must equal what the path needs (a
+fit forward an epoch, a stacked forecast a forecasting tick, a grouped
+forward a refit epoch, a shared forward a scalar PPA forecast), and each
+kernel must have launched.  Any failed check raises, so the script exits
+non-zero.  The last three lines are the kernels' JSON record, the
+``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``
 """
@@ -34,6 +44,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -48,16 +59,53 @@ N_EDGE = 6
 ZONES = tuple(f"edge-{i}" for i in range(N_EDGE)) + ("cloud",)
 THRESHOLD = 350.0
 WINDOW, HIDDEN, M = 4, 50, 5
+ATTN_WINDOW = 8
+WINDOWS = {"lstm": WINDOW, "attn": ATTN_WINDOW}
 PLANE_Z, PLANE_FIT_ROWS = 4096, 20
 TICK_LIMIT_MS = 1500.0  # PERF.md section 2: a tenth of the 15 s interval
-SOURCE = "src/repro_torch/kernels/csrc/lstm_seq.cu"
-KERNEL_SYMBOL = "lstm_seq_grouped_kernel"
+# each kernel's source, and its symbol with the wrappers that launch it
+KERNELS = {
+    "lstm_seq": "src/repro_torch/kernels/csrc/lstm_seq.cu",
+    "attn_lstm_seq": "src/repro_torch/kernels/csrc/attn_lstm_seq.cu",
+}
+KERNEL_SYMBOL = {
+    "lstm_seq_grouped_kernel": ("lstm_seq", "lstm_seq_stacked",
+                                "lstm_seq_grouped"),
+    "attn_lstm_seq_grouped_kernel": ("attn_lstm_seq",
+                                     "attn_lstm_seq_stacked",
+                                     "attn_lstm_seq_grouped"),
+}
 REPLACES = {
     "lstm_seq": "src/repro/kernels/lstm_seq.py:238",
     "lstm_seq_stacked": "src/repro/kernels/lstm_seq.py:246",
     # the refit vmaps lstm_seq over Z targets (core/forecaster.py:546)
     "lstm_seq_grouped": "src/repro/kernels/lstm_seq.py:238",
+    "attn_lstm_seq": "src/repro/kernels/attn_lstm_seq.py:317",
+    "attn_lstm_seq_stacked": "src/repro/kernels/attn_lstm_seq.py:327",
+    # the refit vmaps attn_lstm_seq over Z (core/forecaster.py:546, attn)
+    "attn_lstm_seq_grouped": "src/repro/kernels/attn_lstm_seq.py:317",
 }
+
+
+def symbol_of(wrapper):
+    return next(s for s, ws in KERNEL_SYMBOL.items() if wrapper in ws)
+
+
+def source_of(wrapper):
+    return KERNELS["attn_lstm_seq" if wrapper.startswith("attn")
+                   else "lstm_seq"]
+
+
+def reset_launch_counts():
+    from repro_torch.kernels import attn_lstm_seq as attn, lstm_seq as seq
+    seq.reset_launch_counts()
+    attn.reset_launch_counts()
+
+
+def launch_counts():
+    """The launch counts of all six wrappers."""
+    from repro_torch.kernels import attn_lstm_seq as attn, lstm_seq as seq
+    return {**seq.LAUNCHES, **attn.LAUNCHES}
 
 
 def check(cond, msg):
@@ -88,7 +136,7 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, iters=50):
+def kernel_device_ms(fn, symbol, iters=50):
     """The CUDA kernel's own device time per call, from the profiler's
     device events over ``iters`` calls (no host time in it)."""
     import torch
@@ -97,8 +145,8 @@ def kernel_device_ms(fn, iters=50):
     for _ in range(iters):
         fn()
     res = profile_stop(prof, torch.device("cuda"))
-    ms = sum(v for n, v in res["by_name"].items() if KERNEL_SYMBOL in n)
-    check(ms > 0, f"the profiler saw no {KERNEL_SYMBOL} launch")
+    ms = sum(v for n, v in res["by_name"].items() if symbol in n)
+    check(ms > 0, f"the profiler saw no {symbol} launch")
     return ms / iters
 
 
@@ -116,11 +164,34 @@ def bound(G_w, G, N, W, M_, H, n_out):
                + (W - 1) * 2 * H * 4 * H           # h·Wh, steps 1..W-1
                + (W - 1) * 23 * H + 17 * H         # gates, cell, h
                + H + 2 * H * n_out + n_out)        # ReLU, head
-    ops = G * N * per_row
+    return _bound(nbytes, G * N * per_row)
+
+
+def _bound(nbytes, ops):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "ops": ops}
+
+
+def attn_bound(G_w, G, N, W, M_, H, n_out):
+    """``bound`` for the grouped Attention-Double-LSTM forward.  Bytes: the
+    nine weight leaves (Wh1 and Wh2 only when W > 1), the windows and the
+    outputs.  Operations a row: both LSTMs counted as in ``bound`` (LSTM-2's
+    input width is H), q = h·Wa (2H² ops), the scores (2H a step, plus the
+    scale), the softmax (max, subtract, exp, sum, divide: 5 a step), ctx =
+    α·hs (H a step) and the head."""
+    w_floats = ((M_ + H + 2 * (H if W > 1 else 0) + 2) * 4 * H + H * H
+                + (H + 1) * n_out)
+    nbytes = 4 * (G_w * w_floats + G * N * (W * M_ + n_out))
+
+    def lstm_ops(n_in):
+        return (W * 2 * n_in * 4 * H + (W - 1) * 2 * H * 4 * H
+                + (W - 1) * 23 * H + 17 * H)
+
+    per_row = (lstm_ops(M_) + 2 * H * H + W * (2 * H + 1) + 5 * W + W * H
+               + lstm_ops(H) + H + 2 * H * n_out + n_out)
+    return _bound(nbytes, G * N * per_row)
 
 
 # --------------------------------------------------------------- phase 1 --
@@ -140,10 +211,15 @@ def device_facts():
         f"count {torch.cuda.device_count()}")
     log(f"[1] matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
-    from repro_torch.kernels import _build, lstm_seq as seq
+    from repro_torch.kernels import _build, attn_lstm_seq as attn
+    from repro_torch.kernels import lstm_seq as seq
     t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:   # one nvcc a source
+        list(pool.map(_build.build, KERNELS))
     seq._lib()
-    log(f"[1] built+loaded {_build.library_path('lstm_seq').name} in "
+    attn._lib()
+    log(f"[1] built+loaded "
+        f"{', '.join(_build.library_path(n).name for n in KERNELS)} in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, secs, ptxas in _build.build_log:
         log(f"[1] nvcc {name}.cu {secs:.2f} s; ptxas: "
@@ -153,17 +229,22 @@ def device_facts():
 
 
 # --------------------------------------------------------------- phase 2 --
-def _params(gen, lead, M_, H, n_out, device):
+def _params(gen, lead, M_, H, n_out, device, arch="lstm"):
     import torch
-    shapes = [(M_, 4 * H), (H, 4 * H), (4 * H,), (H, n_out), (n_out,)]
+    if arch == "lstm":
+        shapes = [(M_, 4 * H), (H, 4 * H), (4 * H,), (H, n_out), (n_out,)]
+    else:   # Wx1, Wh1, b1, Wa, Wx2, Wh2, b2, Wo, bo
+        shapes = [(M_, 4 * H), (H, 4 * H), (4 * H,), (H, H), (H, 4 * H),
+                  (H, 4 * H), (4 * H,), (H, n_out), (n_out,)]
     return [(torch.randn(lead + s, generator=gen) * 0.3).to(device)
             for s in shapes]
 
 
-def kernels_vs_plain(fit_batch):
-    """Each wrapper against its plain version at the main path's shapes and
-    at edge shapes; times at the main path's shapes."""
+def kernels_vs_plain(fit_batch, attn_fit_batch):
+    """Each wrapper against its plain version at the main paths' shapes and
+    at edge shapes; times at the main paths' shapes."""
     import torch
+    from repro_torch.kernels import attn_lstm_seq as attn
     from repro_torch.kernels import lstm_seq as seq, ref
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
@@ -183,13 +264,18 @@ def kernels_vs_plain(fit_batch):
               f"{name}: max_abs_err {err} > {tol}")
         return err
 
-    def measure(name, shape, kernel, plain, library, bnd, iters):
+    def timed(name, shape, kernel, plain, bnd, iters):
         """Kernel against plain on the same inputs, then the times of the
-        kernel's call, of its device work alone, of the plain version and
-        of the library yardstick where there is one."""
-        rec = dict(shape=shape, max_abs_err=compare(name, kernel(), plain()),
-                   ms=time_ms(kernel, iters), device_ms=kernel_device_ms(kernel),
-                   plain_ms=time_ms(plain, iters), library_ms=None, **bnd)
+        kernel's call, of its device work alone and of the plain version."""
+        call_ms = time_ms(kernel, iters)
+        return dict(shape=shape, max_abs_err=compare(name, kernel(), plain()),
+                    ms=call_ms, call_ms=call_ms,
+                    kernel_ms=kernel_device_ms(kernel, symbol_of(name)),
+                    plain_ms=time_ms(plain, iters), library_ms=None, **bnd)
+
+    def measure(name, shape, kernel, plain, library, bnd, iters):
+        """``timed``, and the library yardstick where there is one."""
+        rec = timed(name, shape, kernel, plain, bnd, iters)
         if library is not None:
             rec["library_max_abs_err"] = compare(f"{name} library yardstick",
                                                  library(), plain())
@@ -233,44 +319,95 @@ def kernels_vs_plain(fit_batch):
                 lambda: ref.lstm_seq_grouped(*sp, gxs), None,
                 bound(PLANE_Z, PLANE_Z, n_fit, W, M, H, n_out), iters=50)
 
+        # --- the attention kernel at its paths' shapes: the fit batch of a
+        # 1800 s collection run at window 8, the scalar PPA's one window
+        # (B=1), the plane's per-target forecast and its refit forward.  No
+        # single PyTorch call computes the Attention-Double-LSTM, so it has
+        # no library yardstick.
+        Wa_ = ATTN_WINDOW
+        ap = _params(gen, (), M, H, n_out, dev, "attn")
+        axs = xs_of(attn_fit_batch, Wa_, M)
+        measure("attn_lstm_seq", f"B={attn_fit_batch} W={Wa_} M={M} H={H}",
+                lambda: attn.attn_lstm_seq(*ap, axs),
+                lambda: ref.attn_lstm_seq(*ap, axs), None,
+                attn_bound(1, 1, attn_fit_batch, Wa_, M, H, n_out), iters=200)
+        records["attn_lstm_seq"]["scalar_ppa"] = timed(
+            "attn_lstm_seq", f"B=1 W={Wa_} M={M} H={H}",
+            lambda: attn.attn_lstm_seq(*ap, axs[:1]),
+            lambda: ref.attn_lstm_seq(*ap, axs[:1]),
+            attn_bound(1, 1, 1, Wa_, M, H, n_out), iters=200)
+        asp = _params(gen, (PLANE_Z,), M, H, n_out, dev, "attn")
+        azxs = xs_of(PLANE_Z, Wa_, M)
+        measure("attn_lstm_seq_stacked", f"Z={PLANE_Z} W={Wa_} M={M} H={H}",
+                lambda: attn.attn_lstm_seq_stacked(*asp, azxs),
+                lambda: ref.attn_lstm_seq_stacked(*asp, azxs), None,
+                attn_bound(PLANE_Z, PLANE_Z, 1, Wa_, M, H, n_out), iters=50)
+        an_fit = PLANE_FIT_ROWS - Wa_
+        agxs = xs_of(PLANE_Z, an_fit, Wa_, M)
+        measure("attn_lstm_seq_grouped",
+                f"G={PLANE_Z} N={an_fit} W={Wa_} M={M} H={H}",
+                lambda: attn.attn_lstm_seq_grouped(*asp, agxs),
+                lambda: ref.attn_lstm_seq_grouped(*asp, agxs), None,
+                attn_bound(PLANE_Z, PLANE_Z, an_fit, Wa_, M, H, n_out),
+                iters=20)
+        log("[2] library yardstick for the attn rows: none -- no single "
+            "PyTorch call computes the Attention-Double-LSTM (two LSTMs "
+            "bridged by temporal attention)")
+
         # --- edge shapes: empty, one row, a ragged row block, W=1, an H
         # that is not a multiple of 32, shared weights across groups
         edges = 0
-        for B, W_, H_ in [(0, 4, 50), (1, 4, 50), (17, 4, 50), (33, 1, 50),
-                          (9, 3, 37), (5, 4, 8)]:
-            q = _params(gen, (), M, H_, n_out, dev)
-            x = xs_of(B, W_, M)
-            compare(f"lstm_seq B={B} W={W_} H={H_}", seq.lstm_seq(*q, x),
-                    ref.lstm_seq(*q, x))
-            edges += 1
-        for Z, W_, H_ in [(0, 4, 50), (1, 4, 50), (7, 1, 37)]:
-            q = _params(gen, (Z,), M, H_, n_out, dev)
-            x = xs_of(Z, W_, M)
-            compare(f"lstm_seq_stacked Z={Z} W={W_} H={H_}",
-                    seq.lstm_seq_stacked(*q, x), ref.lstm_seq_stacked(*q, x))
-            edges += 1
-        for G, N, Gw, H_ in [(3, 17, 3, 50), (3, 5, 1, 50), (2, 0, 2, 50),
-                             (4, 33, 4, 37)]:
-            q = _params(gen, (Gw,), M, H_, n_out, dev)
-            x = xs_of(G, N, W, M)
-            compare(f"lstm_seq_grouped G={G} N={N} shared={Gw == 1}",
-                    seq.lstm_seq_grouped(*q, x), ref.lstm_seq_grouped(*q, x))
-            edges += 1
-        check(seq.LAUNCHES["lstm_seq"] > 0, "lstm_seq never launched")
-        # f64 input must raise, not take the plain version
-        try:
-            seq.lstm_seq(*p, xs.double())
-        except TypeError:
-            pass
-        else:
-            check(False, "float64 input did not raise")
+        for arch, mod, shared, stacked, grouped in [
+                ("lstm", seq, seq.lstm_seq, seq.lstm_seq_stacked,
+                 seq.lstm_seq_grouped),
+                ("attn", attn, attn.attn_lstm_seq, attn.attn_lstm_seq_stacked,
+                 attn.attn_lstm_seq_grouped)]:
+            plain = {"lstm": (ref.lstm_seq, ref.lstm_seq_stacked,
+                              ref.lstm_seq_grouped),
+                     "attn": (ref.attn_lstm_seq, ref.attn_lstm_seq_stacked,
+                              ref.attn_lstm_seq_grouped)}[arch]
+            W0 = WINDOWS[arch]
+            for B, W_, H_ in [(0, W0, 50), (1, W0, 50), (17, W0, 50),
+                              (33, 1, 50), (9, 3, 37), (5, W0, 8)]:
+                q = _params(gen, (), M, H_, n_out, dev, arch)
+                x = xs_of(B, W_, M)
+                compare(f"{arch} shared B={B} W={W_} H={H_}", shared(*q, x),
+                        plain[0](*q, x))
+                edges += 1
+            for Z, W_, H_ in [(0, W0, 50), (1, W0, 50), (7, 1, 37)]:
+                q = _params(gen, (Z,), M, H_, n_out, dev, arch)
+                x = xs_of(Z, W_, M)
+                compare(f"{arch} stacked Z={Z} W={W_} H={H_}",
+                        stacked(*q, x), plain[1](*q, x))
+                edges += 1
+            for G, N, Gw, H_ in [(3, 17, 3, 50), (3, 5, 1, 50), (2, 0, 2, 50),
+                                 (4, 33, 4, 37)]:
+                q = _params(gen, (Gw,), M, H_, n_out, dev, arch)
+                x = xs_of(G, N, W0, M)
+                compare(f"{arch} grouped G={G} N={N} shared={Gw == 1}",
+                        grouped(*q, x), plain[2](*q, x))
+                edges += 1
+            # f64 input must raise, not take the plain version
+            q = _params(gen, (), M, H, n_out, dev, arch)
+            try:
+                shared(*q, xs_of(3, W0, M).double())
+            except TypeError:
+                pass
+            else:
+                check(False, f"{arch}: float64 input did not raise")
+            check(mod.LAUNCHES[shared.__name__] > 0,
+                  f"{shared.__name__} never launched")
 
     # --- gradients: the autograd.Function against autograd through plain
-    y = xs_of(fit_batch, n_out)
+    y = xs_of(max(fit_batch, attn_fit_batch), n_out)
     for name, fn, pl, args in [
             ("lstm_seq", seq.lstm_seq, ref.lstm_seq, (p, xs)),
             ("lstm_seq_grouped", seq.lstm_seq_grouped, ref.lstm_seq_grouped,
-             ([t[:64] for t in sp], gxs[:64]))]:
+             ([t[:64] for t in sp], gxs[:64])),
+            ("attn_lstm_seq", attn.attn_lstm_seq, ref.attn_lstm_seq,
+             (ap, axs)),
+            ("attn_lstm_seq_grouped", attn.attn_lstm_seq_grouped,
+             ref.attn_lstm_seq_grouped, ([t[:64] for t in asp], agxs[:64]))]:
         grads = []
         for f in (fn, pl):
             leaves = [t.clone().requires_grad_(True) for t in args[0]]
@@ -284,11 +421,13 @@ def kernels_vs_plain(fit_batch):
     log(f"[2] {edges} edge shapes match their plain versions "
         f"(tol {FWD_TOL}); gradients within {GRAD_TOL}")
     for name, r in records.items():
-        log(f"[2] {name} {r['shape']}: kernel {r['ms']:.4f} ms a call "
-            f"({r['device_ms']:.4f} ms on the device), plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
-            f"{r['max_abs_err']:.3g}")
+        for tag, rr in [("", r)] + ([(" (scalar PPA)", r["scalar_ppa"])]
+                                    if "scalar_ppa" in r else []):
+            log(f"[2] {name}{tag} {rr['shape']}: kernel {rr['call_ms']:.4f} "
+                f"ms a call ({rr['kernel_ms']:.4f} ms on the device), plain "
+                f"{rr['plain_ms']:.4f} ms, library {rr['library_ms']}, bound "
+                f"{rr['bound_ms']:.4f} ms ({rr['bound_by']}), max_abs_err "
+                f"{rr['max_abs_err']:.3g}")
     return records
 
 
@@ -334,27 +473,29 @@ def forecast_ticks(ctrl):
     return len({t for n in ctrl.target_names for t, _ in ctrl.predictions(n)})
 
 
-def closed_loop(device, minutes=30, epochs=60):
-    """Phase 3.  Launch counts are set to 0 before the fits and read right
-    after the loop, before the checks that launch kernels of their own;
-    returns them beside the counts the path must have made."""
+def closed_loop(device, minutes=30, epochs=60, arch="lstm", tag="[3]"):
+    """Phase 3 (``arch="lstm"``) and phase 5 (``arch="attn"``, window 8).
+    Launch counts are set to 0 before the fits and read right after the
+    loop, before the checks that launch kernels of their own; returns them
+    beside the counts the path must have made."""
     import numpy as np
     import torch
     from repro_torch.cluster import ClusterSim, SimConfig, paper_topology
-    from repro_torch.core import (FleetController, LSTMForecaster, PPAConfig,
-                                  TargetSpec, ThresholdPolicy, Updater,
-                                  UpdatePolicy)
-    from repro_torch.core.forecaster import params_to_numpy, params_from_numpy
-    from repro_torch.kernels import lstm_seq as seq
-    seq.reset_launch_counts()
+    from repro_torch.core import (FleetController, PPAConfig, TargetSpec,
+                                  ThresholdPolicy, Updater, UpdatePolicy)
+    from repro_torch.core.forecaster import (ARCH_KERNELS, make_forecaster,
+                                             params_from_numpy,
+                                             params_to_numpy)
+    window = WINDOWS[arch]
+    reset_launch_counts()
     t0 = time.perf_counter()
     pre = collect_pretrain()
     t_collect = time.perf_counter() - t0
     t0 = time.perf_counter()
     specs = []
     for z in ZONES:
-        m = LSTMForecaster(window=WINDOW, hidden=HIDDEN, epochs=epochs,
-                           seed=0, device=device)
+        m = make_forecaster(arch, window=window, hidden=HIDDEN, epochs=epochs,
+                            seed=0, device=device)
         m.fit(pre[z], from_scratch=True)
         check(m.valid(), f"{z}: fit produced non-finite params")
         specs.append(TargetSpec(z, ThresholdPolicy(THRESHOLD, 1),
@@ -372,25 +513,26 @@ def closed_loop(device, minutes=30, epochs=60):
     t0 = time.perf_counter()
     sim.run(tasks, ctrl, T, initial_replicas=2)
     t_loop = time.perf_counter() - t0
-    launches = dict(seq.LAUNCHES)
+    launches = launch_counts()
     check(ctrl.updater.n_updates == 0, "the closed loop refit unexpectedly")
     # one shared-weight forward an epoch of each fit, one stacked forecast
-    # a forecasting tick, no refit
-    expect = {"lstm_seq": len(ZONES) * epochs,
-              "lstm_seq_stacked": forecast_ticks(ctrl),
-              "lstm_seq_grouped": 0}
-    log(f"[3] collection {t_collect:.2f} s ({len(pre['cloud'])} samples/zone)"
+    # a forecasting tick, no refit, nothing of the other architecture
+    shared, stacked, _ = (k.__name__ for k in ARCH_KERNELS[arch])
+    expect = dict.fromkeys(launches, 0)
+    expect.update({shared: len(ZONES) * epochs,
+                   stacked: forecast_ticks(ctrl)})
+    log(f"{tag} {arch}: collection {t_collect:.2f} s ({len(pre['cloud'])} samples/zone)"
         f", 7 fits x {epochs} epochs {t_fit:.2f} s (edge-0 loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}), closed loop {t_loop:.2f} s "
         f"for {len(tasks)} tasks")
     rs, re_ = sim.response_times("sort"), sim.response_times("eigen")
-    log(f"[3] sort  p50={np.percentile(rs, 50):.3f}s "
+    log(f"{tag} sort  p50={np.percentile(rs, 50):.3f}s "
         f"p95={np.percentile(rs, 95):.3f}s (n={len(rs)})")
     if len(re_):
-        log(f"[3] eigen p50={np.percentile(re_, 50):.3f}s "
+        log(f"{tag} eigen p50={np.percentile(re_, 50):.3f}s "
             f"p95={np.percentile(re_, 95):.3f}s (n={len(re_)})")
     edge = [z for z in ZONES if z != "cloud"]
-    log(f"[3] RIR edge={sim.rir_stats(edge)[0]:.3f} "
+    log(f"{tag} RIR edge={sim.rir_stats(edge)[0]:.3f} "
         f"cloud={sim.rir_stats(['cloud'])[0]:.3f}")
     n_pred = 0
     for z in ZONES:
@@ -399,51 +541,62 @@ def closed_loop(device, minutes=30, epochs=60):
         n_pred += pred
         preds = np.stack([p for _, p in ctrl.predictions(z)])
         check(np.isfinite(preds).all(), f"{z}: non-finite forecast")
-        log(f"[3]   {z:8s} replicas min/mean/max = {min(reps)}/"
+        log(f"{tag}   {z:8s} replicas min/mean/max = {min(reps)}/"
             f"{np.mean(reps):.1f}/{max(reps)}  proactive_ticks={pred}/"
             f"{len(reps)}")
     check(n_pred > 0, "no proactive decision in the closed loop")
     check(len(rs) > 0 and np.isfinite(rs).all(), "sort response times")
     # the card's forecast against the plain version on the CPU, same params
     m = specs[0].model
-    cpu = LSTMForecaster(window=WINDOW, hidden=HIDDEN, device="cpu")
+    cpu = make_forecaster(arch, window=window, hidden=HIDDEN, device="cpu")
     cpu.params = params_from_numpy(params_to_numpy(m.params), "cpu")
     cpu.scaler, cpu._fitted = m.scaler, True
-    wins = np.stack([pre["edge-0"][i:i + WINDOW] for i in range(0, 100, 7)])
+    wins = np.stack([pre["edge-0"][i:i + window] for i in range(0, 100, 7)])
     a, b = m.predict_batch(wins)[0], cpu.predict_batch(wins)[0]
     rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1.0)))
     check(rel <= 1e-4, f"card forecast vs CPU plain rel err {rel}")
-    log(f"[3] card forecast vs CPU plain version: max rel err {rel:.3g}")
+    log(f"{tag} card forecast vs CPU plain version: max rel err {rel:.3g}")
     return {"p50_sort_s": float(np.percentile(rs, 50)),
             "p95_sort_s": float(np.percentile(rs, 95)),
-            "proactive_ticks": n_pred, "fit_batch": len(pre["cloud"]) - WINDOW,
-            "base_model": specs[0].model, "launches": launches,
-            "expect": expect}
+            "p50_eigen_s": (float(np.percentile(re_, 50)) if len(re_)
+                            else None),
+            "p95_eigen_s": (float(np.percentile(re_, 95)) if len(re_)
+                            else None),
+            "rir_edge": sim.rir_stats(edge)[0],
+            "rir_cloud": sim.rir_stats(["cloud"])[0],
+            "proactive_ticks": n_pred, "fit_batch": len(pre["cloud"]) - window,
+            "fits_s": t_fit, "base_model": specs[0].model,
+            "launches": launches, "expect": expect}
 
 
 # --------------------------------------------------------------- phase 4 --
-def plane_tick(device, base, Z=PLANE_Z, ticks=22, update_s=300.0):
-    """Z fabricated per-target LSTMs (one fitted base model's params, own
+def plane_tick(device, base, Z=PLANE_Z, ticks=22, update_s=300.0,
+               tag="[4]"):
+    """Phase 4 (an LSTM base model) and phase 6 (an attn one).  Z fabricated
+    per-target models of the base model's class (its params, own
     scaler stats each -- benchmarks/bench_control_plane.py::_fab_targets),
     ``ticks`` control ticks on seeded synthetic metric rows, one batched
-    FINETUNE refit when ``update_s`` comes due.  Ticks 5-9 run under
+    FINETUNE refit when ``update_s`` comes due.  The first five forecasting
+    ticks (window + 1 to window + 5) run under
     ``torch.profiler`` (device busy share) and stay out of the tick times.
     Launch counts are set to 0 before the ticks and read right after them,
     before the check that launches a kernel of its own."""
     import numpy as np
     import torch
-    from repro_torch.core import (FleetController, LSTMForecaster, PPAConfig,
-                                  Snapshot, TargetSpec, ThresholdPolicy,
-                                  Updater, UpdatePolicy)
-    from repro_torch.core.forecaster import Scaler, stacked_forward
+    from repro_torch.core import (FleetController, PPAConfig, Snapshot,
+                                  TargetSpec, ThresholdPolicy, Updater,
+                                  UpdatePolicy)
+    from repro_torch.core.forecaster import (ARCH_KERNELS, ARCH_PARAM_LEAVES,
+                                             Scaler, stacked_forward)
     from repro_torch.core.metrics import N_METRICS
-    from repro_torch.kernels import lstm_seq as seq, ref
+    from repro_torch.kernels import ref
+    arch, window, cls = base.arch, base.window, type(base)
     rng = np.random.default_rng(0)
     means = rng.uniform(50.0, 400.0, (Z, N_METRICS))
     stds = 0.1 * means + 1.0
     specs = []
     for i in range(Z):
-        m = LSTMForecaster.__new__(LSTMForecaster)
+        m = cls.__new__(cls)
         m.__dict__.update(base.__dict__)
         sc = Scaler()
         sc.mean, sc.std, sc.fitted = means[i], stds[i], True
@@ -461,9 +614,11 @@ def plane_tick(device, base, Z=PLANE_Z, ticks=22, update_s=300.0):
         torch.cuda.reset_peak_memory_stats(device)
     tick_ms, refit_s = {}, None        # unprofiled ticks only
     level = means.copy()
-    prof_ticks = range(5, 10)          # profiled window, before the refit
+    # profiled window: the first five forecasting ticks, before the refit
+    prof_ticks = range(window + 1, window + 6)
     post_refit_k = None                # the first tick after the refit
-    seq.reset_launch_counts()
+    refit_n = None                     # windows a target in the refit
+    reset_launch_counts()
     for k in range(1, ticks + 1):
         t = 15.0 * k
         level = np.abs(level + rng.normal(0.0, 0.05, level.shape) * means)
@@ -480,15 +635,17 @@ def plane_tick(device, base, Z=PLANE_Z, ticks=22, update_s=300.0):
         cur = {n: max(1, min(64, r.replicas)) for n, r in res.items()}
         t0 = time.perf_counter()
         before = updater.n_updates
+        rows = len(ctrl.targets[names[0]].history)
         ctrl.maybe_update(t)
         if updater.n_updates > before:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             refit_s = time.perf_counter() - t0
             post_refit_k = k + 1
+            refit_n = rows - window
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    launches = dict(seq.LAUNCHES)
+    launches = launch_counts()
     check(refit_s is not None and updater.n_updates == Z,
           f"batched refit did not run for all {Z} targets")
     check(post_refit_k is not None and post_refit_k <= ticks
@@ -496,41 +653,45 @@ def plane_tick(device, base, Z=PLANE_Z, ticks=22, update_s=300.0):
           "no unprofiled tick ran after the refit")
     n_fc = forecast_ticks(ctrl)
     # forecasts start once a target holds window + 1 rows
-    check(n_fc == ticks - WINDOW, f"plane forecast in {n_fc} ticks, "
-          f"not {ticks - WINDOW}")
+    check(n_fc == ticks - window, f"plane forecast in {n_fc} ticks, "
+          f"not {ticks - window}")
     # one stacked forecast a forecasting tick, one grouped forward an
     # epoch of the one batched refit
-    expect = {"lstm_seq": 0, "lstm_seq_stacked": n_fc,
-              "lstm_seq_grouped": base.finetune_epochs}
+    _, stacked_k, grouped_k = (k.__name__ for k in ARCH_KERNELS[arch])
+    expect = dict.fromkeys(launches, 0)
+    expect.update({stacked_k: n_fc, grouped_k: base.finetune_epochs})
     n_pred = sum(1 for n in names for d in ctrl.decisions(n) if d.predicted)
     check(n_pred > 0, "plane: no proactive decision")
     # the stacked forecast on the card against the plain version on the
     # CPU, on the same (refit) params and windows, for a slice of targets
     stacked = ctrl._stack_cache["stacked"]
     k = min(Z, 256)
-    zs = torch.randn((k, WINDOW, N_METRICS),
+    zs = torch.randn((k, window, N_METRICS),
                      generator=torch.Generator().manual_seed(1))
+    plain = {"lstm": ref.lstm_seq_stacked,
+             "attn": ref.attn_lstm_seq_stacked}[arch]
     with torch.no_grad():
         got = stacked_forward({n: v[:k] for n, v in stacked.items()},
-                              zs.to(device)).cpu()
-        want = ref.lstm_seq_stacked(*[stacked[n][:k].cpu() for n in
-                                      ("Wx", "Wh", "b", "Wo", "bo")], zs)
+                              zs.to(device), arch).cpu()
+        want = plain(*[stacked[n][:k].cpu() for n in ARCH_PARAM_LEAVES[arch]],
+                     zs)
     err = float((got - want).abs().max())
     check(err <= FWD_TOL, f"plane forecast vs CPU plain: {err}")
     mem = (torch.cuda.max_memory_allocated(device)
            if device.type == "cuda" else 0)
     tk = np.asarray(list(tick_ms.values()))
     k_max = max(tick_ms, key=tick_ms.get)
-    log(f"[4] Z={Z}: over the {len(tk)} unprofiled of {ticks} ticks, tick "
+    log(f"{tag} {arch} Z={Z}: over the {len(tk)} unprofiled of {ticks} ticks, tick "
         f"p50 {np.percentile(tk, 50):.1f} ms, max {tk.max():.1f} ms (tick "
         f"{k_max}; {'within' if tk.max() <= TICK_LIMIT_MS else 'OVER'} the "
         f"{TICK_LIMIT_MS:.0f} ms limit), first {tick_ms[1]:.1f} ms, first "
         f"after the refit (tick {post_refit_k}) {tick_ms[post_refit_k]:.1f} "
         f"ms; batched refit ({base.finetune_epochs} epochs, {Z} targets) "
-        f"{refit_s:.2f} s; proactive target-ticks {n_pred}; "
+        f"{refit_s:.2f} s (N={refit_n} windows a target); proactive "
+        f"target-ticks {n_pred}; "
         f"max_memory_allocated {mem / 2**20:.0f} MiB; stacked vs CPU plain "
         f"max err {err:.3g}")
-    log(f"[4] profiled ticks {prof_ticks.start}-{prof_ticks.stop - 1}: wall "
+    log(f"{tag} profiled ticks {prof_ticks.start}-{prof_ticks.stop - 1}: wall "
         f"{busy['wall_ms']:.1f} ms, device busy {busy['device_ms']:.3f} ms "
         f"({busy['busy_share']:.4%}); device time by name: "
         f"{top_names(busy['by_name'])}; host ops by self time "
@@ -538,9 +699,71 @@ def plane_tick(device, base, Z=PLANE_Z, ticks=22, update_s=300.0):
     return {"tick_ms_p50": float(np.percentile(tk, 50)),
             "tick_ms_max": float(tk.max()),
             "tick_ms_post_refit": tick_ms[post_refit_k], "refit_s": refit_s,
+            "refit_n": refit_n,
             "max_memory_allocated": mem,
             "profiled_busy_share": busy["busy_share"],
             "launches": launches, "expect": expect}
+
+
+# --------------------------------------------------------------- phase 7 --
+def harness(device, minutes=30, pretrain_s=600 * 15, tag="[7]"):
+    """The paper's §5 protocol on the card (tests/test_system.py): pretrain
+    series from a static-provisioning run, then ``run_scenario`` with the
+    scalar PPA (one attn forecaster a zone, one B=1 shared-weight forecast a
+    zone and tick) and with the reactive HPA, on the same Random Access
+    trace.  Launch counts are set to 0 before the scenarios and read right
+    after them."""
+    import numpy as np
+    import torch
+    from repro_torch.core.experiments import collect_series, run_scenario
+    from repro_torch.workloads import random_access
+    t0 = time.perf_counter()
+    pre = collect_series(random_access(pretrain_s, seed=99), pretrain_s)
+    t_collect = time.perf_counter() - t0
+    T = minutes * 60
+    tasks = random_access(T, seed=3)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ppa = run_scenario(tasks, T, scaler="ppa", model_kind="attn",
+                       window=ATTN_WINDOW, min_replicas=2, pretrain=pre,
+                       device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t_ppa = time.perf_counter() - t0
+    after_ppa = launch_counts()
+    t0 = time.perf_counter()
+    hpa = run_scenario(tasks, T, scaler="hpa", min_replicas=2)
+    t_hpa = time.perf_counter() - t0
+    launches = launch_counts()
+    check(launches == after_ppa, "the HPA arm launched a kernel")
+    models = [p.model for p in ppa.ppas.values()]
+    check(all(m.arch == "attn" and m.device == device for m in models),
+          "the PPA arm's forecasters are not attn models on the device")
+    n_pred = sum(len(p.predictions) for p in ppa.ppas.values())
+    # 3 pretraining fits, one forward an epoch; one B=1 forward for each
+    # forecast of each zone's scalar PPA; no update comes due in the run
+    expect = dict.fromkeys(launches, 0)
+    expect["attn_lstm_seq"] = (sum(m.epochs for m in models) + n_pred)
+    check(all(m._fit_count == 1 for m in models), "a PPA model refit")
+    shares = {z: float(np.mean([d.predicted for d in p.decisions]))
+              for z, p in ppa.ppas.items()}
+    check(all(v > 0.9 for v in shares.values()),
+          f"PPA proactive share {shares} not above 0.9")
+    summ = {"ppa": ppa.summary(), "hpa": hpa.summary()}
+    check(all(np.isfinite(v) for v in ppa.mse.values()),
+          f"PPA prediction MSE {ppa.mse}")
+    check(np.isfinite(ppa.sort_mean) and np.isfinite(hpa.sort_mean),
+          "sort response times")
+    log(f"{tag} collection {t_collect:.2f} s "
+        f"({len(pre['cloud'])} samples/zone); PPA+attn scenario "
+        f"{t_ppa:.2f} s (3 fits x {models[0].epochs} epochs + "
+        f"{n_pred} forecasts), HPA scenario {t_hpa:.2f} s, {len(tasks)} "
+        f"tasks")
+    log(f"{tag} PPA proactive share by zone {shares}")
+    for arm, d in summ.items():
+        log(f"{tag} {arm} summary {json.dumps(d)}")
+    return {"summary": summ, "proactive_share": shares,
+            "ppa_s": t_ppa, "launches": launches, "expect": expect}
 
 
 def profile_start(device):
@@ -596,16 +819,27 @@ def main() -> int:
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     smi_line = device_facts()
-    fit_batch = len(np.arange(15.0, 1800.0, 15.0)) - WINDOW
-    records = kernels_vs_plain(fit_batch)
+    n_rows = len(np.arange(15.0, 1800.0, 15.0))
+    fit_batch, attn_fit_batch = n_rows - WINDOW, n_rows - ATTN_WINDOW
+    records = kernels_vs_plain(fit_batch, attn_fit_batch)
 
     # each phase sets the counts to 0 before it drives its path and reads
     # them right after, before its own comparison checks
     loop = closed_loop(device)
     check(loop["fit_batch"] == fit_batch, "fit batch differs from phase 2")
     plane = plane_tick(device, loop.pop("base_model"))
+    attn_loop = closed_loop(device, arch="attn", tag="[5]")
+    check(attn_loop["fit_batch"] == attn_fit_batch,
+          "attn fit batch differs from phase 2")
+    attn_plane = plane_tick(device, attn_loop.pop("base_model"), tag="[6]")
+    check(attn_plane["refit_n"] == PLANE_FIT_ROWS - ATTN_WINDOW,
+          "attn refit N differs from phase 2")
+    paper = harness(device)
     launches = {}
-    for tag, phase in (("[3] closed loop", loop), ("[4] plane", plane)):
+    for tag, phase in (("[3] closed loop", loop), ("[4] plane", plane),
+                       ("[5] attn closed loop", attn_loop),
+                       ("[6] attn plane", attn_plane),
+                       ("[7] PPA vs HPA harness", paper)):
         got, want = phase.pop("launches"), phase.pop("expect")
         log(f"{tag} launches {got}, the path's count {want}")
         check(got == want, f"{tag} launches {got} != {want}")
@@ -613,10 +847,12 @@ def main() -> int:
             launches[name] = launches.get(name, 0) + n
     for name, n in launches.items():
         check(n > 0, f"{name} was never launched on the main path")
-    log(f"[summary] {json.dumps({'loop': loop, 'plane': plane})}")
+    phases = {"loop": loop, "plane": plane, "attn_loop": attn_loop,
+              "attn_plane": attn_plane, "harness": paper}
+    log(f"[summary] {json.dumps(phases)}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f} s")
 
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
+    kernels = [{"name": name, "route": "cuda", "source": source_of(name),
                 "replaces": REPLACES[name], "launches": launches[name],
                 "tol": FWD_TOL, **r} for name, r in records.items()]
     print(json.dumps({"kernels": kernels}))

@@ -1,18 +1,20 @@
-"""Workload forecasters in PyTorch -- the LSTM half of the JAX package's
-``core/forecaster.py``.
+"""Workload forecasters in PyTorch -- the LSTM and attention half of the JAX
+package's ``core/forecaster.py``.
 
-The paper's Keras LSTM(50)+ReLU-dense model, following the model protocol
-of §4.2.2: input = the last ``window`` rows of [CPU, RAM, NetIn, NetOut,
-Custom], output = the next row.  Parameters are plain dicts of float32
-tensors named as in ``ARCH_PARAM_LEAVES["lstm"]``, on an explicit device.
+The paper's Keras LSTM(50)+ReLU-dense model and the Attention-Double-LSTM,
+following the model protocol of §4.2.2: input = the last ``window`` rows of
+[CPU, RAM, NetIn, NetOut, Custom], output = the next row.  Parameters are
+plain dicts of float32 tensors named as in ``ARCH_PARAM_LEAVES[arch]``, on
+an explicit device; ``arch`` ("lstm" or "attn") is threaded through every
+forward and fit, as in the JAX package.
 
-Every forward goes through ``kernels/lstm_seq.py``: on a CUDA device the
-hand-written kernel (``lstm_seq`` for one model's windows,
-``lstm_seq_stacked`` for the per-target forecast of Z models,
-``lstm_seq_grouped`` for the batched refit of Z models), on the CPU its plain
-version.  There is no switch between the two: the device decides.  A
-forecaster built without a device runs on the card, and raises where there
-is none.
+Every forward goes through one kernel module per architecture
+(``kernels/lstm_seq.py``, ``kernels/attn_lstm_seq.py``): on a CUDA device
+the hand-written kernel (the shared form for one model's windows, the
+stacked form for the per-target forecast of Z models, the grouped form for
+the batched refit of Z models), on the CPU its plain version.  There is no
+switch between the two: the device decides.  A forecaster built without a
+device runs on the card, and raises where there is none.
 
 The forecaster protocol:
     fit(series (T, M), from_scratch=bool)   -- (re)train
@@ -20,7 +22,7 @@ The forecaster protocol:
     predict_batch(recents (Z, T, M)) -> (means (Z, M), stds (Z, M) | None)
     valid() / is_bayesian / save(path) / load(path)
 
-The attention, ARMA and ensemble forecasters are later slices of the port.
+The ARMA and ensemble forecasters are later slices of the port.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.metrics import N_METRICS
+from repro_torch.kernels import attn_lstm_seq as _attn
 from repro_torch.kernels import lstm_seq as _seq
 from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
                                             adamw_update)
@@ -146,24 +149,57 @@ def _lstm_init(n_in: int, hidden: int, n_out: int, *, seed: int, device):
     }
 
 
-# architecture registry: arch name -> (param init, ordered leaf names)
-ARCH_INITS = {"lstm": _lstm_init}
-ARCH_PARAM_LEAVES = {"lstm": ("Wx", "Wh", "b", "Wo", "bo")}
+def _attn_init(n_in: int, hidden: int, n_out: int, *, seed: int, device):
+    """Attention-Double-LSTM parameters: two LSTM layers bridged by a
+    window-length temporal-attention block (query projection ``Wa``)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    s = 1.0 / np.sqrt(hidden)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=device) * s
+
+    return {
+        "Wx1": normal(n_in, 4 * hidden),
+        "Wh1": normal(hidden, 4 * hidden),
+        "b1": torch.zeros((4 * hidden,), device=device),
+        "Wa": normal(hidden, hidden),
+        "Wx2": normal(hidden, 4 * hidden),
+        "Wh2": normal(hidden, 4 * hidden),
+        "b2": torch.zeros((4 * hidden,), device=device),
+        "Wo": normal(hidden, n_out),
+        "bo": torch.zeros((n_out,), device=device),
+    }
 
 
-def lstm_forward(params, xs):
+# architecture registry: arch name -> param init, ordered leaf names, and
+# the kernel wrappers (shared, stacked, grouped) its forwards launch
+ARCH_INITS = {"lstm": _lstm_init, "attn": _attn_init}
+ARCH_PARAM_LEAVES = {
+    "lstm": ("Wx", "Wh", "b", "Wo", "bo"),
+    "attn": ("Wx1", "Wh1", "b1", "Wa", "Wx2", "Wh2", "b2", "Wo", "bo"),
+}
+ARCH_KERNELS = {
+    "lstm": (_seq.lstm_seq, _seq.lstm_seq_stacked, _seq.lstm_seq_grouped),
+    "attn": (_attn.attn_lstm_seq, _attn.attn_lstm_seq_stacked,
+             _attn.attn_lstm_seq_grouped),
+}
+
+
+def _leaves(params, arch):
+    return [params[k] for k in ARCH_PARAM_LEAVES[arch]]
+
+
+def lstm_forward(params, xs, arch: str = "lstm"):
     """xs (B, W, M) float32 -> prediction (B, M): one launch of the
-    sequence kernel on a CUDA device, its plain version on the CPU."""
-    return _seq.lstm_seq(params["Wx"], params["Wh"], params["b"],
-                         params["Wo"], params["bo"], xs)
+    architecture's sequence kernel on a CUDA device, its plain version on
+    the CPU."""
+    return ARCH_KERNELS[arch][0](*_leaves(params, arch), xs)
 
 
-def grouped_forward(stacked_params, xs):
+def grouped_forward(stacked_params, xs, arch: str = "lstm"):
     """Params with a leading target axis Z, xs (Z, N, W, M) -> (Z, N, M):
     each target's own N windows through its own weights, one launch."""
-    return _seq.lstm_seq_grouped(
-        stacked_params["Wx"], stacked_params["Wh"], stacked_params["b"],
-        stacked_params["Wo"], stacked_params["bo"], xs)
+    return ARCH_KERNELS[arch][2](*_leaves(stacked_params, arch), xs)
 
 
 def _fit_loop(params, opt_state, opt_cfg, epochs, loss_fn, n_models):
@@ -184,11 +220,11 @@ def _fit_loop(params, opt_state, opt_cfg, epochs, loss_fn, n_models):
     return params, opt_state, torch.stack(losses, dim=1)
 
 
-def _lstm_fit(params, opt_state, X, Y, opt_cfg, epochs):
+def _lstm_fit(params, opt_state, X, Y, opt_cfg, epochs, arch="lstm"):
     """Full-batch MSE fit of one model: X (N, W, M), Y (N, M) ->
     (params, opt_state, losses (epochs,))."""
     def loss_fn(p):
-        return torch.mean((lstm_forward(p, X) - Y) ** 2)[None]
+        return torch.mean((lstm_forward(p, X, arch) - Y) ** 2)[None]
 
     params, opt_state, losses = _fit_loop(params, opt_state, opt_cfg, epochs,
                                           loss_fn, 1)
@@ -255,7 +291,7 @@ class LSTMForecaster(Forecaster):
         X, Y = self._windows(series)
         opt = adamw_init(self.params, self.opt_cfg)
         self.params, _, losses = _lstm_fit(self.params, opt, X, Y,
-                                           self.opt_cfg, epochs)
+                                           self.opt_cfg, epochs, self.arch)
         self._fitted = True
         self._fit_count += 1
         self.last_losses = losses.cpu().numpy()
@@ -264,7 +300,8 @@ class LSTMForecaster(Forecaster):
     @torch.no_grad()
     def _forward_np(self, z: np.ndarray) -> np.ndarray:
         """z (B, W, M) float64 -> net output (B, M) float32 numpy."""
-        return lstm_forward(self.params, self._tensor(z)).cpu().numpy()
+        return lstm_forward(self.params, self._tensor(z),
+                            self.arch).cpu().numpy()
 
     def predict(self, recent: np.ndarray):
         if not self._fitted:
@@ -317,6 +354,23 @@ class LSTMForecaster(Forecaster):
         self.params = params_from_numpy(d["params"], self.device)
 
 
+class AttnLSTMForecaster(LSTMForecaster):
+    """Attention-Double-LSTM: a first LSTM encodes the window, temporal
+    attention over its hidden states reweights the sequence, and a second
+    LSTM + ReLU-dense head reads the reweighted context.
+
+    Everything else -- the stacked per-target protocol, batched and ragged
+    fits, the device rule -- is inherited through the ``arch`` registry;
+    this class swaps the architecture entry and the default window
+    (attention needs history to attend over)."""
+
+    arch = "attn"
+    PARAM_LEAVES = ARCH_PARAM_LEAVES["attn"]
+
+    def __init__(self, window: int = 8, **kw):
+        super().__init__(window=window, **kw)
+
+
 # ----------------------------------------------------- stacked batching ---
 def lstm_stack_signature(m: "LSTMForecaster") -> tuple:
     """The attributes that must match for params to stack on one leading
@@ -338,12 +392,11 @@ def stack_scaler_stats(models) -> tuple[np.ndarray, np.ndarray]:
             np.stack([m.scaler.std for m in models]))
 
 
-def stacked_forward(stacked_params, xs):
+def stacked_forward(stacked_params, xs, arch: str = "lstm"):
     """Params with a leading target axis Z, xs (Z, W, M) -> (Z, M): Z
-    independently trained LSTMs in one launch of ``lstm_seq_stacked``."""
-    return _seq.lstm_seq_stacked(
-        stacked_params["Wx"], stacked_params["Wh"], stacked_params["b"],
-        stacked_params["Wo"], stacked_params["bo"], xs)
+    independently trained models in one launch of the architecture's
+    stacked kernel."""
+    return ARCH_KERNELS[arch][1](*_leaves(stacked_params, arch), xs)
 
 
 def lstm_predict_batch_stacked(models: list["LSTMForecaster"], recents,
@@ -374,7 +427,8 @@ def lstm_predict_batch_stacked(models: list["LSTMForecaster"], recents,
             # they were taken from stay alive
             cache["models"] = list(models)
     with torch.no_grad():
-        preds = stacked_forward(stacked, m0._tensor(z)).cpu().numpy()
+        preds = stacked_forward(stacked, m0._tensor(z),
+                                m0.arch).cpu().numpy()
     if m0.residual:
         preds = z[:, -1] + preds
     means = np.stack([m.scaler.inverse(p)
@@ -382,24 +436,26 @@ def lstm_predict_batch_stacked(models: list["LSTMForecaster"], recents,
     return means, None
 
 
-def _lstm_fit_stacked(stacked_params, stacked_opt, X, Y, opt_cfg, epochs):
+def _lstm_fit_stacked(stacked_params, stacked_opt, X, Y, opt_cfg, epochs,
+                      arch="lstm"):
     """Fit Z independently parameterised models at once: params/opt state
     stacked on a leading target axis, X (Z, N, W, M), Y (Z, N, M); each
     epoch is one grouped launch forward.  Losses (Z, epochs)."""
     def loss_fn(p):
-        return torch.mean((grouped_forward(p, X) - Y) ** 2, dim=(1, 2))
+        return torch.mean((grouped_forward(p, X, arch) - Y) ** 2,
+                          dim=(1, 2))
     return _fit_loop(stacked_params, stacked_opt, opt_cfg, epochs, loss_fn,
                      X.shape[0])
 
 
 def _lstm_fit_stacked_masked(stacked_params, stacked_opt, X, Y, W, opt_cfg,
-                             epochs):
+                             epochs, arch="lstm"):
     """``_lstm_fit_stacked`` with a per-window weight mask ``W`` (Z, N):
     ragged histories pad their window batches to a common N and zero the
     padding's loss weight.  With ``W[i] = 1`` on the real windows the
     weighted loss equals the unpadded per-target MSE exactly."""
     def loss_fn(p):
-        se = torch.sum(W[:, :, None] * (grouped_forward(p, X) - Y) ** 2,
+        se = torch.sum(W[:, :, None] * (grouped_forward(p, X, arch) - Y) ** 2,
                        dim=(1, 2))
         return se / (torch.sum(W, dim=1) * Y.shape[-1])
     return _fit_loop(stacked_params, stacked_opt, opt_cfg, epochs, loss_fn,
@@ -504,7 +560,7 @@ def lstm_fit_batch_stacked(models: list["LSTMForecaster"], serieses,
         if len(lens) == 1:
             new_p, _, losses = _lstm_fit_stacked(
                 stacked_p, stacked_o, m0._tensor(np.stack(Xs)),
-                m0._tensor(np.stack(Ys)), m0.opt_cfg, epochs)
+                m0._tensor(np.stack(Ys)), m0.opt_cfg, epochs, m0.arch)
         else:
             # ragged: pad to the longest window batch, mask the padding
             n_max = max(lens)
@@ -517,23 +573,25 @@ def lstm_fit_batch_stacked(models: list["LSTMForecaster"], serieses,
                 Wt[i, :len(x)] = 1.0
             new_p, _, losses = _lstm_fit_stacked_masked(
                 stacked_p, stacked_o, m0._tensor(Xp), m0._tensor(Yp),
-                m0._tensor(Wt), m0.opt_cfg, epochs)
+                m0._tensor(Wt), m0.opt_cfg, epochs, m0.arch)
         result.add(ms, scalers, new_p, losses)
     return result.apply() if apply else result
 
 
 _LATER_SLICE = {
-    "attn": "the attention forecaster (AttnLSTMForecaster)",
     "arma": "ARMA / ARIMA", "arima": "ARMA / ARIMA",
     "arima_d1": "ARMA / ARIMA", "ensemble": "the deep ensemble",
 }
 
 
 def make_forecaster(kind: str, **kw) -> Forecaster:
-    """The paper's ModelType argument.  This slice of the port has 'lstm';
-    the other kinds of the JAX package raise until their slice lands."""
+    """The paper's ModelType argument.  The port has 'lstm' and 'attn'
+    (Attention-Double-LSTM); the other kinds of the JAX package raise until
+    their slice lands."""
     if kind == "lstm":
         return LSTMForecaster(**kw)
+    if kind == "attn":
+        return AttnLSTMForecaster(**kw)
     if kind in _LATER_SLICE:
         raise NotImplementedError(
             f"forecaster kind {kind!r} is not ported yet: "

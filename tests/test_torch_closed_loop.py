@@ -13,6 +13,9 @@ JAX package's, on the CPU.
 * With ``Updater(FINETUNE)`` the batched refit runs inside the loop; the
   refit compounds rounding over 30 epochs, so forecasts after it get 1e-3
   relative.
+* The same two runs with the Attention-Double-LSTM (window 8, hidden=8) in
+  every zone: forecasts start at 9 rows, and the refit at t=300 fits 12
+  windows a target through the grouped attn form.
 """
 import jax
 import numpy as np
@@ -141,8 +144,22 @@ def pretrained():
     return models
 
 
+@pytest.fixture(scope="module")
+def pretrained_attn():
+    """Per-zone JAX Attention-Double-LSTMs fitted on a 600 s collection
+    run."""
+    sim = collect(tcl, twl, 600.0)
+    models = {}
+    for z in ZONES:
+        m = jf.AttnLSTMForecaster(window=8, hidden=8, epochs=20, seed=0)
+        m.fit(np.stack([v for _, v in sim.samples[z]]), from_scratch=True)
+        models[z] = m
+    return models
+
+
 def _port_of(jm):
-    tm = tf.LSTMForecaster(window=jm.window, hidden=jm.hidden,
+    cls = tf.AttnLSTMForecaster if jm.arch == "attn" else tf.LSTMForecaster
+    tm = cls(window=jm.window, hidden=jm.hidden,
                            epochs=jm.epochs,
                            finetune_epochs=jm.finetune_epochs,
                            lr=jm.opt_cfg.lr, seed=jm._seed,
@@ -175,6 +192,14 @@ def _decisions(ctrl, z):
 
 
 def test_closed_loop_matches_jax(pretrained):
+    _assert_never_loop_matches(pretrained)
+
+
+def test_attn_closed_loop_matches_jax(pretrained_attn):
+    _assert_never_loop_matches(pretrained_attn)
+
+
+def _assert_never_loop_matches(pretrained):
     jsim, jctrl, _ = _run(jc, jcl, jwl, pretrained, "NEVER", 360.0, 3600.0)
     tmodels = {z: _port_of(m) for z, m in pretrained.items()}
     tsim, tctrl, _ = _run(tc, tcl, twl, tmodels, "NEVER", 360.0, 3600.0)
@@ -197,8 +222,16 @@ def test_closed_loop_finetune_matches_jax(pretrained):
     """update_interval_s=150: the first due update finds fewer than 16
     records and waits, the one at t=300 refits every target in one batched
     fit; forecasts after it still agree."""
-    jmodels = {z: jf.LSTMForecaster.__new__(jf.LSTMForecaster)
-               for z in ZONES}
+    _assert_finetune_loop_matches(pretrained)
+
+
+def test_attn_closed_loop_finetune_matches_jax(pretrained_attn):
+    """The attn refit at t=300: 20 rows, so 12 windows a target."""
+    _assert_finetune_loop_matches(pretrained_attn)
+
+
+def _assert_finetune_loop_matches(pretrained):
+    jmodels = {z: type(m).__new__(type(m)) for z, m in pretrained.items()}
     for z, m in jmodels.items():
         m.__setstate__(pretrained[z].__getstate__())
     _, jctrl, jupd = _run(jc, jcl, jwl, jmodels, "FINETUNE", 420.0, 150.0)
