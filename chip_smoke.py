@@ -2,18 +2,20 @@
 """Chip smoke for the PyTorch / CUDA port (``src/repro_torch``) on one GPU.
 
 Drives the port's main paths -- the paper's per-target LSTM and
-Attention-Double-LSTM closed loops and its PPA-vs-HPA harness -- on the
-card, through the hand-written CUDA kernels of ``kernels/csrc/lstm_seq.cu``
-and ``kernels/csrc/attn_lstm_seq.cu``:
+Attention-Double-LSTM closed loops, its PPA-vs-HPA harness, and the LLM
+decode engine the PPA scales -- on the card, through the hand-written CUDA
+kernels of ``kernels/csrc/``: ``lstm_seq.cu``, ``attn_lstm_seq.cu``,
+``rmsnorm.cu``, ``flash_attention.cu`` and ``decode_attention.cu``:
 
 1. device facts (``nvidia-smi`` name and power limit), TF32 off for float32
-   products, both kernels built from the checkout's sources with ``nvcc``
-   (one process per source, started together);
+   products, the five kernels built from the checkout's sources with
+   ``nvcc`` (one process per source, started together);
 2. every kernel wrapper against its plain PyTorch version at the main
-   paths' shapes and at edge shapes, the autograd gradients against autograd
-   through the plain version, and each kernel's time beside the plain
-   version's, a library yardstick where one exists, and its bound on an
-   H100;
+   paths' shapes and at edge shapes (f32 and bf16 for the decoder's
+   kernels), the LSTM kernels' autograd gradients against autograd through
+   the plain version, and each kernel's time beside the plain version's, a
+   library yardstick where one exists (cuDNN's LSTM, ``F.rms_norm``,
+   ``scaled_dot_product_attention``), and its bound on an H100;
 3. the paper-scale closed loop of examples/multizone_control.py: a 1800 s
    collection run, 7 per-target LSTM(50) fits on the card, ``FleetController``
    + ``Updater(FINETUNE)`` over 30 simulated minutes of NASA + Random Access;
@@ -25,21 +27,31 @@ and ``kernels/csrc/attn_lstm_seq.cu``:
 6. phase 4 with Z=4096 attn targets made from phase 5's model;
 7. the paper's §5 harness (``core/experiments.py``): ``run_scenario`` with
    the scalar PPA and the attn forecaster against the reactive HPA on 30
-   simulated minutes of Random Access (tests/test_system.py on the card).
+   simulated minutes of Random Access (tests/test_system.py on the card);
+8. examples/autoscale_serving.py at full width: ``DecodeEngine`` (16 slots x
+   8192 positions) on h2o-danube-1.8b (24 layers, 1,835,133,440 seeded bf16
+   parameters) serves 49 bursty requests through ``ContinuousBatcher`` (one
+   prompt of 6144 tokens crosses the 4096 window) while a PPA fed
+   ``batcher.snapshot`` decides replicas and refits its LSTM on the card;
+   then the kernels' engine against the plain versions' engine, every
+   kernel launch of that check against its plain version, decode after
+   prefill against prefill, and five profiled decode steps.
 
-Phases 3 to 7 each set the launch counts to 0 before they drive their path
+Phases 3 to 8 each set the launch counts to 0 before they drive their path
 and read them right after it, before the checks that launch kernels of
-their own; the counts of all six wrappers must equal what the path needs (a
-fit forward an epoch, a stacked forecast a forecasting tick, a grouped
-forward a refit epoch, a shared forward a scalar PPA forecast), and each
-kernel must have launched.  Any failed check raises, so the script exits
-non-zero.  The last three lines are the kernels' JSON record, the
-``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
+their own; the counts of all nine wrappers must equal what the path needs
+(a fit forward an epoch, a stacked forecast a forecasting tick, a grouped
+forward a refit epoch, a shared forward a scalar PPA forecast; 2 x 24 + 1
+norms and 24 attentions a prefill and a decode step), and each kernel must
+have launched.  Any failed check raises, so the script exits non-zero.
+The last three lines are the kernels' JSON record, the ``nvidia-smi``
+line, and ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -53,7 +65,19 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 CUDA-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12   # bf16 dense tensor-core peak
 FWD_TOL = 1e-4          # kernel vs plain, absolute: f32 sums in another order
+# bf16 kernels against their plain versions computed in f32 from the same
+# bf16 inputs: the JAX package's own bf16 bar (tests/test_kernels.py:49) for
+# the attentions at unit-scale inputs, a relative bar for the norm (one bf16
+# rounding is up to 2^-8 relative).  A softmax over thousands of keys gives
+# outputs far below 1, where 2e-2 absolute passes a key too many at the
+# window's edge, so each bf16 attention row is also held against its own
+# scale (attn_row_err): the output's rounding is at most 2^-8 of the row's
+# largest element and p's rounding before P.V adds noise below that
+BF16_ATTN_TOL = 2e-2
+BF16_ATTN_ROW_TOL = 1e-2
+BF16_NORM_REL = 8e-3
 GRAD_TOL = 1e-4
 N_EDGE = 6
 ZONES = tuple(f"edge-{i}" for i in range(N_EDGE)) + ("cloud",)
@@ -67,6 +91,9 @@ TICK_LIMIT_MS = 1500.0  # PERF.md section 2: a tenth of the 15 s interval
 KERNELS = {
     "lstm_seq": "src/repro_torch/kernels/csrc/lstm_seq.cu",
     "attn_lstm_seq": "src/repro_torch/kernels/csrc/attn_lstm_seq.cu",
+    "rmsnorm": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
 }
 KERNEL_SYMBOL = {
     "lstm_seq_grouped_kernel": ("lstm_seq", "lstm_seq_stacked",
@@ -74,8 +101,14 @@ KERNEL_SYMBOL = {
     "attn_lstm_seq_grouped_kernel": ("attn_lstm_seq",
                                      "attn_lstm_seq_stacked",
                                      "attn_lstm_seq_grouped"),
+    "rmsnorm_kernel": ("rmsnorm",),
+    "flash_attention_kernel": ("flash_attention",),
+    "decode_attention_kernel": ("decode_attention",),
 }
 REPLACES = {
+    "rmsnorm": "src/repro/kernels/rmsnorm.py:21",
+    "flash_attention": "src/repro/kernels/flash_attention.py:92",
+    "decode_attention": "src/repro/kernels/decode_attention.py:60",
     "lstm_seq": "src/repro/kernels/lstm_seq.py:238",
     "lstm_seq_stacked": "src/repro/kernels/lstm_seq.py:246",
     # the refit vmaps lstm_seq over Z targets (core/forecaster.py:546)
@@ -92,20 +125,41 @@ def symbol_of(wrapper):
 
 
 def source_of(wrapper):
+    if wrapper in KERNELS:
+        return KERNELS[wrapper]
     return KERNELS["attn_lstm_seq" if wrapper.startswith("attn")
                    else "lstm_seq"]
 
 
+def _wrapper_modules():
+    from repro_torch.kernels import attn_lstm_seq, decode_attention
+    from repro_torch.kernels import flash_attention, lstm_seq, rmsnorm
+    return (lstm_seq, attn_lstm_seq, rmsnorm, flash_attention,
+            decode_attention)
+
+
 def reset_launch_counts():
-    from repro_torch.kernels import attn_lstm_seq as attn, lstm_seq as seq
-    seq.reset_launch_counts()
-    attn.reset_launch_counts()
+    for mod in _wrapper_modules():
+        mod.reset_launch_counts()
 
 
 def launch_counts():
-    """The launch counts of all six wrappers."""
-    from repro_torch.kernels import attn_lstm_seq as attn, lstm_seq as seq
-    return {**seq.LAUNCHES, **attn.LAUNCHES}
+    """The launch counts of all nine wrappers."""
+    out = {}
+    for mod in _wrapper_modules():
+        out.update(mod.LAUNCHES)
+    return out
+
+
+def attn_row_err(got, want):
+    """The largest over attention rows (the last dim) of a row's largest
+    error over that row's largest |want|.  A row with no visible key must
+    give exactly 0."""
+    import torch
+    d = (got.float() - want.float()).abs().amax(-1)
+    scale = want.float().abs().amax(-1).clamp_min(
+        torch.finfo(torch.float32).tiny)
+    return float((d / scale).max()) if d.numel() else 0.0
 
 
 def check(cond, msg):
@@ -167,8 +221,8 @@ def bound(G_w, G, N, W, M_, H, n_out):
     return _bound(nbytes, G * N * per_row)
 
 
-def _bound(nbytes, ops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+def _bound(nbytes, ops, flop_rate=F32_FLOP_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / flop_rate
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "ops": ops}
@@ -211,13 +265,12 @@ def device_facts():
         f"count {torch.cuda.device_count()}")
     log(f"[1] matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
-    from repro_torch.kernels import _build, attn_lstm_seq as attn
-    from repro_torch.kernels import lstm_seq as seq
+    from repro_torch.kernels import _build
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:   # one nvcc a source
         list(pool.map(_build.build, KERNELS))
-    seq._lib()
-    attn._lib()
+    for mod in _wrapper_modules():
+        mod._lib()
     log(f"[1] built+loaded "
         f"{', '.join(_build.library_path(n).name for n in KERNELS)} in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -428,6 +481,298 @@ def kernels_vs_plain(fit_batch, attn_fit_batch):
                 f"{rr['plain_ms']:.4f} ms, library {rr['library_ms']}, bound "
                 f"{rr['bound_ms']:.4f} ms ({rr['bound_by']}), max_abs_err "
                 f"{rr['max_abs_err']:.3g}")
+    return records
+
+
+# ------------------------------------------- phase 2: the decoder's kernels --
+# the decoder's shapes on the path (h2o-danube-1.8b, 16 slots, 8192 rows)
+LLM_D_MODEL, LLM_HQ, LLM_HKV, LLM_HEAD_DIM, LLM_WINDOW = 2560, 32, 8, 80, 4096
+SLOTS, MAX_LEN = 16, 8192
+
+
+def rmsnorm_bound(R, D, es_x, es_w):
+    """x read once, w read once, the output written once; 4 operations an
+    element (x*x summed, then x * inv * w)."""
+    return _bound(R * D * es_x * 2 + D * es_w, 4 * R * D)
+
+
+def flash_pairs(Sq, Skv, causal, window, q_offset=0, kv_valid=None):
+    """Visible (query, key) pairs: this run's masks, counted exactly."""
+    import numpy as np
+    qpos = q_offset + np.arange(Sq)
+    hi = np.full(Sq, Skv if kv_valid is None else min(Skv, kv_valid))
+    if causal:
+        hi = np.minimum(hi, qpos + 1)
+    lo = np.zeros(Sq, int) if window is None else np.maximum(
+        0, qpos - window + 1)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_bound(B, Hq, Hkv, Sq, Skv, D, es, pairs):
+    """q, k, v read once and o written once; q.k and p.v are 2 operations
+    a multiply-add, 4 * D a visible pair and query head, over the bf16
+    tensor-core peak."""
+    nbytes = es * D * (2 * B * Hq * Sq + 2 * B * Hkv * Skv)
+    return _bound(nbytes, 4 * B * Hq * D * pairs, BF16_TC_FLOP_PER_S)
+
+
+def decode_rows(valid, S, window):
+    """Cache rows each slot's query sees: [valid - window, valid) within
+    [0, S)."""
+    import numpy as np
+    valid = np.asarray(valid)
+    hi = np.minimum(valid, S)
+    lo = np.zeros_like(valid) if window is None else np.maximum(
+        0, valid - window)
+    return np.maximum(hi - lo, 0)
+
+
+def decode_bound(B, Hq, Hkv, D, es_q, es_kv, rows):
+    """The visible k and v rows of each kv head, q and o, kv_valid: each
+    read or written once; 4 * D operations a row and query head."""
+    n = int(rows.sum())
+    nbytes = n * Hkv * D * 2 * es_kv + 2 * B * Hq * D * es_q + 4 * B
+    return _bound(nbytes, 4 * Hq * D * n, BF16_TC_FLOP_PER_S)
+
+
+def _sdpa(q, k, v, mask):
+    """One PyTorch call for the same attention (the yardstick only):
+    ``scaled_dot_product_attention`` with an explicit boolean mask and GQA
+    (older PyTorch without ``enable_gqa``: k and v repeated first)."""
+    import torch.nn.functional as F
+    try:
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              enable_gqa=True)
+    except TypeError:
+        G = q.shape[1] // k.shape[1]
+        return F.scaled_dot_product_attention(
+            q, k.repeat_interleave(G, 1), v.repeat_interleave(G, 1),
+            attn_mask=mask)
+
+
+def llm_kernels_vs_plain():
+    """The decoder's three kernels against their plain versions at the
+    serving path's shapes (bf16) and at edge shapes (f32 and bf16); their
+    times at the path's shapes beside their bounds, the plain versions'
+    times and one PyTorch call each (``F.rms_norm``, SDPA)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ref, rmsnorm as rk
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(13)
+    bf16, f32 = torch.bfloat16, torch.float32
+    records, edges = {}, 0
+
+    def rnd(*shape, dtype=f32):
+        return torch.randn(shape, generator=gen).to(dev, dtype)
+
+    def err_of(name, got, want, tol, rel=False, row_tol=None):
+        torch.cuda.synchronize()
+        check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} "
+              f"!= {tuple(want.shape)}")
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        d = (got.float() - want.float()).abs()
+        if not d.numel():
+            e = 0.0
+        elif rel:
+            e = float((d / want.float().abs().clamp_min(1e-6)).max())
+        else:
+            e = float(d.max())
+        check(e <= tol, f"{name}: {'rel' if rel else 'max_abs'}_err {e} > "
+              f"{tol}")
+        if row_tol is not None:
+            r = attn_row_err(got, want)
+            check(r <= row_tol, f"{name}: row err {r} > {row_tol} of the "
+                  f"row's own scale (max_abs_err {e})")
+        return e
+
+    def attn_tols(all_f32):
+        return (dict(tol=FWD_TOL) if all_f32 else
+                dict(tol=BF16_ATTN_TOL, row_tol=BF16_ATTN_ROW_TOL))
+
+    def measure(name, shape, kernel, plain, library, want, tol, bnd,
+                iters=20, rel=False, row_tol=None):
+        """Kernel against its plain version (``want``: computed in f32 from
+        the same inputs), then the kernel's call and device times, the
+        plain version's time on the path's dtype and the library call's."""
+        got = kernel()
+        err = err_of(name, got, want, tol, rel, row_tol)
+        rec = dict(shape=shape, tol=tol,
+                   max_abs_err=float((got.float() - want.float()).abs().max()))
+        if rel:
+            rec["max_rel_err"] = err
+        if row_tol is not None:
+            rec["row_tol"] = row_tol
+            rec["max_row_err"] = attn_row_err(got, want)
+        rec["call_ms"] = rec["ms"] = time_ms(kernel, iters)
+        rec["kernel_ms"] = kernel_device_ms(kernel, symbol_of(name), iters)
+        rec["plain_ms"] = time_ms(plain, max(3, iters // 4))
+        rec["library_ms"] = None
+        if library is not None:
+            rec["library_max_abs_err"] = float(
+                (library().float() - want.float()).abs().max())
+            rec["library_ms"] = time_ms(library, iters)
+        rec.update(bnd)
+        return rec
+
+    with torch.no_grad():
+        # ---- rmsnorm: R = 16 slots (a decode step), 6144 (the long prompt)
+        w = (1.0 + 0.1 * rnd(LLM_D_MODEL)).to(bf16)
+        subs = {}
+        for R in (16, 6144):
+            x = rnd(R, LLM_D_MODEL, dtype=bf16)
+            subs[R] = measure(
+                "rmsnorm", f"R={R} D={LLM_D_MODEL} bf16",
+                lambda: rk.rmsnorm(x, w), lambda: ref.rmsnorm(x, w),
+                lambda: F.rms_norm(x, (LLM_D_MODEL,), w, 1e-6),
+                ref.rmsnorm(x.float(), w.float()), BF16_NORM_REL,
+                rmsnorm_bound(R, LLM_D_MODEL, 2, 2), iters=50, rel=True)
+        records["rmsnorm"] = {**subs[16], "prefill": subs[6144]}
+        for R, D, xd, wd in [(1, 16, f32, f32), (3, 80, f32, bf16),
+                             (5, 2560, bf16, f32), (7, 4096, f32, f32),
+                             (0, 64, bf16, bf16), (2, 6912, bf16, bf16)]:
+            x, ww = rnd(R, D, dtype=xd), (1.0 + 0.1 * rnd(D)).to(wd)
+            want = ref.rmsnorm(x.float(), ww.float())
+            if xd == f32:
+                err_of(f"rmsnorm R={R} D={D}", rk.rmsnorm(x, ww), want,
+                       FWD_TOL)
+            else:
+                err_of(f"rmsnorm R={R} D={D}", rk.rmsnorm(x, ww), want,
+                       BF16_NORM_REL, rel=True)
+            edges += 1
+        # a strided row view (the wrapper takes a row stride)
+        xb = rnd(6, 2 * 96)
+        ones = torch.ones(96, device=dev)
+        err_of("rmsnorm strided rows", rk.rmsnorm(xb[:, :96], ones),
+               ref.rmsnorm(xb[:, :96], ones), FWD_TOL)
+        edges += 1
+
+        # ---- flash attention: the prefill's (B, H, S, D) views of (B, S,
+        # H, D) projections, window 4096, Sq = 512 and 6144
+        subs = {}
+        for Sq in (512, 6144):
+            qs = rnd(1, Sq, LLM_HQ, LLM_HEAD_DIM, dtype=bf16)
+            ks = rnd(1, Sq, LLM_HKV, LLM_HEAD_DIM, dtype=bf16)
+            vs = rnd(1, Sq, LLM_HKV, LLM_HEAD_DIM, dtype=bf16)
+            q, k, v = (t.transpose(1, 2) for t in (qs, ks, vs))
+            kw = dict(causal=True, window=LLM_WINDOW)
+            pos = torch.arange(Sq, device=dev)
+            mask = ((pos[None, :] <= pos[:, None])
+                    & (pos[:, None] - pos[None, :] < LLM_WINDOW))
+            subs[Sq] = measure(
+                "flash_attention",
+                f"B=1 Hq={LLM_HQ} Hkv={LLM_HKV} Sq=Skv={Sq} D={LLM_HEAD_DIM}"
+                f" window={LLM_WINDOW} bf16",
+                lambda: fk.flash_attention(q, k, v, **kw),
+                lambda: ref.flash_attention(q, k, v, **kw),
+                lambda: _sdpa(q, k, v, mask),
+                ref.flash_attention(q.float(), k.float(), v.float(), **kw),
+                BF16_ATTN_TOL,
+                flash_bound(1, LLM_HQ, LLM_HKV, Sq, Sq, LLM_HEAD_DIM, 2,
+                            flash_pairs(Sq, Sq, True, LLM_WINDOW)),
+                iters=10 if Sq > 1000 else 20, row_tol=BF16_ATTN_ROW_TOL)
+        records["flash_attention"] = {**subs[512], "long_prompt": subs[6144]}
+        # edge shapes: head dims, G = 1 and 4, Sq off the block, q_offset,
+        # kv_valid (0, inside, past Skv), cap, no causality, small windows
+        for (B, Hq, Hkv, Sq, Skv, D, opts) in [
+                (1, 4, 1, 37, 37, 16, {}),
+                (2, 4, 4, 100, 100, 64, dict(window=33)),
+                (1, 8, 2, 65, 129, 80, dict(q_offset=64, kv_valid=120)),
+                (1, 2, 2, 130, 130, 128, dict(cap=5.0)),
+                (1, 4, 1, 70, 70, 256, dict(causal=False, kv_valid=50)),
+                (1, 4, 1, 1, 200, 80, dict(q_offset=199, window=64)),
+                (2, 8, 2, 64, 64, 80, dict(kv_valid=0)),
+                (1, 4, 4, 97, 31, 80, dict(causal=False, window=16,
+                                           q_offset=10))]:
+            for dt in (f32, bf16):
+                q = rnd(B, Sq, Hq, D, dtype=dt).transpose(1, 2)
+                k = rnd(B, Skv, Hkv, D, dtype=dt).transpose(1, 2)
+                v = rnd(B, Hkv, Skv, D, dtype=dt)
+                kw = dict(dict(causal=True), **opts)
+                want = ref.flash_attention(q.float(), k.float(), v.float(),
+                                           **kw)
+                err_of(f"flash B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} "
+                       f"D={D} {opts} {dt}",
+                       fk.flash_attention(q, k, v, **kw), want,
+                       **attn_tols(dt == f32))
+                edges += 1
+
+        # ---- decode attention: 16 slots against the (B, S, Hkv, D) cache
+        # slice, read as a (B, Hkv, S, D) view; kv_valid spread over
+        # [1, S], some rows past the window
+        valid_np = np.linspace(1, MAX_LEN, SLOTS).round().astype(np.int32)
+        valid = torch.as_tensor(valid_np, device=dev)
+        kc = rnd(SLOTS, MAX_LEN, LLM_HKV, LLM_HEAD_DIM, dtype=bf16)
+        vc = rnd(SLOTS, MAX_LEN, LLM_HKV, LLM_HEAD_DIM, dtype=bf16)
+        q = rnd(SLOTS, LLM_HQ, LLM_HEAD_DIM, dtype=bf16)
+        k, v = kc.transpose(1, 2), vc.transpose(1, 2)
+        kw = dict(kv_valid=valid, window=LLM_WINDOW)
+        pos = torch.arange(MAX_LEN, device=dev)
+        dmask = ((pos[None, :] < valid[:, None])
+                 & (valid[:, None] - 1 - pos[None, :] < LLM_WINDOW))
+        rows = decode_rows(valid_np, MAX_LEN, LLM_WINDOW)
+        records["decode_attention"] = measure(
+            "decode_attention",
+            f"B={SLOTS} Hq={LLM_HQ} Hkv={LLM_HKV} S={MAX_LEN} "
+            f"D={LLM_HEAD_DIM} window={LLM_WINDOW} kv_valid "
+            f"{valid_np.min()}..{valid_np.max()} bf16",
+            lambda: dk.decode_attention(q, k, v, **kw),
+            lambda: ref.decode_attention(q, k, v, **kw),
+            lambda: _sdpa(q[:, :, None], k, v,
+                          dmask[:, None, None, :])[:, :, 0],
+            ref.decode_attention(q.float(), k.float(), v.float(), **kw),
+            BF16_ATTN_TOL,
+            decode_bound(SLOTS, LLM_HQ, LLM_HKV, LLM_HEAD_DIM, 2, 2, rows),
+            iters=20, row_tol=BF16_ATTN_ROW_TOL)
+        records["decode_attention"]["visible_rows"] = int(rows.sum())
+        for (B, Hq, Hkv, S, D, opts, qd, kd) in [
+                (3, 4, 1, 300, 16, {}, f32, f32),
+                (2, 4, 4, 257, 64, dict(cap=5.0), bf16, bf16),
+                (4, 8, 2, 500, 80, dict(window=100), f32, bf16),
+                (2, 2, 2, 64, 128, {}, bf16, f32),
+                (2, 4, 1, 200, 256, dict(window=64, cap=20.0), f32, f32),
+                (2, 4, 1, 150, 256, {}, bf16, bf16),
+                (2, 32, 8, 1000, 80, dict(window=300), bf16, bf16)]:
+            kv = rnd(B, S, Hkv, D, dtype=kd)
+            vv = rnd(B, S, Hkv, D, dtype=kd)
+            qq = rnd(B, Hq, D, dtype=qd)
+            # kv_valid = 1 and = S, one inside, one past S (a slot decoding
+            # past the cache end)
+            vals = torch.as_tensor([1, S, S // 2 + 1, S + 7][:B],
+                                   dtype=torch.int32, device=dev)
+            kw = dict(dict(kv_valid=vals), **opts)
+            want = ref.decode_attention(qq.float(), kv.transpose(1, 2).float(),
+                                        vv.transpose(1, 2).float(), **kw)
+            err_of(f"decode B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} {opts} "
+                   f"q {qd} kv {kd}",
+                   dk.decode_attention(qq, kv.transpose(1, 2),
+                                       vv.transpose(1, 2), **kw), want,
+                   **attn_tols((qd, kd) == (f32, f32)))
+            edges += 1
+        # a float64 input and an unsupported device must raise
+        for fn, args in [(rk.rmsnorm, (rnd(2, 8).double(), rnd(8).double())),
+                         (fk.flash_attention, (rnd(1, 2, 4, 8).double(),) * 3)]:
+            try:
+                fn(*args)
+            except TypeError:
+                pass
+            else:
+                check(False, f"{fn.__name__}: float64 input did not raise")
+    for name, r in records.items():
+        for tag, rr in [("", r)] + [(f" ({k})", v) for k, v in r.items()
+                                    if isinstance(v, dict)]:
+            log(f"[2] {name}{tag} {rr['shape']}: kernel {rr['call_ms']:.4f} "
+                f"ms a call ({rr['kernel_ms']:.4f} ms on the device), plain "
+                f"{rr['plain_ms']:.4f} ms, library {rr['library_ms']}, bound "
+                f"{rr['bound_ms']:.4f} ms ({rr['bound_by']}), max_abs_err "
+                f"{rr['max_abs_err']:.3g}, row err {rr.get('max_row_err')}")
+    log(f"[2] {edges} edge shapes of the decoder's kernels match their plain "
+        f"versions (f32 {FWD_TOL}; bf16 attention {BF16_ATTN_TOL} abs and "
+        f"{BF16_ATTN_ROW_TOL} of each row's scale, norm {BF16_NORM_REL} "
+        f"rel)")
     return records
 
 
@@ -766,6 +1111,331 @@ def harness(device, minutes=30, pretrain_s=600 * 15, tag="[7]"):
             "ppa_s": t_ppa, "launches": launches, "expect": expect}
 
 
+# --------------------------------------------------------------- phase 8 --
+SERVE_REQUESTS, SERVE_PROMPTS, SERVE_NEW = 48, (64, 1024), (16, 96)
+LONG_PROMPT = 6144            # crosses the 4096 window
+CHECK_PROMPT, CHECK_STEPS = 512, 8
+# bf16 logits of the kernels' engine against the plain versions' engine (and
+# decode-after-prefill against prefill of the extended sequence), at full
+# depth: relative to the largest logit, for 24 layers of bf16 rounding
+# taken at other points (p rounded before or after the softmax's division)
+LOGIT_REL_TOL = 5e-2
+
+
+def well_conditioned(params, cfg):
+    """Rescale the attention projections, in place, to their true fan-in
+    (d for w_q, w_k, w_v; Hq * Dh for w_o).  The JAX package's init takes
+    the second-to-last dim as fan-in, which for a (d, H, Dh) projection is
+    H: at full width that makes attention scores of order 100, the softmax
+    a hard argmax, and the network chaotic in its rounding -- one bf16 ulp
+    in a score flips which key wins, so two correct implementations'
+    logits part by as much as the logits (148% in a chip run; 69% between
+    bf16 and f32 through 3 layers on the CPU, 0.8% rescaled)."""
+    d, Hq, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    for step in params["blocks"].values():
+        a = step["attn"]
+        a["w_q"].mul_((Hq / d) ** 0.5)
+        a["w_k"].mul_((Hkv / d) ** 0.5)
+        a["w_v"].mul_((Hkv / d) ** 0.5)
+        a["w_o"].mul_((Dh / (Hq * Dh)) ** 0.5)
+    return params
+
+
+@contextlib.contextmanager
+def swapped(make):
+    """Within the block each of the decoder's three kernel wrappers ``fn``
+    is ``make(name, fn)`` in its module, where the model looks it up at
+    every call."""
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels import rmsnorm
+    saved = [(mod, name, getattr(mod, name)) for mod, name in
+             [(rmsnorm, "rmsnorm"), (flash_attention, "flash_attention"),
+              (decode_attention, "decode_attention")]]
+    for mod, name, fn in saved:
+        setattr(mod, name, make(name, fn))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def plain_versions():
+    """Within the block the model runs the kernels' plain versions (on any
+    device): the same model and weights make the plain engine."""
+    from repro_torch.kernels import ref
+    return swapped(lambda name, fn: getattr(ref, name))
+
+
+@contextlib.contextmanager
+def every_launch_checked(worst):
+    """Within the block, every call of the three decoder kernels' wrappers
+    is held against its plain version on the same inputs, computed in f32:
+    the norm within ``BF16_NORM_REL`` relative, element by element, the
+    attentions row by row within ``BF16_ATTN_ROW_TOL`` of the row's own
+    scale (``attn_row_err``).  ``worst[name]`` gathers (calls, worst err).
+    Only the plain versions run in addition, so no launch is added."""
+    import torch
+    from repro_torch.kernels import ref
+
+    def make(name, kernel):
+        plain = getattr(ref, name)
+
+        def checked(*args, **kw):
+            out = kernel(*args, **kw)
+            f32 = [a.float() if isinstance(a, torch.Tensor)
+                   and a.is_floating_point() else a for a in args]
+            want = plain(*f32, **kw)
+            if name == "rmsnorm":
+                e = float(((out.float() - want).abs()
+                           / want.abs().clamp_min(1e-6)).max())
+                tol = BF16_NORM_REL
+            else:
+                e, tol = attn_row_err(out, want), BF16_ATTN_ROW_TOL
+            check(e <= tol, f"{name} on the serving path: err {e} > {tol}")
+            n, w = worst.get(name, (0, 0.0))
+            worst[name] = (n + 1, max(w, e))
+            return out
+        return checked
+
+    with swapped(make):
+        yield worst
+
+
+def _logit_err(a, b, vocab):
+    """Max abs difference over the true vocab's logits, and that over the
+    largest logit of ``b``."""
+    a, b = a[..., :vocab].float(), b[..., :vocab].float()
+    err = float((a - b).abs().max())
+    return err, err / max(float(b.abs().max()), 1e-6)
+
+
+def serving(device, arch="h2o-danube-1.8b", cfg=None, slots=SLOTS,
+            max_len=MAX_LEN, n_requests=SERVE_REQUESTS,
+            prompts=SERVE_PROMPTS, new_tokens=SERVE_NEW,
+            long_prompt=LONG_PROMPT, check_prompt=CHECK_PROMPT,
+            check_steps=CHECK_STEPS, seed=0, tag="[8]"):
+    """examples/autoscale_serving.py at full width on the card: a
+    ``DecodeEngine`` of ``slots`` slots and ``max_len`` positions serves
+    ``n_requests`` seeded requests (prompts uniform over ``prompts``, plus
+    one of ``long_prompt`` tokens; max_new uniform over ``new_tokens``)
+    arriving in bursts through ``ContinuousBatcher``, while a PPA fed
+    ``batcher.snapshot`` every 10 steps decides the replica count and its
+    ``LSTMForecaster`` refits on the card (FINETUNE, whenever 16 rows have
+    come in).  Launch counts are set to 0 before the loop and read right
+    after it; then the kernels' engine is held against the plain versions'
+    engine and decode-after-prefill against prefill, and five decode steps
+    run under ``torch.profiler``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import (PPA, LSTMForecaster, MetricsHistory,
+                                  PPAConfig, ThresholdPolicy, Updater,
+                                  UpdatePolicy)
+    from repro_torch.models.params import param_count
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving import ContinuousBatcher, DecodeEngine, Request
+    cfg = cfg or get_config(arch)
+    model = build_model(cfg)
+    n_params = param_count(model.specs())
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = well_conditioned(
+        model.init(seed, getattr(torch, cfg.param_dtype), device), cfg)
+    engine = DecodeEngine(cfg, params, slots=slots, max_len=max_len,
+                          device=device)
+    sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" \
+        else (lambda: None)
+    sync()
+    t_init = time.perf_counter() - t0
+    batcher = ContinuousBatcher(engine)
+    fc = LSTMForecaster(window=4, epochs=40, device=device)
+    ppa = PPA(PPAConfig(threshold=60.0, control_interval_s=5.0,
+                        stabilization_s=30.0, update_interval_s=0.0),
+              fc, ThresholdPolicy(60.0, 1), Updater(UpdatePolicy.FINETUNE),
+              MetricsHistory())
+
+    rng = np.random.default_rng(seed)
+    lens = [int(n) for n in rng.integers(prompts[0], prompts[1] + 1,
+                                         n_requests)]
+    lens.insert(n_requests // 6, long_prompt)
+    reqs = [(rng.integers(0, cfg.vocab, n),
+             int(rng.integers(new_tokens[0], new_tokens[1] + 1)))
+            for n in lens]
+
+    # prefill and decode times: both end in the greedy token's copy to the
+    # host, so the host clock around them holds the device work
+    prefill_ms, decode_ms = [], []
+    insert, step = engine.insert, engine.step
+
+    def timed_insert(rid, prompt, max_new):
+        t = time.perf_counter()
+        slot = insert(rid, prompt, max_new)
+        prefill_ms.append((len(prompt), (time.perf_counter() - t) * 1e3))
+        return slot
+
+    def timed_step():
+        t = time.perf_counter()
+        active = engine.utilization() > 0
+        out = step()
+        if active:
+            decode_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    engine.insert, engine.step = timed_insert, timed_step
+    reset_launch_counts()
+    total = len(reqs)
+    submitted, n_steps, decisions = 0, 0, []
+    t0 = time.perf_counter()
+    while len(batcher.done) < total:
+        now = time.perf_counter() - t0
+        if submitted < total and rng.random() < 0.4:      # bursty arrivals
+            for _ in range(min(int(rng.integers(1, 4)), total - submitted)):
+                prompt, max_new = reqs[submitted]
+                batcher.submit(Request(submitted, prompt, max_new,
+                                       arrival=now))
+                submitted += 1
+        batcher.step(now)
+        n_steps += 1
+        if n_steps % 10 == 0:
+            ppa.observe(batcher.snapshot(now, 5.0))
+            decisions.append(ppa.control_step(now, max_replicas=16,
+                                              current_replicas=1).replicas)
+            ppa.maybe_update(now)
+    sync()
+    t_serve = time.perf_counter() - t0
+    launches = launch_counts()
+    engine.insert, engine.step = insert, step
+
+    done = sorted(batcher.done, key=lambda r: r.request_id)
+    check(len(done) == total, f"{len(done)} of {total} requests done")
+    for r in done:
+        check(len(r.output) == 1 + reqs[r.request_id][1],
+              f"request {r.request_id}: {len(r.output)} tokens, not "
+              f"1 + {reqs[r.request_id][1]}")
+    n_prefill, n_decode = len(prefill_ms), engine.steps
+    check(n_prefill == total and n_decode == len(decode_ms),
+          "prefill / decode counts")
+    L = cfg.n_layers
+    n_fit_epochs = (fc.epochs + fc.finetune_epochs
+                    * (ppa.updater.n_updates - 1)
+                    if ppa.updater.n_updates else 0)
+    expect = dict.fromkeys(launches, 0)
+    expect.update({"rmsnorm": (2 * L + 1) * (n_prefill + n_decode),
+                   "flash_attention": L * n_prefill,
+                   "decode_attention": L * n_decode,
+                   "lstm_seq": n_fit_epochs + len(ppa.predictions)})
+    mem = (torch.cuda.max_memory_allocated(device)
+           if device.type == "cuda" else 0)
+    n_out = sum(len(r.output) for r in done)
+    n_pred = sum(1 for d in ppa.decisions if d.predicted)
+
+    # the kernels' engine against the plain versions' engine (same model
+    # and weights, the plain versions swapped in; same tokens fed to both),
+    # and decode-after-prefill against prefill
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, check_prompt),
+                           device=device)[None]
+    V = cfg.vocab
+    checked = {}
+    with every_launch_checked(checked):
+        lk, ck = model.prefill(params, toks,
+                               max_len=check_prompt + check_steps)
+        with plain_versions():
+            lp, cp = model.prefill(params, toks,
+                                   max_len=check_prompt + check_steps)
+        errs, same, compared, margins, seq = [], 0, 0, [], toks
+        for i in range(check_steps + 1):
+            err, rel = _logit_err(lk, lp, V)
+            errs.append(rel)
+            # logits that say nothing (all about 0) would agree trivially
+            spread = float(lp[0, -1, :V].float().std())
+            check(spread > 0.1, f"step {i}: plain logits degenerate (std "
+                  f"{spread})")
+            if i == check_steps:
+                break
+            nxt = torch.argmax(lk[:, -1, :V], -1)[:, None]
+            top2 = torch.topk(lp[0, -1, :V].float(), 2).values
+            margins.append(float(top2[0] - top2[1]))
+            agree = nxt.item() == int(torch.argmax(lp[0, -1, :V]))
+            same += int(agree)
+            # a greedy token may differ only where the plain logits' top
+            # two sit closer than twice the logits' measured difference
+            if margins[-1] > 2 * err:
+                compared += 1
+                check(agree, f"step {i}: greedy tokens differ with the plain "
+                      f"top-2 margin {margins[-1]} above twice the logit "
+                      f"difference {err}")
+            seq = torch.cat([seq, nxt], dim=1)
+            lk, ck = model.decode_step(params, ck, nxt)
+            with plain_versions():
+                lp, cp = model.decode_step(params, cp, nxt)
+    check(compared > 0, "no step's greedy token could be compared: every "
+          "plain top-2 margin is within twice the logit difference")
+    lfull, _ = model.prefill(params, seq)
+    pd_err = _logit_err(lk[:, -1], lfull[:, -1], V)[1]
+    check(max(errs) <= LOGIT_REL_TOL,
+          f"kernels vs plain engine logits rel err {max(errs)}")
+    check(pd_err <= LOGIT_REL_TOL,
+          f"decode after prefill vs prefill rel err {pd_err}")
+
+    # five decode steps of 16 long-running slots under the profiler
+    for i in range(slots):
+        engine.insert(10_000 + i,
+                      rng.integers(0, cfg.vocab, min(1024, max_len // 2)), 64)
+    prof = profile_start(device)
+    for _ in range(5):
+        engine.step()
+    busy = profile_stop(prof, device)
+
+    pf = np.asarray(prefill_ms)
+    dm = np.asarray(decode_ms)
+    by_len = {f"{lo}-{hi}": round(float(np.median(pf[(pf[:, 0] >= lo)
+                                                     & (pf[:, 0] < hi), 1])),
+                                  3)
+              for lo, hi in [(0, 256), (256, 512), (512, 768), (768, 1025),
+                             (1025, 10**6)]
+              if ((pf[:, 0] >= lo) & (pf[:, 0] < hi)).any()}
+    log(f"{tag} {cfg.name}: {n_params:,} params ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.param_dtype}), init {t_init:.2f} s; "
+        f"{slots} slots x {max_len} positions; {total} requests, "
+        f"{n_prefill} prefills, {n_decode} decode steps, {n_out} tokens "
+        f"out in {t_serve:.2f} s ({n_out / t_serve:.1f} tok/s); peak "
+        f"memory {mem / 2**30:.2f} GiB")
+    log(f"{tag} prefill ms median by prompt length {by_len}; the "
+        f"{long_prompt}-token prompt "
+        f"{float(pf[pf[:, 0] == long_prompt, 1].max()):.1f} ms; decode step "
+        f"p50 {np.percentile(dm, 50):.2f} ms, max {dm.max():.2f} ms")
+    log(f"{tag} PPA: {len(decisions)} decisions, replicas {decisions}; "
+        f"{n_pred} proactive; {ppa.updater.n_updates} refits; "
+        f"{len(ppa.predictions)} forecasts")
+    log(f"{tag} every kernel launch of that check against its plain "
+        f"version on its own inputs, (launches, worst err): "
+        f"{checked}")
+    log(f"{tag} kernels vs plain engine: logits rel err by step "
+        f"{[round(e, 5) for e in errs]}, greedy tokens equal {same}/"
+        f"{check_steps}, {compared} steps comparable (plain top-2 margins "
+        f"{[round(m, 4) for m in margins]}); decode after prefill vs prefill rel err {pd_err:.5f}")
+    log(f"{tag} profiled 5 decode steps at {slots} active slots: wall "
+        f"{busy['wall_ms']:.1f} ms, device busy {busy['device_ms']:.3f} ms "
+        f"({busy['busy_share']:.2%}); device time by name: "
+        f"{top_names(busy['by_name'])}")
+    return {"params": n_params, "prefills": n_prefill,
+            "decode_steps": n_decode, "tokens_out": n_out,
+            "serve_s": t_serve, "tokens_per_s": n_out / t_serve,
+            "prefill_ms_by_len": by_len,
+            "long_prompt_ms": float(pf[pf[:, 0] == long_prompt, 1].max()),
+            "decode_ms_p50": float(np.percentile(dm, 50)),
+            "decode_ms_max": float(dm.max()), "peak_memory": mem,
+            "ppa_replicas": decisions, "ppa_proactive": n_pred,
+            "ppa_refits": ppa.updater.n_updates,
+            "engine_logit_rel_err": max(errs),
+            "path_launches_checked": checked,
+            "greedy_equal": same, "prefill_decode_rel_err": pd_err,
+            "profiled_busy_share": busy["busy_share"],
+            "launches": launches, "expect": expect}
+
+
 def profile_start(device):
     """Start ``torch.profiler`` (CPU, and CUDA on the card) over a window of
     ticks; the host clock starts with it."""
@@ -822,6 +1492,7 @@ def main() -> int:
     n_rows = len(np.arange(15.0, 1800.0, 15.0))
     fit_batch, attn_fit_batch = n_rows - WINDOW, n_rows - ATTN_WINDOW
     records = kernels_vs_plain(fit_batch, attn_fit_batch)
+    records.update(llm_kernels_vs_plain())
 
     # each phase sets the counts to 0 before it drives its path and reads
     # them right after, before its own comparison checks
@@ -835,11 +1506,15 @@ def main() -> int:
     check(attn_plane["refit_n"] == PLANE_FIT_ROWS - ATTN_WINDOW,
           "attn refit N differs from phase 2")
     paper = harness(device)
+    serve = serving(device)
+    check(serve["params"] == 1_835_133_440,
+          f"h2o-danube-1.8b has {serve['params']} parameters")
     launches = {}
     for tag, phase in (("[3] closed loop", loop), ("[4] plane", plane),
                        ("[5] attn closed loop", attn_loop),
                        ("[6] attn plane", attn_plane),
-                       ("[7] PPA vs HPA harness", paper)):
+                       ("[7] PPA vs HPA harness", paper),
+                       ("[8] serving", serve)):
         got, want = phase.pop("launches"), phase.pop("expect")
         log(f"{tag} launches {got}, the path's count {want}")
         check(got == want, f"{tag} launches {got} != {want}")
@@ -848,7 +1523,7 @@ def main() -> int:
     for name, n in launches.items():
         check(n > 0, f"{name} was never launched on the main path")
     phases = {"loop": loop, "plane": plane, "attn_loop": attn_loop,
-              "attn_plane": attn_plane, "harness": paper}
+              "attn_plane": attn_plane, "harness": paper, "serving": serve}
     log(f"[summary] {json.dumps(phases)}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f} s")
 

@@ -113,8 +113,8 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "no CUDA device: the forecaster runs on the card unless the "
-                "caller asks for the CPU (device='cpu')")
+                "no CUDA device: the port runs on the card unless the caller "
+                "asks for the CPU (device='cpu')")
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
     return device

@@ -1,0 +1,134 @@
+"""Flash attention kernel for Hopper: the wrapper.
+
+``flash_attention(q, k, v, ...)`` is the JAX package's Pallas
+``kernels/flash_attention.py``: online-softmax attention with GQA, causal /
+sliding-window / ``kv_valid`` masks, ``q_offset`` and a logit soft-cap, in
+the kernels' layout q (B, Hq, Sq, D), k, v (B, Hkv, Skv, D).  CUDA tensors
+go to ``csrc/flash_attention.cu``, CPU tensors to the plain version
+(``kernels/ref.py``); any other device raises.  Unlike the Pallas kernel it
+takes any Sq and Skv (not only multiples of a block) and strided views
+(any strides over B, H and S, unit stride over D), so the decoder passes
+its (B, S, H, D) projections transposed, without a copy.  ``LAUNCHES``
+counts the kernel's launches.  The decoder serves, so there is no backward.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels.lstm_seq import _MAX_SMEM
+from repro_torch.kernels.rmsnorm import DTYPE_CODES
+
+LAUNCHES = {"flash_attention": 0}
+
+MAX_HEAD_DIM = 256
+_MAX_GRID_YZ = 65_535
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _lib():
+    lib = _build.load("flash_attention")
+    if not getattr(lib, "_argtypes_set", False):
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_forward.argtypes = (
+            [vp] * 4 + [i] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+            + [i, i, ctypes.c_float, i, i, ctypes.c_float, i, vp])
+        lib.flash_attention_forward.restype = i
+        lib.flash_attention_smem_bytes.argtypes = [i]
+        lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
+        lib.flash_attention_error_string.argtypes = [i]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        lib._argtypes_set = True
+    return lib
+
+
+def flash_attention_smem_bytes(D: int) -> int:
+    """Dynamic shared memory a CTA needs at head dimension D (the kernel
+    sets the attribute at every launch; above 48 KB from D=80 on)."""
+    return int(_lib().flash_attention_smem_bytes(D))
+
+
+def _check(q, k, v):
+    ts = (q, k, v)
+    if any(not isinstance(t, torch.Tensor) for t in ts):
+        raise TypeError("flash_attention expects torch tensors")
+    if any(t.device != q.device for t in ts):
+        raise ValueError("flash_attention inputs lie on more than one device")
+    if q.dtype not in DTYPE_CODES or any(t.dtype != q.dtype for t in ts):
+        raise TypeError(f"flash_attention takes one dtype, float32 or "
+                        f"bfloat16, got {[str(t.dtype) for t in ts]}")
+    if any(t.dim() != 4 for t in ts):
+        raise ValueError("flash_attention needs q (B, Hq, Sq, D) and k, v "
+                         "(B, Hkv, Skv, D)")
+    B, Hq, _, D = q.shape
+    _, Hkv, Skv, _ = k.shape
+    if tuple(k.shape) != tuple(v.shape) or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"flash_attention shapes disagree: q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}")
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"{Hq} query heads do not group over {Hkv} kv heads")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {D} exceeds the kernel's {MAX_HEAD_DIM}")
+    if any(t.stride(3) != 1 for t in ts if t.shape[3] > 1):
+        raise ValueError("flash_attention needs unit stride along D")
+
+
+def check_options(window, cap):
+    """A window is a positive width and a cap a positive bound (the
+    kernels take 0 to mean "none")."""
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+    if cap is not None and not cap > 0:
+        raise ValueError(f"cap must be None or > 0, got {cap}")
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, cap=None,
+                    q_offset=0, kv_valid=None, scale=None):
+    """q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) -> (B, Hq, Sq, D)."""
+    _check(q, k, v)
+    check_options(window, cap)
+    if kv_valid is not None and kv_valid < 0:
+        raise ValueError(f"kv_valid must be None or >= 0, got {kv_valid}")
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   cap=cap, q_offset=q_offset,
+                                   kv_valid=kv_valid, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on CUDA or CPU, not "
+                         f"{q.device}")
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    if Hq > _MAX_GRID_YZ or B > _MAX_GRID_YZ:
+        raise ValueError(f"B={B}, Hq={Hq} exceed the kernel's grid")
+    lib = _lib()
+    smem = lib.flash_attention_smem_bytes(D)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"flash_attention needs {smem} B of shared memory "
+                         f"at D={D}; a Hopper CTA has {_MAX_SMEM}")
+    scale = D ** -0.5 if scale is None else scale
+    strides = (ctypes.c_longlong * 12)(*[t.stride(i) for t in (q, k, v, out)
+                                         for i in range(3)])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
+            Hkv, Sq, Skv, D, strides, int(bool(causal)),
+            0 if window is None else int(window),
+            0.0 if cap is None else float(cap), int(q_offset),
+            -1 if kv_valid is None else int(kv_valid), float(scale),
+            DTYPE_CODES[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: "
+                           f"{lib.flash_attention_error_string(rc).decode()}")
+    LAUNCHES["flash_attention"] += 1
+    return out

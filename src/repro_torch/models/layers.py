@@ -1,0 +1,108 @@
+"""Shared transformer building blocks: RMSNorm, RoPE, embeddings, gated MLP.
+
+Conventions as in the JAX package's ``models/layers.py``: activations in
+``cfg.compute_dtype``, norm and RoPE statistics in float32, vocab
+embeddings padded to a multiple of ``VOCAB_PAD``.  ``rmsnorm`` runs the
+hand-written kernel (``kernels/rmsnorm.py``: the CUDA kernel for CUDA
+tensors, its plain version for CPU tensors); it follows the Pallas kernel,
+float32 throughout with one rounding at the end, where the JAX package's
+``layers.rmsnorm`` rounds the inverse and its products in the activation
+dtype (ROADMAP.md section 3).  The big products stay ``torch.matmul``, as the
+JAX package leaves them to XLA.  The loss and the gradient barrier wait
+for the training slice.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import rmsnorm as rmsnorm_kernel
+from repro_torch.models.params import Spec
+
+VOCAB_PAD = 2048  # the JAX package's lcm(model_axis=16, MXU lane=128)
+
+
+def padded_vocab(vocab: int) -> int:
+    return ((vocab + VOCAB_PAD - 1) // VOCAB_PAD) * VOCAB_PAD
+
+
+# ---------------------------------------------------------------- norms ----
+def rmsnorm(w: torch.Tensor, x: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """x (..., D) normalised over D and scaled by w (D,), in x's dtype."""
+    return rmsnorm_kernel.rmsnorm(x.reshape(-1, x.shape[-1]), w,
+                                  eps).reshape(x.shape)
+
+
+# ----------------------------------------------------------------- rope ----
+def _rope_freqs(positions: torch.Tensor, dim: int, theta: float):
+    half = dim // 2
+    freqs = torch.exp(-math.log(theta) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    angles = positions.to(torch.float32)[..., None] * freqs  # (..., half)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    cos, sin = _rope_freqs(positions, x.shape[-1], theta)  # (..., S, D/2)
+    cos = cos[..., None, :]                                # (..., S, 1, D/2)
+    sin = sin[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------- softcap -----
+def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
+    if cap is None:
+        return x
+    return (cap * torch.tanh(x.to(torch.float32) / cap)).to(x.dtype)
+
+
+# ----------------------------------------------------------- embedding -----
+def embed_specs(vocab: int, d: int) -> dict:
+    pv = padded_vocab(vocab)
+    return {"embedding": Spec((pv, d), ("vocab", "fsdp"), init="embed",
+                              scale=1.0)}
+
+
+def embed_lookup(emb: torch.Tensor, tokens: torch.Tensor,
+                 compute_dtype) -> torch.Tensor:
+    # a gather; tokens lie below the true vocab <= padded rows
+    return emb[tokens.long()].to(compute_dtype)
+
+
+def unembed_logits(emb_or_w: torch.Tensor, x: torch.Tensor, true_vocab: int,
+                   final_cap: float | None = None) -> torch.Tensor:
+    """x: (..., d) -> logits (..., padded_vocab) with pad positions set to
+    the dtype's lowest value."""
+    logits = torch.matmul(x, emb_or_w.to(x.dtype).t())
+    logits = softcap(logits, final_cap)
+    if emb_or_w.shape[0] != true_vocab:
+        logits[..., true_vocab:] = torch.finfo(logits.dtype).min
+    return logits
+
+
+# ----------------------------------------------------------------- mlp -----
+def mlp_specs(d: int, d_ff: int) -> dict:
+    return {
+        "w_gate": Spec((d, d_ff), ("fsdp", "mlp")),
+        "w_up": Spec((d, d_ff), ("fsdp", "mlp")),
+        "w_down": Spec((d_ff, d), ("mlp", "fsdp")),
+    }
+
+
+def _act(name: str):
+    # jax.nn.gelu is the tanh approximation by default
+    return {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
+            "relu": F.relu}[name]
+
+
+def mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    dt = x.dtype
+    h = _act(act)(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
+    return h @ p["w_down"].to(dt)

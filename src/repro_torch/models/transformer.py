@@ -1,0 +1,358 @@
+"""Decoder-only LM, the dense family (gemma2 and qwen1.5 features included).
+
+Depth is ``n_steps`` repetitions of a per-arch *pattern*, as in the JAX
+package's ``models/transformer.py``:
+
+    dense  : ("block",)            n_steps = n_layers
+    gemma2 : ("local", "global")   n_steps = n_layers // 2
+
+Pattern params are stacked along a leading 'layers' dim; the port walks
+that axis in a Python loop (no scan, no remat, no mesh).  Inference only:
+``forward``, ``prefill`` and ``decode_step``.  The decode cache is the JAX
+package's pytree -- per pattern entry ``k``, ``v`` (n_steps, B, max_len,
+Hkv, D) in bfloat16 whatever the compute dtype, and ``len`` (n_steps, B)
+-- but the port updates it in place: a decode step writes one row per slot
+and layer, and ``prefill(..., cache=, rows=)`` writes a prompt's rows into
+the given slots of a live cache.  A write position past the cache end is
+clamped to the last row, as ``lax.dynamic_update_slice`` clamps it.
+
+The attention and norms run the hand-written kernels (``models/attention``,
+``models/layers``).  MoE, SSM and hybrid families, the
+int8 KV cache and vision / audio prefixes raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.attention import attention, decode_attention
+from repro_torch.models.params import Spec, init_params, tree_map
+
+KV_CACHE_DTYPE = torch.bfloat16
+# what ports each missing piece (ROADMAP.md section 1, "Still to port")
+_LATER = {
+    "moe": "the MoE decoder family (models/moe.py)",
+    "ssm": "mamba2-780m serving (models/ssm.py on the ssd_scan kernel)",
+    "hybrid": "the hybrid family (zamba2: models/ssm.py plus the shared "
+              "attention block)",
+    "encdec": "the encoder-decoder family (models/encdec.py)",
+    "int8": "the int8 KV cache (kv_cache_dtype='int8')",
+    "frontend": "vision / audio prefix embeddings",
+}
+
+
+def require_ported(cfg: ModelConfig, cache: bool = False):
+    """Raise for what this slice does not run (with ``cache``: the decode
+    cache's int8 form too), naming the ROADMAP item."""
+    if cfg.family in _LATER:
+        what = _LATER[cfg.family]
+    elif cache and cfg.kv_cache_dtype == "int8":
+        what = _LATER["int8"]
+    else:
+        return
+    raise NotImplementedError(
+        f"{cfg.name}: {what} is not ported yet; it is an item of ROADMAP.md "
+        f"section 1, 'Still to port'")
+
+
+def _dt(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+# ================================================================ specs ====
+def attn_specs(cfg: ModelConfig) -> dict:
+    d, Hq, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    sp = {
+        "ln": Spec((d,), ("norm",), init="ones"),
+        "w_q": Spec((d, Hq, Dh), ("fsdp", "heads", None)),
+        "w_k": Spec((d, Hkv, Dh), ("fsdp", "kv_heads", None)),
+        "w_v": Spec((d, Hkv, Dh), ("fsdp", "kv_heads", None)),
+        "w_o": Spec((Hq, Dh, d), ("heads", None, "fsdp")),
+    }
+    if cfg.attn_bias:
+        sp["b_q"] = Spec((Hq, Dh), ("heads", None), init="zeros")
+        sp["b_k"] = Spec((Hkv, Dh), ("kv_heads", None), init="zeros")
+        sp["b_v"] = Spec((Hkv, Dh), ("kv_heads", None), init="zeros")
+    if cfg.post_norm:
+        sp["ln_post"] = Spec((d,), ("norm",), init="ones")
+    return sp
+
+
+def mlp_specs_full(cfg: ModelConfig) -> dict:
+    sp = {"ln": Spec((cfg.d_model,), ("norm",), init="ones")}
+    sp.update(L.mlp_specs(cfg.d_model, cfg.d_ff))
+    if cfg.post_norm:
+        sp["ln_post"] = Spec((cfg.d_model,), ("norm",), init="ones")
+    return sp
+
+
+def _pattern(cfg: ModelConfig) -> tuple[list[str], int]:
+    require_ported(cfg)
+    if cfg.local_global_period:
+        return ["local", "global"], cfg.n_layers // cfg.local_global_period
+    return ["block"], cfg.n_layers
+
+
+def _stack(specs, n: int):
+    return tree_map(lambda s: Spec((n,) + s.shape, ("layers",) + s.axes,
+                                   init=s.init, scale=s.scale, dtype=s.dtype),
+                    specs)
+
+
+def lm_specs(cfg: ModelConfig) -> dict:
+    pattern, n_steps = _pattern(cfg)
+    step = {f"s{i}_{k}": {"attn": attn_specs(cfg), "mlp": mlp_specs_full(cfg)}
+            for i, k in enumerate(pattern)}
+    sp: dict[str, Any] = {
+        "embed": L.embed_specs(cfg.vocab, cfg.d_model),
+        "blocks": _stack(step, n_steps),
+        "final_norm": Spec((cfg.d_model,), ("norm",), init="ones"),
+    }
+    if not cfg.tie_embeddings:
+        sp["lm_head"] = Spec((L.padded_vocab(cfg.vocab), cfg.d_model),
+                             ("vocab", "fsdp"))
+    return sp
+
+
+# ============================================================ sublayers ====
+def _proj(x, w):
+    """x (B, S, d) @ w (d, H, Dh) -> (B, S, H, Dh)."""
+    d, H, Dh = w.shape
+    return (x @ w.reshape(d, H * Dh).to(x.dtype)).view(*x.shape[:-1], H, Dh)
+
+
+def _qkv(p, x, cfg):
+    q, k, v = _proj(x, p["w_q"]), _proj(x, p["w_k"]), _proj(x, p["w_v"])
+    if cfg.attn_bias:
+        q = q + p["b_q"].to(x.dtype)
+        k = k + p["b_k"].to(x.dtype)
+        v = v + p["b_v"].to(x.dtype)
+    if cfg.kv_repeat > 1:
+        k = k.repeat_interleave(cfg.kv_repeat, dim=2)
+        v = v.repeat_interleave(cfg.kv_repeat, dim=2)
+    return q, k, v
+
+
+def attn_sublayer(p, x, cfg, *, window, q_offset=0, cache=None, mode="train",
+                  causal=True):
+    """Pre-norm attention residual sublayer.  cache: None (prefill) or one
+    layer's {'k', 'v', 'len'} for a decode append (written in place).
+    Returns (x_out, new_cache); in prefill mode new_cache = {'k', 'v'}
+    (post-rope) for the decode cache."""
+    B, S = x.shape[:2]
+    xn = L.rmsnorm(p["ln"], x, cfg.norm_eps)
+    q, k, v = _qkv(p, xn, cfg)
+    new_cache = None
+    if cache is None:
+        positions = q_offset + torch.arange(S, device=x.device)
+        q = L.apply_rope(q, positions[None, :], cfg.rope_theta)
+        k = L.apply_rope(k, positions[None, :], cfg.rope_theta)
+        o = attention(q, k, v, impl=cfg.attn_impl, causal=causal,
+                      window=window, cap=cfg.attn_softcap, q_offset=q_offset)
+        if mode == "prefill":
+            new_cache = {"k": k, "v": v}
+    else:
+        pos = cache["len"]                            # (B,) per-slot lengths
+        positions = pos[:, None] + torch.arange(S, device=x.device)[None, :]
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+        ck, cv = _cache_append(cache, k, v, cfg)
+        o = decode_attention(q, ck, cv, kv_valid=pos + 1, window=window,
+                             cap=cfg.attn_softcap)
+        # the reference's P.V einsum on the cache yields the cache's dtype
+        o = o.to(cv.dtype).to(x.dtype)
+        new_cache = dict(cache)
+        new_cache["len"] = pos + 1
+    Hq, Dh, d = p["w_o"].shape
+    o = o.reshape(B, S, Hq * Dh) @ p["w_o"].reshape(Hq * Dh, d).to(x.dtype)
+    if cfg.post_norm:
+        o = L.rmsnorm(p["ln_post"], o, cfg.norm_eps)
+    return x + o, new_cache
+
+
+def _row_update(buf, val, pos):
+    """buf (B, S, H, D) <- val (B, T, H, D) written in place at per-row
+    positions pos (B,), each clamped to [0, S - T] as
+    ``lax.dynamic_update_slice`` clamps it: a slot decoding past the cache
+    end rewrites its last row."""
+    S, T = buf.shape[1], val.shape[1]
+    start = pos.long().clamp(0, S - T)
+    idx = start[:, None] + torch.arange(T, device=buf.device)[None, :]
+    rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
+    buf[rows, idx] = val.to(buf.dtype)
+
+
+def _cache_append(cache, k, v, cfg):
+    """Write k, v (B, T, H, D) at per-slot positions cache['len'] (B,) into
+    the cache (rounded to its dtype); return the cache arrays."""
+    _row_update(cache["k"], k, cache["len"])
+    _row_update(cache["v"], v, cache["len"])
+    return cache["k"], cache["v"]
+
+
+def mlp_sublayer(p, x, cfg):
+    xn = L.rmsnorm(p["ln"], x, cfg.norm_eps)
+    h = L.mlp(p, xn, cfg.mlp_act)
+    if cfg.post_norm:
+        h = L.rmsnorm(p["ln_post"], h, cfg.norm_eps)
+    return x + h
+
+
+# ============================================================ block step ===
+def make_block_step(cfg: ModelConfig, mode: str):
+    """Returns step(carry, step_params, cache_slice) -> (carry,
+    new_cache_slice).  carry = (x, q_offset); mode: 'train' | 'prefill' |
+    'decode'."""
+    pattern, _ = _pattern(cfg)
+    window_for = {"local": cfg.sliding_window, "global": None,
+                  "block": cfg.sliding_window}
+
+    def step(carry, step_params, cache_slice):
+        x, q_offset = carry
+        new_cache = {}
+        for i, kind in enumerate(pattern):
+            p = step_params[f"s{i}_{kind}"]
+            ckey = f"s{i}"
+            csl = cache_slice.get(ckey) if mode == "decode" else None
+            x, nc = attn_sublayer(p["attn"], x, cfg, window=window_for[kind],
+                                  q_offset=q_offset, cache=csl, mode=mode)
+            if nc is not None:
+                new_cache[ckey] = nc
+            x = mlp_sublayer(p["mlp"], x, cfg)
+        return (x, q_offset), (new_cache or None)
+
+    return step
+
+
+def _layer(tree, i):
+    return tree_map(lambda a: a[i], tree)
+
+
+# ============================================================== caches =====
+def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
+                      prefilled: int = 0, device="cpu") -> dict:
+    """Stacked (n_steps, ...) cache: zeros in bfloat16, len = prefilled."""
+    require_ported(cfg, cache=True)
+    pattern, n_steps = _pattern(cfg)
+    Hkv = cfg.n_kv_heads * cfg.kv_repeat
+    shape = (n_steps, batch, max_len, Hkv, cfg.head_dim)
+    return {f"s{i}": {
+        "k": torch.zeros(shape, dtype=KV_CACHE_DTYPE, device=device),
+        "v": torch.zeros(shape, dtype=KV_CACHE_DTYPE, device=device),
+        "len": torch.full((n_steps, batch), prefilled, dtype=torch.int32,
+                          device=device)}
+        for i, _ in enumerate(pattern)}
+
+
+def _merge_prefill_cache(cfg, B, S, max_len, raw, *, cache=None, rows=None,
+                         device="cpu"):
+    """raw: per pattern entry {'k', 'v'} stacked (n_steps, B, S, H, D).
+    Writes them, rounded to the cache dtype, into rows [0, S) of the slots
+    ``rows`` of ``cache`` (in place; a new cache of B slots when None) and
+    sets those slots' len to S.  Rows past S keep what they held: a slot
+    never reads a row at or past its len."""
+    if cache is None:
+        cache = init_decode_cache(cfg, B, max_len, prefilled=S, device=device)
+        rows = torch.arange(B, device=device)
+    rows = torch.as_tensor(rows, dtype=torch.long, device=device)
+    if S > cache[next(iter(cache))]["k"].shape[2]:
+        raise ValueError(f"a {S}-token prompt does not fit the cache")
+    for key, src in raw.items():
+        for f in ("k", "v"):
+            cache[key][f][:, rows, :S] = src[f].to(KV_CACHE_DTYPE)
+        cache[key]["len"][:, rows] = S
+    return cache
+
+
+# ========================================================== full model =====
+@dataclasses.dataclass
+class DecoderLM:
+    cfg: ModelConfig
+
+    def __post_init__(self):
+        require_ported(self.cfg)
+
+    # ---- params
+    def specs(self):
+        return lm_specs(self.cfg)
+
+    def init(self, seed: int = 0, dtype=torch.float32, device="cpu"):
+        return init_params(self.specs(), seed, dtype, device)
+
+    # ---- embedding frontend
+    def _embed_inputs(self, params, tokens, extra_embeds, cdt):
+        if extra_embeds is not None:
+            raise NotImplementedError(
+                f"{_LATER['frontend']} are not ported yet (ROADMAP.md "
+                f"section 1, 'Still to port')")
+        x = L.embed_lookup(params["embed"]["embedding"], tokens, cdt)
+        if self.cfg.embed_scale:
+            x = x * torch.sqrt(torch.tensor(float(self.cfg.d_model),
+                                            dtype=torch.float32)).to(cdt)
+        return x
+
+    def _head(self, params, x):
+        cfg = self.cfg
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        head = (params["embed"]["embedding"] if cfg.tie_embeddings
+                else params["lm_head"])
+        return L.unembed_logits(head, x, cfg.vocab, cfg.final_softcap)
+
+    def _run(self, params, x, mode, q_offset=0, cache=None):
+        """The layer loop; returns the final hidden state and, in prefill,
+        the stacked raw per-layer k/v."""
+        step = make_block_step(self.cfg, mode)
+        n_steps = _pattern(self.cfg)[1]
+        carry, raws = (x, q_offset), []
+        for i in range(n_steps):
+            csl = _layer(cache, i) if cache is not None else None
+            carry, nc = step(carry, _layer(params["blocks"], i), csl)
+            if mode == "decode":
+                for key, c in nc.items():
+                    cache[key]["len"][i] = c["len"]
+            elif mode == "prefill":
+                raws.append(nc)
+        if mode == "prefill":
+            raws = {key: {f: torch.stack([r[key][f] for r in raws])
+                          for f in ("k", "v")} for key in raws[0]}
+        return carry[0], raws
+
+    # ---- forward (inference)
+    @torch.no_grad()
+    def forward(self, params, tokens, *, extra_embeds=None, q_offset=0):
+        """tokens (B, S) -> (logits (B, S, V), aux = 0): the dense family
+        has no auxiliary loss."""
+        x = self._embed_inputs(params, tokens, extra_embeds,
+                               _dt(self.cfg.compute_dtype))
+        x, _ = self._run(params, x, "train", q_offset)
+        return self._head(params, x), torch.zeros((), dtype=torch.float32)
+
+    # ---- prefill: forward pass that also fills a decode cache
+    @torch.no_grad()
+    def prefill(self, params, tokens, *, max_len=None, extra_embeds=None,
+                cache=None, rows=None):
+        """tokens (B, S) -> (logits of the last position (B, 1, V), cache).
+        With ``cache`` and ``rows`` (B slot indices) the prompt's k/v go
+        into those slots of that cache, in place; otherwise into a new
+        cache of B slots and ``max_len`` (default S) positions."""
+        x = self._embed_inputs(params, tokens, extra_embeds,
+                               _dt(self.cfg.compute_dtype))
+        B, S = x.shape[:2]
+        x, raw = self._run(params, x, "prefill")
+        cache = _merge_prefill_cache(self.cfg, B, S, max_len or S, raw,
+                                     cache=cache, rows=rows, device=x.device)
+        return self._head(params, x[:, -1:]), cache
+
+    # ---- decode
+    @torch.no_grad()
+    def decode_step(self, params, cache, tokens):
+        """tokens (B, 1) -> (logits (B, 1, V), cache); the cache is updated
+        in place (one row a slot and layer, len + 1) and returned."""
+        x = self._embed_inputs(params, tokens, None,
+                               _dt(self.cfg.compute_dtype))
+        x, _ = self._run(params, x, "decode", cache=cache)
+        return self._head(params, x), cache

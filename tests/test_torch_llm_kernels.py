@@ -1,0 +1,347 @@
+"""The port's decoder kernels (rmsnorm, flash_attention, decode_attention)
+against the JAX package.
+
+On the CPU the wrappers run their plain PyTorch versions
+(``repro_torch.kernels.ref``), which are held here against the JAX
+package's ``repro.kernels.ref`` oracles and its Pallas kernels in interpret
+mode (``repro.kernels.ops``, as ``tests/test_kernels.py`` runs them), on
+the same numpy inputs, over that file's shapes and variants plus head dim
+80 and lengths off the Pallas block (the oracles only: the Pallas kernels
+take multiples of their block).  Tolerances: float32 through the same op
+sequence in another summation order, 3e-5 absolute and 1e-4 relative (the
+JAX package's own bar for the Pallas kernels against their oracles);
+bfloat16 outputs one bf16 rounding apart, 2^-7 relative (two ulps).  The
+CUDA kernels themselves are held against the plain versions on the card
+(the ``cuda`` tests below and ``chip_smoke.py``).
+"""
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops, ref as jref
+from repro.models import layers as jlayers
+from repro_torch.kernels import decode_attention as tdec
+from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rmsnorm as trms
+
+torch.set_num_threads(1)
+
+F32_TOL = dict(atol=3e-5, rtol=1e-4)
+BF16_REL = 2.0 ** -7
+
+# the JAX oracles jitted (one compile a shape instead of one an op)
+jflash = jax.jit(jref.flash_attention, static_argnames=(
+    "causal", "window", "cap", "q_offset", "kv_valid", "scale"))
+jdecode = jax.jit(jref.decode_attention,
+                  static_argnames=("cap", "window", "scale"))
+
+
+def _rand(rng, *shape):
+    return rng.normal(0, 1.0, shape).astype(np.float32)
+
+
+def _bf16(a):
+    """numpy float32 -> (its bf16 rounding as float32, jax bf16, torch bf16)"""
+    b = np.asarray(a).astype(ml_dtypes.bfloat16)
+    return (b.astype(np.float32), jnp.asarray(b),
+            torch.tensor(b.astype(np.float32)).to(torch.bfloat16))
+
+
+# --------------------------------------------------------------- rmsnorm ---
+@pytest.mark.parametrize("R,D", [(300, 128), (64, 256), (7, 80), (1, 2560),
+                                 (0, 16)])
+def test_plain_rmsnorm_matches_jax_f32(R, D):
+    rng = np.random.default_rng(R + D)
+    x, w = _rand(rng, R, D), _rand(rng, D)
+    got = trms.rmsnorm(torch.tensor(x), torch.tensor(w)).numpy()
+    np.testing.assert_allclose(
+        got, np.asarray(jref.rmsnorm(jnp.asarray(x), jnp.asarray(w))),
+        **F32_TOL)
+    if R:
+        np.testing.assert_allclose(
+            got, np.asarray(ops.rmsnorm(jnp.asarray(x), jnp.asarray(w))),
+            **F32_TOL)
+
+
+@pytest.mark.parametrize("R,D", [(300, 128), (64, 256), (5, 80)])
+def test_plain_rmsnorm_matches_pallas_bf16(R, D):
+    """bf16 in and out, f32 inside, one rounding at the end in both."""
+    rng = np.random.default_rng(R * D)
+    xf, xj, xt = _bf16(_rand(rng, R, D))
+    w = _rand(rng, D)
+    got = trms.rmsnorm(xt, torch.tensor(w))
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(ops.rmsnorm(xj, jnp.asarray(w)), np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=BF16_REL,
+                               atol=1e-6)
+
+
+def test_rmsnorm_rounding_against_jax_layer_bf16():
+    """ROADMAP.md section 3: the port's norm rounds once (the Pallas
+    kernel), the JAX package's ``layers.rmsnorm`` rounds the inverse and
+    both products in bf16.  The two stay within 3 bf16 ulps (2^-6
+    relative) of each other, and the port's is the closer to the f32
+    value."""
+    rng = np.random.default_rng(5)
+    xf, xj, xt = _bf16(_rand(rng, 64, 2560))
+    wf, wj, wt = _bf16(1.0 + 0.1 * _rand(rng, 2560))
+    port = trms.rmsnorm(xt, wt).float().numpy()
+    jax_layer = np.asarray(jlayers.rmsnorm(wj, xj), np.float32)
+    exact = np.asarray(jref.rmsnorm(jnp.asarray(xf), jnp.asarray(wf)))
+    rel = np.abs(port - jax_layer) / np.maximum(np.abs(exact), 1e-6)
+    assert rel.max() <= 2.0 ** -6
+    assert (np.abs(port - exact).mean() <= np.abs(jax_layer - exact).mean())
+
+
+# ------------------------------------------------------- flash attention ---
+FLASH_SHAPES = [(1, 2, 1, 128, 128, 64), (2, 4, 2, 256, 128, 32),
+                (1, 8, 2, 128, 256, 64)]
+VARIANTS = [dict(causal=True), dict(causal=False),
+            dict(causal=True, window=64), dict(causal=True, cap=20.0),
+            dict(causal=True, kv_valid=100)]
+
+
+def _flash_inputs(rng, B, Hq, Hkv, Sq, Skv, D):
+    return (_rand(rng, B, Hq, Sq, D), _rand(rng, B, Hkv, Skv, D),
+            _rand(rng, B, Hkv, Skv, D))
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("kw", VARIANTS, ids=lambda d: "_".join(d))
+def test_plain_flash_matches_jax(shape, kw):
+    """Every shape and variant against the oracle; against the Pallas
+    kernel in interpret mode (slow) every variant at the first shape and
+    every shape at the first variant."""
+    rng = np.random.default_rng(sum(shape))
+    q, k, v = _flash_inputs(rng, *shape)
+    got = tflash.flash_attention(*map(torch.tensor, (q, k, v)), **kw).numpy()
+    jin = [jnp.asarray(a) for a in (q, k, v)]
+    np.testing.assert_allclose(got, np.asarray(jflash(*jin,
+                                                                    **kw)),
+                               **F32_TOL)
+    if shape == FLASH_SHAPES[0] or kw == VARIANTS[0]:
+        np.testing.assert_allclose(
+            got, np.asarray(ops.flash_attention(*jin, block_q=64,
+                                                block_kv=64, **kw)),
+            **F32_TOL)
+
+
+@pytest.mark.parametrize("shape,kw", [
+    ((1, 4, 1, 37, 37, 80), dict(causal=True, window=16)),
+    ((2, 8, 2, 65, 129, 80), dict(q_offset=64, kv_valid=120)),
+    ((1, 2, 2, 33, 33, 16), dict(causal=True, cap=5.0)),
+    ((1, 4, 4, 97, 31, 80), dict(causal=False, window=16, q_offset=10)),
+    ((1, 4, 2, 20, 20, 80), dict(kv_valid=0)),
+])
+def test_plain_flash_matches_jax_ref_off_block(shape, kw):
+    """D=80 (h2o-danube), lengths off any block, q_offset, rows that see no
+    key (they give 0): the oracle only."""
+    rng = np.random.default_rng(sum(shape) + 1)
+    q, k, v = _flash_inputs(rng, *shape)
+    got = tflash.flash_attention(*map(torch.tensor, (q, k, v)), **kw).numpy()
+    want = np.asarray(jflash(*map(jnp.asarray, (q, k, v)),
+                                           **kw))
+    np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+def test_plain_flash_bf16_matches_pallas():
+    """bf16 inputs, p rounded to v's dtype before P.V in both."""
+    rng = np.random.default_rng(3)
+    ins = [_bf16(_rand(rng, 1, 2, 128, 64)) for _ in range(3)]
+    got = tflash.flash_attention(*[t for _, _, t in ins])
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(ops.flash_attention(*[j for _, j, _ in ins],
+                                          block_q=64, block_kv=64),
+                      np.float32)
+    # the JAX package's bf16 bar (tests/test_kernels.py)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=2e-2,
+                               rtol=0.05)
+
+
+def test_flash_strided_views_equal_contiguous():
+    """The decoder hands the kernel (B, H, S, D) views of (B, S, H, D)
+    projections; they give what contiguous copies give."""
+    rng = np.random.default_rng(4)
+    qs = torch.tensor(_rand(rng, 2, 40, 8, 80))
+    ks = torch.tensor(_rand(rng, 2, 40, 2, 80))
+    vs = torch.tensor(_rand(rng, 2, 40, 2, 80))
+    views = [t.transpose(1, 2) for t in (qs, ks, vs)]
+    a = tflash.flash_attention(*views, window=9)
+    b = tflash.flash_attention(*[t.contiguous() for t in views], window=9)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# ------------------------------------------------------ decode attention ---
+@pytest.mark.parametrize("shape", [(2, 4, 2, 512, 64), (1, 8, 8, 256, 32),
+                                   (3, 6, 3, 256, 16), (2, 32, 8, 256, 80)])
+def test_plain_decode_matches_jax(shape):
+    B, Hq, Hkv, S, D = shape
+    rng = np.random.default_rng(sum(shape))
+    q, k, v = _rand(rng, B, Hq, D), _rand(rng, B, Hkv, S, D), \
+        _rand(rng, B, Hkv, S, D)
+    kv_valid = rng.integers(1, S, (B,)).astype(np.int32)
+    got = tdec.decode_attention(*map(torch.tensor, (q, k, v)),
+                                kv_valid=torch.tensor(kv_valid)).numpy()
+    jin = [jnp.asarray(a) for a in (q, k, v)]
+    np.testing.assert_allclose(
+        got, np.asarray(jdecode(*jin,
+                                              kv_valid=jnp.asarray(kv_valid))),
+        **F32_TOL)
+    np.testing.assert_allclose(
+        got, np.asarray(ops.decode_attention(*jin, jnp.asarray(kv_valid),
+                                             block_s=128)), **F32_TOL)
+
+
+@pytest.mark.parametrize("kw", [dict(window=64), dict(cap=5.0),
+                                dict(window=40, cap=30.0)])
+def test_plain_decode_window_cap_matches_jax(kw):
+    B, Hq, Hkv, S, D = 3, 4, 2, 256, 80
+    rng = np.random.default_rng(len(kw))
+    q, k, v = _rand(rng, B, Hq, D), _rand(rng, B, Hkv, S, D), \
+        _rand(rng, B, Hkv, S, D)
+    # 1 and S (the ends), and a row past S: a slot decoding past the cache
+    # end still sees the window's rows inside it
+    kv_valid = np.array([1, S, S + 20], np.int32)
+    got = tdec.decode_attention(*map(torch.tensor, (q, k, v)),
+                                kv_valid=torch.tensor(kv_valid), **kw).numpy()
+    jin = [jnp.asarray(a) for a in (q, k, v)]
+    np.testing.assert_allclose(
+        got, np.asarray(jdecode(
+            *jin, kv_valid=jnp.asarray(kv_valid), **kw)), **F32_TOL)
+    np.testing.assert_allclose(
+        got[:2], np.asarray(ops.decode_attention(
+            *[a[:2] for a in jin], jnp.asarray(kv_valid[:2]), block_s=64,
+            **kw)), **F32_TOL)
+
+
+def test_plain_decode_no_visible_row_gives_zero():
+    """A row whose window lies wholly past the cache sees no row: 0 (the
+    JAX oracle would average every value row; ROADMAP.md section 3)."""
+    q = torch.randn(2, 4, 16)
+    k, v = torch.randn(2, 2, 32, 16), torch.randn(2, 2, 32, 16)
+    out = tdec.decode_attention(q, k, v, kv_valid=torch.tensor([40, 0]),
+                                window=8)
+    assert bool((out == 0).all())
+
+
+def test_plain_decode_mixed_dtypes_match_jax():
+    """An f32 decoder reads its bf16 cache: q f32, k and v bf16, p rounded
+    to bf16 before P.V, the output in q's dtype."""
+    rng = np.random.default_rng(8)
+    q = _rand(rng, 2, 8, 80)
+    (kf, kj, kt), (vf, vj, vt) = (_bf16(_rand(rng, 2, 2, 96, 80))
+                                  for _ in range(2))
+    kv_valid = np.array([50, 96], np.int32)
+    got = tdec.decode_attention(torch.tensor(q), kt, vt,
+                                kv_valid=torch.tensor(kv_valid), window=32)
+    assert got.dtype == torch.float32
+    # op by op: the jitted oracle differs from it by up to 2e-3 here
+    want = jref.decode_attention(jnp.asarray(q), kj, vj,
+                                 kv_valid=jnp.asarray(kv_valid), window=32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                               **F32_TOL)
+
+
+def test_decode_scalar_kv_valid_and_cache_view():
+    """A scalar kv_valid broadcasts over rows; the (B, S, Hkv, D) cache
+    slice read through its (B, Hkv, S, D) view equals a contiguous copy."""
+    cache_k, cache_v = torch.randn(3, 50, 2, 16), torch.randn(3, 50, 2, 16)
+    q = torch.randn(3, 4, 16)
+    kv, vv = cache_k.transpose(1, 2), cache_v.transpose(1, 2)
+    a = tdec.decode_attention(q, kv, vv, kv_valid=33)
+    b = tdec.decode_attention(q, kv.contiguous(), vv.contiguous(),
+                              kv_valid=torch.full((3,), 33))
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# ------------------------------------------------------------- wrappers ---
+def test_cpu_runs_plain_and_counts_no_launch():
+    for mod in (trms, tflash, tdec):
+        mod.reset_launch_counts()
+    trms.rmsnorm(torch.randn(3, 8), torch.ones(8))
+    tflash.flash_attention(*(torch.randn(1, 2, 4, 8) for _ in range(3)))
+    tdec.decode_attention(torch.randn(1, 2, 8), torch.randn(1, 2, 4, 8),
+                          torch.randn(1, 2, 4, 8), kv_valid=2)
+    assert trms.LAUNCHES == {"rmsnorm": 0}
+    assert tflash.LAUNCHES == {"flash_attention": 0}
+    assert tdec.LAUNCHES == {"decode_attention": 0}
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    x = torch.randn(3, 8)
+    with pytest.raises(TypeError):
+        trms.rmsnorm(x.double(), torch.ones(8))
+    with pytest.raises(ValueError):
+        trms.rmsnorm(x, torch.ones(7))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        trms.rmsnorm(x.to("meta"), torch.ones(8, device="meta"))
+    q = torch.randn(1, 4, 5, 16)
+    kv = torch.randn(1, 2, 5, 16)
+    with pytest.raises(TypeError):
+        tflash.flash_attention(q, kv.to(torch.bfloat16), kv)
+    with pytest.raises(ValueError, match="group"):
+        tflash.flash_attention(q, torch.randn(1, 3, 5, 16),
+                               torch.randn(1, 3, 5, 16))
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.randn(1, 1, 2, 264)
+        tflash.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="window"):
+        tflash.flash_attention(q, kv, kv, window=0)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        m = torch.randn(1, 2, 4, 8, device="meta")
+        tflash.flash_attention(m, m, m)
+    with pytest.raises(TypeError):
+        tdec.decode_attention(torch.randn(1, 4, 16), kv.to(torch.bfloat16),
+                              kv, kv_valid=3)
+    with pytest.raises(ValueError):
+        tdec.decode_attention(torch.randn(1, 4, 8), kv, kv, kv_valid=3)
+
+
+# ------------------------------------------------------------- the card ---
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_match_plain(cuda_device, dtype):
+    """Each CUDA kernel against its plain version computed in f32 from the
+    same inputs: f32 within 1e-4 absolute; bf16 within 2e-2 absolute for
+    the attentions (unit-scale inputs) and 8e-3 relative for the norm."""
+    g = torch.Generator().manual_seed(0)
+
+    def rnd(*s):
+        return torch.randn(s, generator=g).to(cuda_device, dtype)
+
+    x, w = rnd(37, 2560), rnd(2560)
+    got = trms.rmsnorm(x, w).float()
+    want = tref.rmsnorm(x.float(), w.float())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    else:
+        assert float(((got - want).abs() / want.abs().clamp_min(1e-6))
+                     .max()) <= 8e-3
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    q = rnd(1, 100, 8, 80).transpose(1, 2)
+    k, v = rnd(1, 100, 2, 80).transpose(1, 2), rnd(1, 2, 100, 80)
+    got = tflash.flash_attention(q, k, v, window=33, cap=30.0)
+    want = tref.flash_attention(q.float(), k.float(), v.float(), window=33,
+                                cap=30.0)
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=tol)
+    qd = rnd(4, 32, 80)
+    kc, vc = rnd(4, 300, 8, 80), rnd(4, 300, 8, 80)
+    valid = torch.tensor([1, 300, 150, 307], device=cuda_device)
+    got = tdec.decode_attention(qd, kc.transpose(1, 2), vc.transpose(1, 2),
+                                kv_valid=valid, window=128)
+    want = tref.decode_attention(qd.float(), kc.transpose(1, 2).float(),
+                                 vc.transpose(1, 2).float(), kv_valid=valid,
+                                 window=128)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=tol)

@@ -1,0 +1,196 @@
+"""The port's decode engine and continuous batcher against the JAX package.
+
+``DecodeEngine`` + ``ContinuousBatcher`` serve the same seeded requests in
+both packages with the same weights (float32 compute, JAX's ``init``
+carried over): the greedy tokens, the slot lengths and the metric
+snapshots the PPA consumes must be equal, and a PPA fed each package's
+snapshots must make the same replica decisions.  The requests' seed (1)
+was checked to keep every greedy choice away from a tie: over the run the
+smallest top-2 logit margin of an active slot is 1.8e-4, 160 times the
+largest difference between the two packages' logits there (1.1e-6).
+Slot isolation and recycling are tested as
+``tests/test_serving.py`` tests the JAX engine, and a slot that decodes
+past ``max_len`` clamps its writes instead of raising.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import core as jcore
+from repro.configs import smoke_config as jsmoke
+from repro.models.registry import build_model as jbuild
+from repro.serving import (ContinuousBatcher as JBatcher,
+                           DecodeEngine as JEngine, Request as JRequest)
+from repro_torch import core as tcore
+from repro_torch.configs import smoke_config
+from repro_torch.core import forecaster as tf
+from repro_torch.launch import serve as tserve
+from repro_torch.models.params import params_from_numpy
+from repro_torch.models.registry import build_model
+from repro_torch.serving import ContinuousBatcher, DecodeEngine, Request
+
+torch.set_num_threads(1)
+
+ARCH = "h2o-danube-1.8b"
+SLOTS, MAX_LEN = 2, 16
+
+
+def _requests(seed=1, n=5):
+    rng = np.random.default_rng(seed)
+    reqs = [(rng.integers(0, 200, 5 if i % 2 else 7), int(rng.integers(4, 9)))
+            for i in range(n)]
+    # a last long request, so the idle slot decodes past max_len meanwhile
+    reqs.append((rng.integers(0, 200, 5), 10))
+    return reqs
+
+
+def _serve(batcher, request_cls, reqs):
+    """Submit everything at t=0, then step until drained, taking a metric
+    snapshot after every step."""
+    for i, (p, n) in enumerate(reqs):
+        batcher.submit(request_cls(i, p, n))
+    snaps, t = [], 0.0
+    while batcher.queue or batcher._inflight:
+        t += 1.0
+        batcher.step(t)
+        snaps.append(np.asarray(batcher.snapshot(t, 5.0).values))
+    return {r.request_id: r.output for r in batcher.done}, np.stack(snaps)
+
+
+@pytest.fixture(scope="module")
+def both():
+    cfg = jsmoke(ARCH).replace(compute_dtype="float32")
+    jparams = jbuild(cfg).init(jax.random.PRNGKey(0), jnp.float32)
+    reqs = _requests()
+    je = JEngine(cfg, jparams, slots=SLOTS, max_len=MAX_LEN)
+    j_out, j_snaps = _serve(JBatcher(je), JRequest, reqs)
+    tcfg = smoke_config(ARCH).replace(compute_dtype="float32")
+    te = DecodeEngine(tcfg, params_from_numpy(jax.tree.map(np.asarray,
+                                                           jparams)),
+                      slots=SLOTS, max_len=MAX_LEN, device="cpu")
+    t_out, t_snaps = _serve(ContinuousBatcher(te), Request, reqs)
+    return dict(reqs=reqs, je=je, te=te, j_out=j_out, t_out=t_out,
+                j_snaps=j_snaps, t_snaps=t_snaps)
+
+
+def test_greedy_tokens_equal_jax(both):
+    assert both["t_out"] == both["j_out"]
+    for i, (_, n) in enumerate(both["reqs"]):
+        assert len(both["t_out"][i]) == 1 + n
+    assert both["te"].steps == both["je"].steps
+    assert both["te"].tokens_out == both["je"].tokens_out
+
+
+def test_len_past_max_len_clamps_like_jax(both):
+    """Idle slots keep decoding, so their length passes max_len; writes
+    clamp to the last row (as ``dynamic_update_slice`` clamps them), nothing
+    raises, and the lengths equal the reference's."""
+    t_len = both["te"].cache["s0"]["len"].numpy()
+    assert t_len.max() > MAX_LEN
+    np.testing.assert_array_equal(t_len,
+                                  np.asarray(both["je"].cache["s0"]["len"]))
+
+
+def test_snapshots_equal_jax(both):
+    np.testing.assert_array_equal(both["t_snaps"], both["j_snaps"])
+
+
+def test_ppa_on_snapshots_decides_as_jax(both):
+    """A PPA fed the engine's snapshots: the JAX package's LSTM (its seeded
+    init, the scaler fitted on the snapshots) and the port's with the same
+    params make the same replica decisions and forecasts."""
+    j_snaps, t_snaps = both["j_snaps"], both["t_snaps"]
+    jm = jcore.LSTMForecaster(window=4, hidden=8, seed=0)
+    jm.scaler.fit(j_snaps)
+    jm._fitted = True
+    tm = tf.LSTMForecaster(window=4, hidden=8, seed=0, device="cpu")
+    tm.params = tf.params_from_numpy(jax.tree.map(np.asarray, jm.params),
+                                     "cpu")
+    tm.scaler.mean = np.array(jm.scaler.mean)
+    tm.scaler.std = np.array(jm.scaler.std)
+    tm.scaler.fitted = True
+    tm._fitted = True
+    ppas = []
+    for core, m, snaps in ((jcore, jm, j_snaps), (tcore, tm, t_snaps)):
+        ppa = core.PPA(core.PPAConfig(threshold=60.0, control_interval_s=5.0,
+                                      stabilization_s=30.0),
+                       m, core.ThresholdPolicy(60.0, 1),
+                       core.Updater(core.UpdatePolicy.FINETUNE),
+                       core.MetricsHistory())
+        for t, v in enumerate(snaps):
+            ppa.observe(core.Snapshot(float(t), v))
+            ppa.control_step(float(t), max_replicas=16, current_replicas=1)
+        ppas.append(ppa)
+    jp, tp = ppas
+    assert ([(d.replicas, d.predicted) for d in tp.decisions]
+            == [(d.replicas, d.predicted) for d in jp.decisions])
+    assert sum(d.predicted for d in tp.decisions) > 0
+    np.testing.assert_allclose(np.stack([p for _, p in tp.predictions]),
+                               np.stack([p for _, p in jp.predictions]),
+                               rtol=1e-5, atol=1e-5)
+
+
+def _engine(slots=4, max_len=64, **kw):
+    cfg = smoke_config(ARCH)
+    params = build_model(cfg).init(0)
+    return DecodeEngine(cfg, params, slots=slots, max_len=max_len,
+                        device="cpu", **kw)
+
+
+def test_slot_isolation_greedy():
+    """A request decoded alongside others yields the same greedy tokens as
+    decoded alone -- per-slot caches are independent."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 200, 12) for _ in range(3)]
+    solo = []
+    for p in prompts:
+        b = ContinuousBatcher(_engine())
+        b.submit(Request(0, p, 6))
+        solo.append(b.drain()[0].output)
+    b = ContinuousBatcher(_engine())
+    for i, p in enumerate(prompts):
+        b.submit(Request(i, p, 6))
+    done = {r.request_id: r.output for r in b.drain()}
+    for i in range(3):
+        assert done[i] == solo[i], i
+
+
+def test_slot_recycling_serves_overflow():
+    e = _engine(slots=2, max_len=48)
+    b = ContinuousBatcher(e)
+    rng = np.random.default_rng(1)
+    for i in range(5):                       # 5 requests through 2 slots
+        b.submit(Request(i, rng.integers(0, 200, 8), 4))
+    done = b.drain()
+    assert len(done) == 5
+    assert all(len(r.output) == 5 for r in done)   # first + 4 decoded
+    assert e.utilization() == 0.0
+
+
+def test_sampling_is_seeded():
+    outs = []
+    for _ in range(2):
+        b = ContinuousBatcher(_engine(temperature=1.0, seed=3))
+        b.submit(Request(0, np.arange(10), 5))
+        outs.append(b.drain()[0].output)
+    assert outs[0] == outs[1]
+
+
+def test_engine_needs_a_device_or_the_cpu():
+    cfg = smoke_config(ARCH)
+    params = build_model(cfg).init(0)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            DecodeEngine(cfg, params, slots=1, max_len=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DecodeEngine(smoke_config("seamless-m4t-medium"), params, slots=1,
+                     max_len=8, device="cpu")
+
+
+def test_serve_launcher_on_cpu():
+    done = tserve.main(["--arch", ARCH, "--requests", "3", "--max-new", "4",
+                        "--prompt-len", "8", "--slots", "2", "--device",
+                        "cpu"])
+    assert sorted(len(r.output) for r in done) == [5, 5, 5]
