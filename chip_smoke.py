@@ -3,26 +3,32 @@
 
 Drives the port's main paths -- the paper's per-target LSTM and
 Attention-Double-LSTM closed loops, its PPA-vs-HPA harness, and the LLM
-decode engine the PPA scales -- on the card, through the hand-written CUDA
-kernels of ``kernels/csrc/``: ``lstm_seq.cu``, ``attn_lstm_seq.cu``,
-``rmsnorm.cu``, ``flash_attention.cu`` and ``decode_attention.cu``:
+decode engine the PPA scales, on the dense decoder and on mamba2 -- on the
+card, through the seven hand-written CUDA kernels of ``kernels/csrc/``:
+``lstm_seq.cu``, ``attn_lstm_seq.cu``, ``lstm_cell.cu``, ``rmsnorm.cu``,
+``flash_attention.cu``, ``decode_attention.cu`` and ``ssd_scan.cu``:
 
 1. device facts (``nvidia-smi`` name and power limit), TF32 off for float32
-   products, the five kernels built from the checkout's sources with
-   ``nvcc`` (one process per source, started together);
+   products, the seven kernels built from the checkout's sources with
+   ``nvcc`` (one process per source, started together, beside an eighth
+   that builds ``ssd_scan.cu`` with its chunk carry dropped);
 2. every kernel wrapper against its plain PyTorch version at the main
    paths' shapes and at edge shapes (f32 and bf16 for the decoder's
    kernels), the LSTM kernels' autograd gradients against autograd through
    the plain version, and each kernel's time beside the plain version's, a
-   library yardstick where one exists (cuDNN's LSTM, ``F.rms_norm``,
-   ``scaled_dot_product_attention``), and its bound on an H100;
+   library yardstick where one exists (cuDNN's LSTM, ``torch.lstm_cell``,
+   ``F.rms_norm``, ``scaled_dot_product_attention``), and its bound on an
+   H100; the chunk scan on inputs whose decay keeps the carried state
+   alive, where the kernel without its carry must fail the same check;
 3. the paper-scale closed loop of examples/multizone_control.py: a 1800 s
    collection run, 7 per-target LSTM(50) fits on the card, ``FleetController``
    + ``Updater(FINETUNE)`` over 30 simulated minutes of NASA + Random Access;
 4. a plane-scale ``FleetController`` tick at Z=4096 per-target LSTM(50)
    targets and one batched FINETUNE refit through the grouped kernel, with
    ``torch.profiler`` over five ticks (device busy share) that the tick
-   times leave out;
+   times leave out; then, as a path of its own, the benchmark's legacy
+   per-step lane on the plane's weights and last windows (one grouped
+   ``lstm_cell`` launch a step) against ``lstm_seq_stacked``;
 5. phase 3 with ``AttnLSTMForecaster(window=8, hidden=50)`` in every zone;
 6. phase 4 with Z=4096 attn targets made from phase 5's model;
 7. the paper's §5 harness (``core/experiments.py``): ``run_scenario`` with
@@ -35,15 +41,23 @@ kernels of ``kernels/csrc/``: ``lstm_seq.cu``, ``attn_lstm_seq.cu``,
    ``batcher.snapshot`` decides replicas and refits its LSTM on the card;
    then the kernels' engine against the plain versions' engine, every
    kernel launch of that check against its plain version, decode after
-   prefill against prefill, and five profiled decode steps.
+   prefill against prefill, and five profiled decode steps;
+9. phase 8 on mamba2-780m at full width (48 layers, d_model 1536,
+   781,328,640 seeded bf16 parameters, the dt path at Mamba2's published
+   scales, ``mamba2_conditioned``): each prefill runs the chunk scan, a
+   decode step the SSM update in plain PyTorch; no KV cache, a conv and SSM
+   state a slot and layer; the same 49 bursty requests and refitting PPA.
 
-Phases 3 to 8 each set the launch counts to 0 before they drive their path
-and read them right after it, before the checks that launch kernels of
-their own; the counts of all nine wrappers must equal what the path needs
-(a fit forward an epoch, a stacked forecast a forecasting tick, a grouped
-forward a refit epoch, a shared forward a scalar PPA forecast; 2 x 24 + 1
-norms and 24 attentions a prefill and a decode step), and each kernel must
-have launched.  Any failed check raises, so the script exits non-zero.
+Phases 3 to 9 (and phase 4's lane) each set the launch counts to 0 before
+they drive their path and read them right after it, before the checks that
+launch kernels of their own; the counts of all eleven wrappers must equal
+what the path needs (a fit forward an epoch, a stacked forecast a
+forecasting tick, a grouped forward a refit epoch, a shared forward a
+scalar PPA forecast, a cell launch a window step of the lane; 2 x 24 + 1
+norms and 24 attentions a prefill and a decode step of h2o-danube, 48 + 1
+norms a prefill and a decode step and 48 chunk scans a prefill of mamba2),
+and each kernel must have launched.  Any failed check raises, so the script
+exits non-zero.
 The last three lines are the kernels' JSON record, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
 
@@ -52,6 +66,7 @@ Run from the repository root: ``python3 chip_smoke.py``
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -78,6 +93,21 @@ FWD_TOL = 1e-4          # kernel vs plain, absolute: f32 sums in another order
 BF16_ATTN_TOL = 2e-2
 BF16_ATTN_ROW_TOL = 1e-2
 BF16_NORM_REL = 8e-3
+# the chunk scan: y row by row against the row's scale (bf16: one rounding
+# is at most 2^-8 of it; f32: sums of L + N terms in another order), the
+# final float32 state against its largest element; both plus SSD_CUM_ULPS
+# units of float32 rounding (2^-24) of the largest |sum of dt A| over a
+# chunk: every f32 form takes exp of differences of such running sums, so
+# where they reach thousands (the serving path) a few roundings of them
+# move the state by 1e-4 and more: on mamba2's 512-token prefill with w_dt
+# unscaled, the plain version's own f32 error against float64 reaches
+# 7.8e-4, the kernel's 1.9e-4 (tools/mamba2_numerics.py on an H100)
+SSD_ROW_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+SSD_STATE_REL = 1e-4
+SSD_CUM_ULPS = 16
+# the lane's forecast against the stacked kernel's (the bar of the stacked
+# forecast against the JAX package)
+LANE_REL = 1e-5
 GRAD_TOL = 1e-4
 N_EDGE = 6
 ZONES = tuple(f"edge-{i}" for i in range(N_EDGE)) + ("cloud",)
@@ -94,7 +124,13 @@ KERNELS = {
     "rmsnorm": "src/repro_torch/kernels/csrc/rmsnorm.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
+    "lstm_cell": "src/repro_torch/kernels/csrc/lstm_cell.cu",
+    "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
+# the one statement of ssd_scan.cu that carries the state into the next
+# chunk, and the change that drops the carry (phase 2's mutant)
+SSD_CARRY_MUTANT = ("sH[(n0 + i) * PT + q0 + j] = hn[i][j];",
+                    "sH[(n0 + i) * PT + q0 + j] = 0.0f;")
 KERNEL_SYMBOL = {
     "lstm_seq_grouped_kernel": ("lstm_seq", "lstm_seq_stacked",
                                 "lstm_seq_grouped"),
@@ -104,11 +140,15 @@ KERNEL_SYMBOL = {
     "rmsnorm_kernel": ("rmsnorm",),
     "flash_attention_kernel": ("flash_attention",),
     "decode_attention_kernel": ("decode_attention",),
+    "lstm_cell_grouped_kernel": ("lstm_cell",),
+    "ssd_scan_kernel": ("ssd_scan",),
 }
 REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm.py:21",
     "flash_attention": "src/repro/kernels/flash_attention.py:92",
     "decode_attention": "src/repro/kernels/decode_attention.py:60",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:74",
+    "lstm_cell": "src/repro/kernels/lstm_cell.py:36",
     "lstm_seq": "src/repro/kernels/lstm_seq.py:238",
     "lstm_seq_stacked": "src/repro/kernels/lstm_seq.py:246",
     # the refit vmaps lstm_seq over Z targets (core/forecaster.py:546)
@@ -133,9 +173,10 @@ def source_of(wrapper):
 
 def _wrapper_modules():
     from repro_torch.kernels import attn_lstm_seq, decode_attention
-    from repro_torch.kernels import flash_attention, lstm_seq, rmsnorm
-    return (lstm_seq, attn_lstm_seq, rmsnorm, flash_attention,
-            decode_attention)
+    from repro_torch.kernels import flash_attention, lstm_cell, lstm_seq
+    from repro_torch.kernels import rmsnorm, ssd_scan
+    return (lstm_seq, attn_lstm_seq, lstm_cell, rmsnorm, flash_attention,
+            decode_attention, ssd_scan)
 
 
 def reset_launch_counts():
@@ -144,7 +185,7 @@ def reset_launch_counts():
 
 
 def launch_counts():
-    """The launch counts of all nine wrappers."""
+    """The launch counts of all eleven wrappers."""
     out = {}
     for mod in _wrapper_modules():
         out.update(mod.LAUNCHES)
@@ -265,20 +306,24 @@ def device_facts():
         f"count {torch.cuda.device_count()}")
     log(f"[1] matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ssd_scan
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:   # one nvcc a source
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:  # one nvcc a source
+        mutant = pool.submit(_build.build_variant, "ssd_scan",
+                             [SSD_CARRY_MUTANT], _build.BUILD_DIR / "variants")
         list(pool.map(_build.build, KERNELS))
+        mutant = ssd_scan.bind(mutant.result())
     for mod in _wrapper_modules():
         mod._lib()
     log(f"[1] built+loaded "
-        f"{', '.join(_build.library_path(n).name for n in KERNELS)} in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{', '.join(_build.library_path(n).name for n in KERNELS)} and "
+        f"ssd_scan without its carry in {time.perf_counter() - t0:.2f} s")
     for name, secs, ptxas in _build.build_log:
         log(f"[1] nvcc {name}.cu {secs:.2f} s; ptxas: "
             + " | ".join(ln.strip() for ln in ptxas.splitlines()
-                         if "registers" in ln or "smem" in ln.lower()))
-    return smi_line
+                         if "registers" in ln or "spill" in ln
+                         or "smem" in ln.lower()))
+    return smi_line, mutant
 
 
 # --------------------------------------------------------------- phase 2 --
@@ -776,6 +821,258 @@ def llm_kernels_vs_plain():
     return records
 
 
+# ------------------------------- phase 2: the chunk scan and the LSTM cell --
+# mamba2-780m's chunk scan on the serving path: one prompt a prefill
+SSM_HEADS, SSM_HEAD_DIM, SSM_STATE, SSM_CHUNK = 48, 64, 128, 128
+
+
+def ssd_bound(B, S, H, P, N, L, es, h0=False):
+    """x, dt, A, D, B, C (and h0) read once, y and the final state written
+    once.  Operations: C.B^T once per (batch row, chunk) over the causal
+    pairs (B and C are shared by the heads); per (batch row, head, chunk)
+    the decay mask (exp and multiply, 2 a causal pair), M.(x dt) over the
+    causal pairs, C.h (2 L N P) and B^T.(x dt) (2 N L P), x dt, the
+    exp(cum) scaling, D x and the sum of the three terms (5 L P), and the
+    state's decay and sum (2 N P)."""
+    nc = S // L
+    pairs = L * (L + 1) // 2
+    nbytes = (es * (2 * B * S * H * P + 2 * B * S * N) + 4 * B * S * H
+              + 8 * H + 4 * B * H * N * P * (2 if h0 else 1))
+    ops = (B * nc * pairs * 2 * N
+           + B * H * nc * (pairs * (2 * P + 2) + 4 * L * N * P + 5 * L * P
+                           + 2 * N * P))
+    return _bound(nbytes, ops)
+
+
+def cell_bound(Gw, G, N, In, H):
+    """The weights read once a group set, each row's x, h, c read once and
+    h', c' written once; a multiply-add 2 operations, then as in ``bound``
+    per hidden unit: 2 adds a gate, a sigmoid 3, a tanh 1, c = f c + i g 3,
+    tanh(c) 1, h 1 (23)."""
+    nbytes = 4 * (Gw * (In + H + 1) * 4 * H + G * N * (In + 4 * H))
+    return _bound(nbytes, G * N * (2 * (In + H) * 4 * H + 23 * H))
+
+
+def ssd_inputs(gen, dev, B, S, H, P, N, dtype):
+    """Unit-normal x, B, C, D; dt = |N| * 0.05 and A in -[0.02, 0.5]: a
+    128-step chunk then decays by exp(-0.1) to exp(-2.5), so the state
+    carried between chunks is alive and a kernel that drops it fails."""
+    import torch
+    x = torch.randn((B, S, H, P), generator=gen).to(dev, dtype)
+    dt = (torch.randn((B, S, H), generator=gen).abs() * 0.05).to(dev)
+    A = -(0.02 + 0.48 * torch.rand((H,), generator=gen)).to(dev)
+    Bm = torch.randn((B, S, N), generator=gen).to(dev, dtype)
+    Cm = torch.randn((B, S, N), generator=gen).to(dev, dtype)
+    D = torch.randn((H,), generator=gen).to(dev)
+    return x, dt, A, Bm, Cm, D
+
+
+def ssd_errs(got, want):
+    """(y's largest row error over that row's largest |want|, the final
+    state's largest error over its largest |want|); ``want`` in f32."""
+    y_err = attn_row_err(got[0], want[0])
+    h, wh = got[1].float(), want[1].float()
+    scale = float(wh.abs().max()) if wh.numel() else 1.0
+    h_err = float((h - wh).abs().max()) / scale if wh.numel() else 0.0
+    return y_err, h_err
+
+
+def ssd_tols(dt, A, chunk, dtype):
+    """(y row tolerance, state tolerance) for these inputs: the dtype's
+    bars plus SSD_CUM_ULPS float32 roundings of the largest |sum of dt A|
+    over a chunk."""
+    B, S, H = dt.shape
+    cum = float((dt.float().reshape(B, S // chunk, chunk, H) * A.float())
+                .sum(2).abs().max()) if dt.numel() else 0.0
+    extra = SSD_CUM_ULPS * 2.0 ** -24 * cum
+    return SSD_ROW_TOL[str(dtype).split(".")[1]] + extra, SSD_STATE_REL + extra
+
+
+def ssd_passes(got, want, dt, A, chunk):
+    """(whether the chunk scan's output passes, y row err, state rel err)
+    on inputs with these dt, A and chunk."""
+    import torch
+    y_err, h_err = ssd_errs(got, want)
+    y_tol, h_tol = ssd_tols(dt, A, chunk, got[0].dtype)
+    ok = (y_err <= y_tol and h_err <= h_tol
+          and bool(torch.isfinite(got[0]).all()))
+    return ok, y_err, h_err
+
+
+def ssm_kernels_vs_plain(mutant):
+    """The chunk scan against its plain version (computed in f32 from the
+    same inputs) at mamba2's prefill shapes (one prompt of 512 and of 6144
+    tokens) and at edge shapes, with the carry kept alive; the kernel
+    without its carry (``mutant``) on the 512-token inputs, which must fail
+    the same check; the LSTM cell at the Pallas test shapes (shared
+    weights, beside ``torch.lstm_cell``) and at the lane's G=4096 targets,
+    one row each.  Times at the paths' shapes beside bounds, plain versions
+    and library calls."""
+    import torch
+    from repro_torch.kernels import lstm_cell as ck
+    from repro_torch.kernels import ref, ssd_scan as sk
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(14)
+    bf16, f32 = torch.bfloat16, torch.float32
+    records, edges = {}, 0
+
+    def ssd_check(name, got, want, ins, chunk):
+        torch.cuda.synchronize()
+        check(got[0].shape == want[0].shape and got[1].shape == want[1].shape,
+              f"{name}: shapes {tuple(got[0].shape)}, {tuple(got[1].shape)}")
+        ok, y_err, h_err = ssd_passes(got, want, ins[1], ins[2], chunk)
+        check(ok, f"{name}: y row err {y_err}, state rel err {h_err} (tols "
+              f"{ssd_tols(ins[1], ins[2], chunk, got[0].dtype)}), or "
+              f"non-finite y")
+        return y_err, h_err
+
+    with torch.no_grad():
+        H, P, N, L = SSM_HEADS, SSM_HEAD_DIM, SSM_STATE, SSM_CHUNK
+        subs = {}
+        for S in (512, 6144):
+            ins = ssd_inputs(gen, dev, 1, S, H, P, N, bf16)
+            f32_ins = [t.float() for t in ins]
+            want = ref.ssd_scan(*f32_ins, chunk=L)
+            got = sk.ssd_scan(*ins, chunk=L)
+            y_err, h_err = ssd_check(f"ssd_scan S={S}", got, want, ins, L)
+            kernel = (lambda ins=ins: sk.ssd_scan(*ins, chunk=L))
+            plain = (lambda ins=ins: ref.ssd_scan(*ins, chunk=L))
+            iters = 10 if S > 1000 else 20
+            rec = dict(shape=f"B=1 S={S} H={H} P={P} N={N} chunk={L} bf16 "
+                             f"x/B/C, f32 dt/A/D",
+                       max_abs_err=float((got[0].float() - want[0])
+                                         .abs().max()),
+                       max_row_err=y_err, state_rel_err=h_err)
+            rec["row_tol"], rec["state_tol"] = ssd_tols(ins[1], ins[2], L,
+                                                        bf16)
+            rec["call_ms"] = rec["ms"] = time_ms(kernel, iters)
+            rec["kernel_ms"] = kernel_device_ms(kernel, symbol_of("ssd_scan"),
+                                                iters)
+            rec["plain_ms"] = time_ms(plain, max(3, iters // 4))
+            rec["library_ms"] = None
+            rec.update(ssd_bound(1, S, H, P, N, L, 2))
+            subs[S] = rec
+            if S == 512:
+                # the kernel without its carry, on the same inputs
+                bad = sk.launch(mutant, *ins, L, None)
+                torch.cuda.synchronize()
+                ok, my, mh = ssd_passes(bad, want, ins[1], ins[2], L)
+                check(not ok, f"ssd_scan without its carry passed the check "
+                      f"(y row err {my}, state rel err {mh})")
+                mutant_errs = {"max_row_err": my, "state_rel_err": mh}
+        records["ssd_scan"] = {**subs[512], "long_prompt": subs[6144],
+                               "carry_dropped": mutant_errs}
+        log("[2] library yardstick for ssd_scan: none -- no single PyTorch "
+            "call computes the SSD chunk scan")
+        # edge shapes: f32 (whose budget takes 16-column tiles at N=128),
+        # chunk 32 and 64, N 16 and 64, P 32, 20 (a ragged tile) and 16, two
+        # batch rows, one chunk, no step at all, a given h0
+        for (B, S, H_, P_, N_, L_, dt_, with_h0) in [
+                (1, 256, 4, 64, 128, 128, f32, False),
+                (2, 96, 4, 32, 16, 32, bf16, False),
+                (2, 192, 3, 32, 64, 64, f32, False),
+                (1, 256, 4, 64, 64, 64, bf16, True),
+                (1, 128, 2, 64, 128, 128, bf16, False),
+                (1, 256, 3, 64, 128, 128, bf16, True),
+                (1, 64, 2, 20, 16, 32, f32, True),
+                (2, 128, 2, 16, 8, 64, f32, False),
+                (1, 0, 2, 32, 16, 32, f32, True)]:
+            ins = ssd_inputs(gen, dev, B, S, H_, P_, N_, dt_)
+            h0 = (torch.randn((B, H_, N_, P_), generator=gen).to(dev)
+                  if with_h0 else None)
+            want = ref.ssd_scan(*[t.float() for t in ins], chunk=L_, h0=h0)
+            ssd_check(f"ssd_scan B={B} S={S} H={H_} P={P_} N={N_} "
+                      f"chunk={L_} {dt_} h0={with_h0}",
+                      sk.ssd_scan(*ins, chunk=L_, h0=h0), want, ins, L_)
+            edges += 1
+        try:
+            sk.ssd_scan(*[t.double() if t.dtype == f32 else t for t in
+                          ssd_inputs(gen, dev, 1, 32, 2, 8, 8, f32)],
+                        chunk=32)
+        except TypeError:
+            pass
+        else:
+            check(False, "ssd_scan: float64 input did not raise")
+
+        # ---- the LSTM cell: the Pallas test shapes with shared weights,
+        # beside torch.lstm_cell (the same gate order, weights transposed);
+        # the lane's shape, G=4096 targets of one row each
+        def cell_args(lead, rows, In, H_):
+            return [(torch.randn(lead + s, generator=gen) * 0.3).to(dev)
+                    for s in [(In, 4 * H_), (H_, 4 * H_), (4 * H_,)]] + \
+                [torch.randn(rows + (n,), generator=gen).to(dev)
+                 for n in (H_, H_, In)]
+
+        def cell_record(name, shape, args, plain, library, bnd, iters):
+            got, want = ck.lstm_cell(*args), plain(*args)
+            torch.cuda.synchronize()
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            check(err <= FWD_TOL, f"{name}: max_abs_err {err}")
+            kernel = (lambda: ck.lstm_cell(*args))
+            rec = dict(shape=shape, max_abs_err=err, tol=FWD_TOL)
+            rec["call_ms"] = rec["ms"] = time_ms(kernel, iters)
+            rec["kernel_ms"] = kernel_device_ms(kernel, symbol_of("lstm_cell"),
+                                                iters)
+            rec["plain_ms"] = time_ms(lambda: plain(*args), iters)
+            rec["library_ms"] = None
+            if library is not None:
+                lib_out = library(*args)
+                rec["library_max_abs_err"] = max(
+                    float((a - b).abs().max()) for a, b in zip(lib_out, want))
+                check(rec["library_max_abs_err"] <= FWD_TOL,
+                      f"{name}: torch.lstm_cell differs")
+                rec["library_ms"] = time_ms(lambda: library(*args), iters)
+            rec.update(bnd)
+            return rec
+
+        def torch_cell(Wx, Wh, b, h, c, x):
+            return torch.lstm_cell(x, (h, c), Wx.T, Wh.T, b,
+                                   torch.zeros_like(b))
+
+        shared = {}
+        for B, In, H_ in [(5, 5, 50), (130, 8, 32)]:
+            shared[f"B={B} In={In} H={H_}"] = cell_record(
+                "lstm_cell", f"shared weights B={B} In={In} H={H_}",
+                cell_args((), (B,), In, H_), ref.lstm_cell, torch_cell,
+                cell_bound(1, 1, B, In, H_), iters=200)
+        records["lstm_cell"] = cell_record(
+            "lstm_cell", f"G={PLANE_Z} N=1 In={M} H={HIDDEN}, per-target "
+                         f"weights (the lane's step)",
+            cell_args((PLANE_Z,), (PLANE_Z, 1), M, HIDDEN),
+            ref.lstm_cell_grouped, None,
+            cell_bound(PLANE_Z, PLANE_Z, 1, M, HIDDEN), iters=50)
+        records["lstm_cell"].update(shared)
+        log("[2] library yardstick for lstm_cell at G=4096: none -- no single "
+            "PyTorch call computes 4096 independently weighted cells")
+        for G, N, In, H_, Gw in [(3, 17, 5, 37, 3), (4, 33, 5, 50, 1),
+                                 (2, 0, 5, 50, 2), (1, 3, 8, 64, 1)]:
+            args = cell_args((Gw,), (G, N), In, H_)
+            got, want = ck.lstm_cell(*args), ref.lstm_cell_grouped(*args)
+            torch.cuda.synchronize()
+            err = max(float((a - b).abs().max()) if a.numel() else 0.0
+                      for a, b in zip(got, want))
+            check(err <= FWD_TOL, f"lstm_cell G={G} N={N} H={H_}: {err}")
+            edges += 1
+    for name in ("ssd_scan", "lstm_cell"):
+        r = records[name]
+        for tag, rr in [("", r)] + [(f" ({k})", v) for k, v in r.items()
+                                    if isinstance(v, dict) and "shape" in v]:
+            log(f"[2] {name}{tag} {rr['shape']}: kernel {rr['call_ms']:.4f} "
+                f"ms a call ({rr['kernel_ms']:.4f} ms on the device), plain "
+                f"{rr['plain_ms']:.4f} ms, library {rr['library_ms']}, bound "
+                f"{rr['bound_ms']:.4f} ms ({rr['bound_by']}), max_abs_err "
+                f"{rr['max_abs_err']:.3g}, row err {rr.get('max_row_err')}, "
+                f"state rel err {rr.get('state_rel_err')}")
+    log(f"[2] ssd_scan without its carry: y row err "
+        f"{mutant_errs['max_row_err']:.4g}, state rel err "
+        f"{mutant_errs['state_rel_err']:.4g} -- fails the check, as it must")
+    log(f"[2] {edges} edge shapes of the chunk scan and the cell match their "
+        f"plain versions (y rows {SSD_ROW_TOL}, state {SSD_STATE_REL} rel, "
+        f"each + {SSD_CUM_ULPS} f32 roundings of the largest chunk sum of "
+        f"dt A; cell {FWD_TOL})")
+    return records
+
+
 # --------------------------------------------------------------- phase 3 --
 def mixed_trace(t_end, seed):
     """NASA diurnal background + Random Access bursty foreground
@@ -1022,6 +1319,11 @@ def plane_tick(device, base, Z=PLANE_Z, ticks=22, update_s=300.0,
                      zs)
     err = float((got - want).abs().max())
     check(err <= FWD_TOL, f"plane forecast vs CPU plain: {err}")
+    # the last tick's windows, as the stacked forecast scaled them
+    models = [ctrl.model_for(n) for n in names]
+    zs = base._tensor(np.stack([
+        m.scaler.transform(np.stack(ctrl.targets[n].recent)[-window:])
+        for n, m in zip(names, models)]))
     mem = (torch.cuda.max_memory_allocated(device)
            if device.type == "cuda" else 0)
     tk = np.asarray(list(tick_ms.values()))
@@ -1047,6 +1349,58 @@ def plane_tick(device, base, Z=PLANE_Z, ticks=22, update_s=300.0,
             "refit_n": refit_n,
             "max_memory_allocated": mem,
             "profiled_busy_share": busy["busy_share"],
+            "lane_inputs": (stacked, zs),
+            "launches": launches, "expect": expect}
+
+
+def cell_lane(stacked, zs):
+    """benchmarks/bench_control_plane.py's legacy per-step lane
+    (``bench_forecast_device``'s ``cell`` path) in the port: Z per-target
+    LSTMs (stacked leaves Wx, Wh, b, Wo, bo with a leading Z) over windows
+    zs (Z, W, M), one grouped launch of the ``lstm_cell`` kernel a step --
+    the JAX lane vmaps the cell over Z -- then the ReLU-dense head: (Z,
+    n_out), what ``lstm_seq_stacked`` computes in one launch."""
+    import torch
+    from repro_torch.kernels import lstm_cell as cell
+    Z, W, _ = zs.shape
+    H = stacked["Wh"].shape[1]
+    h = zs.new_zeros((Z, 1, H))
+    c = zs.new_zeros((Z, 1, H))
+    for t in range(W):
+        h, c = cell.lstm_cell(stacked["Wx"], stacked["Wh"], stacked["b"], h,
+                              c, zs[:, t:t + 1].contiguous())
+    return (torch.relu(h) @ stacked["Wo"] + stacked["bo"][:, None])[:, 0]
+
+
+def lane_path(device, stacked, zs, tag="[4]"):
+    """Phase 4's lane as a path of its own: launch counts set to 0, one
+    forecast of the Z targets through ``cell_lane`` (W launches of the
+    cell), counts read; then the forecast against ``lstm_seq_stacked``'s
+    on the same weights and windows, and both timed."""
+    import torch
+    from repro_torch.core.forecaster import stacked_forward
+    with torch.no_grad():
+        reset_launch_counts()
+        got = cell_lane(stacked, zs)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        launches = launch_counts()
+        want = stacked_forward(stacked, zs, "lstm")
+        rel = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+        check(bool(torch.isfinite(got).all()) and rel <= LANE_REL,
+              f"cell lane vs stacked forecast rel err {rel} > {LANE_REL}")
+        timed = device.type == "cuda"
+        lane_ms = (time_ms(lambda: cell_lane(stacked, zs), 20) if timed
+                   else None)
+        seq_ms = (time_ms(lambda: stacked_forward(stacked, zs, "lstm"), 20)
+                  if timed else None)
+    Z, W, _ = zs.shape
+    expect = dict.fromkeys(launches, 0)
+    expect["lstm_cell"] = W
+    log(f"{tag} lstm_cell lane: Z={Z} W={W}, {W} cell launches + the head "
+        f"{lane_ms} ms a forecast against lstm_seq_stacked's one launch "
+        f"{seq_ms} ms; forecast rel err {rel:.3g} (tol {LANE_REL})")
+    return {"lane_ms": lane_ms, "stacked_ms": seq_ms, "rel_err": rel,
             "launches": launches, "expect": expect}
 
 
@@ -1141,16 +1495,55 @@ def well_conditioned(params, cfg):
     return params
 
 
+def mamba2_conditioned(params, cfg, seed=0, scale_dt=True):
+    """Bring each mamba layer's dt path, in place, to Mamba2's published
+    scales (state-spaces/mamba, ``mamba_ssm/modules/mamba2.py``):
+
+    * dt_bias and A_log at the published init: dt log-uniform in [0.001,
+      0.1] with dt_bias = dt + log(-expm1(-dt)), the softplus's inverse, and
+      A uniform in [1, 16], A_log = log(A).  The JAX package's init (both
+      zero: A = -1, dt = softplus(u . w_dt) about 0.8) decays the state by
+      about e^-100 a chunk, so the carry between chunks and the state a
+      decode inherits would count for nothing;
+    * w_dt of layer l scaled by (1 + l)^-1/2.  Mamba2 normalises a mixer's
+      input; the JAX model feeds the residual stream unnormalised, whose
+      rms grows about as sqrt(1 + l) (each block adds a unit-scale output),
+      so dt's pre-activation reaches +-20, where one bf16 rounding step
+      (0.125) moves dt A by up to 2 and a decay by e^2: the bf16 net is
+      chaotic (bf16 against f32 logits 20% apart, two correct engines 15-21%;
+      with the scaling 1.4% and 1.4-2.0%, on an H100).
+
+    ``init_params`` stays the JAX package's; ``scale_dt=False`` leaves
+    w_dt as it is (tools/mamba2_numerics.py measures both)."""
+    import math
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    for step in params["blocks"].values():
+        p = step["mamba"]
+        shape = p["dt_bias"].shape                      # (layers, H)
+        dt = torch.exp(math.log(1e-3) + torch.rand(shape, generator=gen)
+                       * (math.log(1e-1) - math.log(1e-3)))
+        p["dt_bias"].copy_(dt + torch.log(-torch.expm1(-dt)))
+        p["A_log"].copy_(torch.log(1.0 + 15.0 * torch.rand(shape,
+                                                           generator=gen)))
+        if scale_dt:
+            depth = torch.arange(shape[0], dtype=torch.float32)
+            p["w_dt"].mul_((1.0 + depth).rsqrt()[:, None, None]
+                           .to(p["w_dt"].device, p["w_dt"].dtype))
+    return params
+
+
 @contextlib.contextmanager
 def swapped(make):
-    """Within the block each of the decoder's three kernel wrappers ``fn``
-    is ``make(name, fn)`` in its module, where the model looks it up at
-    every call."""
+    """Within the block each of the decoder's kernel wrappers ``fn`` (the
+    norm, both attentions and the chunk scan) is ``make(name, fn)`` in its
+    module, where the model looks it up at every call."""
     from repro_torch.kernels import decode_attention, flash_attention
-    from repro_torch.kernels import rmsnorm
+    from repro_torch.kernels import rmsnorm, ssd_scan
     saved = [(mod, name, getattr(mod, name)) for mod, name in
              [(rmsnorm, "rmsnorm"), (flash_attention, "flash_attention"),
-              (decode_attention, "decode_attention")]]
+              (decode_attention, "decode_attention"),
+              (ssd_scan, "ssd_scan")]]
     for mod, name, fn in saved:
         setattr(mod, name, make(name, fn))
     try:
@@ -1169,12 +1562,14 @@ def plain_versions():
 
 @contextlib.contextmanager
 def every_launch_checked(worst):
-    """Within the block, every call of the three decoder kernels' wrappers
-    is held against its plain version on the same inputs, computed in f32:
-    the norm within ``BF16_NORM_REL`` relative, element by element, the
+    """Within the block, every call of the decoder kernels' wrappers is
+    held against its plain version on the same inputs, computed in f32: the
+    norm within ``BF16_NORM_REL`` relative, element by element, the
     attentions row by row within ``BF16_ATTN_ROW_TOL`` of the row's own
-    scale (``attn_row_err``).  ``worst[name]`` gathers (calls, worst err).
-    Only the plain versions run in addition, so no launch is added."""
+    scale (``attn_row_err``), the chunk scan's y row by row and its final
+    state against their scales within ``ssd_tols``.  ``worst[name]``
+    gathers (calls, worst err).  Only the plain
+    versions run in addition, so no launch is added."""
     import torch
     from repro_torch.kernels import ref
 
@@ -1186,7 +1581,16 @@ def every_launch_checked(worst):
             f32 = [a.float() if isinstance(a, torch.Tensor)
                    and a.is_floating_point() else a for a in args]
             want = plain(*f32, **kw)
-            if name == "rmsnorm":
+            if name == "ssd_scan":
+                ok, e, h_err = ssd_passes(out, want, args[1], args[2],
+                                          kw["chunk"])
+                tol, h_tol = ssd_tols(args[1], args[2], kw["chunk"],
+                                      out[0].dtype)
+                check(ok, f"ssd_scan on the serving path: y row err {e} (tol "
+                      f"{tol}), state rel err {h_err} (tol {h_tol})")
+                n, w = worst.get("ssd_scan state", (0, 0.0))
+                worst["ssd_scan state"] = (n + 1, max(w, h_err))
+            elif name == "rmsnorm":
                 e = float(((out.float() - want).abs()
                            / want.abs().clamp_min(1e-6)).max())
                 tol = BF16_NORM_REL
@@ -1239,9 +1643,13 @@ def serving(device, arch="h2o-danube-1.8b", cfg=None, slots=SLOTS,
     model = build_model(cfg)
     n_params = param_count(model.specs())
     if device.type == "cuda":
+        gc.collect()                   # an earlier phase's engine, if any
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    params = well_conditioned(
+    condition = {"dense": well_conditioned,
+                 "ssm": mamba2_conditioned}[cfg.family]
+    params = condition(
         model.init(seed, getattr(torch, cfg.param_dtype), device), cfg)
     engine = DecodeEngine(cfg, params, slots=slots, max_len=max_len,
                           device=device)
@@ -1306,7 +1714,7 @@ def serving(device, arch="h2o-danube-1.8b", cfg=None, slots=SLOTS,
     sync()
     t_serve = time.perf_counter() - t0
     launches = launch_counts()
-    engine.insert, engine.step = insert, step
+    del engine.insert, engine.step     # the class's again; breaks the cycle
 
     done = sorted(batcher.done, key=lambda r: r.request_id)
     check(len(done) == total, f"{len(done)} of {total} requests done")
@@ -1322,10 +1730,18 @@ def serving(device, arch="h2o-danube-1.8b", cfg=None, slots=SLOTS,
                     * (ppa.updater.n_updates - 1)
                     if ppa.updater.n_updates else 0)
     expect = dict.fromkeys(launches, 0)
-    expect.update({"rmsnorm": (2 * L + 1) * (n_prefill + n_decode),
-                   "flash_attention": L * n_prefill,
-                   "decode_attention": L * n_decode,
-                   "lstm_seq": n_fit_epochs + len(ppa.predictions)})
+    expect["lstm_seq"] = n_fit_epochs + len(ppa.predictions)
+    if cfg.family == "ssm":
+        # a gated norm a layer and the final norm, a prefill and a decode
+        # step; a chunk scan a layer and prefill (a decode step updates the
+        # state in plain PyTorch)
+        expect.update({"rmsnorm": (L + 1) * (n_prefill + n_decode),
+                       "ssd_scan": L * n_prefill})
+    else:
+        # two norms a layer and the final norm; an attention a layer
+        expect.update({"rmsnorm": (2 * L + 1) * (n_prefill + n_decode),
+                       "flash_attention": L * n_prefill,
+                       "decode_attention": L * n_decode})
     mem = (torch.cuda.max_memory_allocated(device)
            if device.type == "cuda" else 0)
     n_out = sum(len(r.output) for r in done)
@@ -1383,10 +1799,12 @@ def serving(device, arch="h2o-danube-1.8b", cfg=None, slots=SLOTS,
     for i in range(slots):
         engine.insert(10_000 + i,
                       rng.integers(0, cfg.vocab, min(1024, max_len // 2)), 64)
+    reset_launch_counts()
     prof = profile_start(device)
     for _ in range(5):
         engine.step()
     busy = profile_stop(prof, device)
+    step_launches = {k: v // 5 for k, v in launch_counts().items() if v}
 
     pf = np.asarray(prefill_ms)
     dm = np.asarray(decode_ms)
@@ -1418,7 +1836,9 @@ def serving(device, arch="h2o-danube-1.8b", cfg=None, slots=SLOTS,
         f"{[round(m, 4) for m in margins]}); decode after prefill vs prefill rel err {pd_err:.5f}")
     log(f"{tag} profiled 5 decode steps at {slots} active slots: wall "
         f"{busy['wall_ms']:.1f} ms, device busy {busy['device_ms']:.3f} ms "
-        f"({busy['busy_share']:.2%}); device time by name: "
+        f"({busy['busy_share']:.2%}); {busy['n_kernels'] / 5:.0f} device "
+        f"events (kernels and copies) a step, launches of the port's kernels "
+        f"a step {step_launches}; device time by name: "
         f"{top_names(busy['by_name'])}")
     return {"params": n_params, "prefills": n_prefill,
             "decode_steps": n_decode, "tokens_out": n_out,
@@ -1433,6 +1853,8 @@ def serving(device, arch="h2o-danube-1.8b", cfg=None, slots=SLOTS,
             "path_launches_checked": checked,
             "greedy_equal": same, "prefill_decode_rel_err": pd_err,
             "profiled_busy_share": busy["busy_share"],
+            "profiled_kernels_per_step": busy["n_kernels"] / 5,
+            "profiled_device_ms_per_step": busy["device_ms"] / 5,
             "launches": launches, "expect": expect}
 
 
@@ -1459,18 +1881,19 @@ def profile_stop(prof, device):
         torch.cuda.synchronize(device)
     wall_ms = (time.perf_counter() - prof.t0) * 1e3
     prof.__exit__(None, None, None)
-    by_name = {}
+    by_name, n_kernels = {}, 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3)
+            n_kernels += 1
     device_ms = sum(by_name.values())
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     host_top = {e.key[:40]: (e.count, round(e.self_cpu_time_total / 1e3, 3))
                 for e in host[:6]}
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms, "by_name": by_name,
-            "host_top": host_top}
+            "n_kernels": n_kernels, "host_top": host_top}
 
 
 def top_names(by_name, k=6):
@@ -1488,33 +1911,41 @@ def main() -> int:
     import numpy as np
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
-    smi_line = device_facts()
+    smi_line, mutant = device_facts()
     n_rows = len(np.arange(15.0, 1800.0, 15.0))
     fit_batch, attn_fit_batch = n_rows - WINDOW, n_rows - ATTN_WINDOW
     records = kernels_vs_plain(fit_batch, attn_fit_batch)
     records.update(llm_kernels_vs_plain())
+    records.update(ssm_kernels_vs_plain(mutant))
 
     # each phase sets the counts to 0 before it drives its path and reads
     # them right after, before its own comparison checks
     loop = closed_loop(device)
     check(loop["fit_batch"] == fit_batch, "fit batch differs from phase 2")
     plane = plane_tick(device, loop.pop("base_model"))
+    lane = lane_path(device, *plane.pop("lane_inputs"))
     attn_loop = closed_loop(device, arch="attn", tag="[5]")
     check(attn_loop["fit_batch"] == attn_fit_batch,
           "attn fit batch differs from phase 2")
     attn_plane = plane_tick(device, attn_loop.pop("base_model"), tag="[6]")
+    attn_plane.pop("lane_inputs")
     check(attn_plane["refit_n"] == PLANE_FIT_ROWS - ATTN_WINDOW,
           "attn refit N differs from phase 2")
     paper = harness(device)
     serve = serving(device)
     check(serve["params"] == 1_835_133_440,
           f"h2o-danube-1.8b has {serve['params']} parameters")
+    serve_ssm = serving(device, arch="mamba2-780m", tag="[9]")
+    check(serve_ssm["params"] == 781_328_640,
+          f"mamba2-780m has {serve_ssm['params']} parameters")
     launches = {}
     for tag, phase in (("[3] closed loop", loop), ("[4] plane", plane),
+                       ("[4] lstm_cell lane", lane),
                        ("[5] attn closed loop", attn_loop),
                        ("[6] attn plane", attn_plane),
                        ("[7] PPA vs HPA harness", paper),
-                       ("[8] serving", serve)):
+                       ("[8] serving", serve),
+                       ("[9] mamba2 serving", serve_ssm)):
         got, want = phase.pop("launches"), phase.pop("expect")
         log(f"{tag} launches {got}, the path's count {want}")
         check(got == want, f"{tag} launches {got} != {want}")
@@ -1522,8 +1953,9 @@ def main() -> int:
             launches[name] = launches.get(name, 0) + n
     for name, n in launches.items():
         check(n > 0, f"{name} was never launched on the main path")
-    phases = {"loop": loop, "plane": plane, "attn_loop": attn_loop,
-              "attn_plane": attn_plane, "harness": paper, "serving": serve}
+    phases = {"loop": loop, "plane": plane, "lane": lane,
+              "attn_loop": attn_loop, "attn_plane": attn_plane,
+              "harness": paper, "serving": serve, "serving_ssm": serve_ssm}
     log(f"[summary] {json.dumps(phases)}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f} s")
 

@@ -82,3 +82,26 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _loaded:
             _loaded[name] = ctypes.CDLL(str(build(name)))
         return _loaded[name]
+
+
+def build_variant(name: str, edits, out_dir) -> ctypes.CDLL:
+    """Compile and load a copy of ``csrc/<name>.cu`` with each (old, new)
+    text replacement of ``edits`` made once (each ``old`` must occur exactly
+    once) into ``out_dir``: a deliberately changed kernel, for a check that
+    must tell it from the source's.  Not cached."""
+    src = (CSRC / f"{name}.cu").read_text()
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise ValueError(f"{name}.cu holds {src.count(old)} copies of "
+                             f"{old!r}, not one")
+        src = src.replace(old, new)
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    key = hashlib.sha256(src.encode()).hexdigest()[:12]
+    cu, lib = out / f"{name}_{key}.cu", out / f"lib{name}_{key}.so"
+    cu.write_text(src)
+    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(lib), str(cu)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {cu.name}:\n{proc.stderr}")
+    return ctypes.CDLL(str(lib))

@@ -2,11 +2,14 @@
 
 Each function is op for op its counterpart in the JAX package's
 ``kernels/ref.py``: a Python loop over the window with ``@`` for the gate
-products, full score matrices for the attentions.  The kernel wrappers
-(``kernels/lstm_seq.py``, ``attn_lstm_seq.py``, ``rmsnorm.py``,
-``flash_attention.py``, ``decode_attention.py``) run these for CPU
-tensors, the autograd backward of the LSTM kernels recomputes through
-them, and the chip smoke holds every CUDA kernel against them on the card.
+products, full score matrices for the attentions.  ``ssd_scan`` is op for
+op the JAX model's chunked form (``models/ssm.py::ssd_chunked``), so the
+port's mamba2 computes on the CPU what the JAX model computes.  The kernel
+wrappers (``kernels/lstm_seq.py``, ``attn_lstm_seq.py``, ``lstm_cell.py``,
+``rmsnorm.py``, ``flash_attention.py``, ``decode_attention.py``,
+``ssd_scan.py``) run these for CPU tensors, the autograd backward of the
+LSTM sequence kernels recomputes through them, and the chip smoke holds
+every CUDA kernel against them on the card.
 """
 from __future__ import annotations
 
@@ -51,6 +54,19 @@ def lstm_seq_stacked(Wx, Wh, b, Wo, bo, xs):
     """Per-target layout: xs (Z, W, M), every weight with a leading Z axis
     -> (Z, n_out); the grouped form with one window per group."""
     return lstm_seq_grouped(Wx, Wh, b, Wo, bo, xs[:, None])[:, 0]
+
+
+def lstm_cell(Wx, Wh, b, h, c, x):
+    """One LSTM step: x (B, In); h, c (B, H); Wx (In, 4H); Wh (H, 4H); b
+    (4H,) -> (h', c'), gates in the order i, f, g, o."""
+    return _step(x, h, c, Wx, Wh, b)
+
+
+def lstm_cell_grouped(Wx, Wh, b, h, c, x):
+    """Grouped form: weights (Gw, ...) with Gw equal to G or 1 (one set read
+    by every group), x (G, N, In), h and c (G, N, H) -> (h', c'), each
+    (G, N, H).  Group g is ``lstm_cell`` on its own weights and N rows."""
+    return _step(x, h, c, Wx, Wh, b[:, None, :])
 
 
 def _attend(hs, h1, Wa, H):
@@ -187,3 +203,63 @@ def decode_attention(q, k, v, *, kv_valid, cap=None, window=None,
         m &= (valid - 1 - k_pos) < window
     return _attend_masked(s[:, :, None, :], m[:, None, None, :], vv,
                           q.dtype)[:, :, 0]
+
+
+# ------------------------------------------------ the SSM's chunk scan ---
+def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk, h0=None):
+    """Mamba2 SSD over chunks of ``chunk`` steps: x (B, S, H, P), dt (B, S,
+    H) (after the softplus), A (H,) < 0, Bm and Cm (B, S, N) shared by the
+    heads, D (H,), h0 (B, H, N, P) or None -> y (B, S, H, P) in x's dtype
+    and the final state (B, H, N, P) in float32, both states in the layout
+    of the JAX package's Pallas ``ssd_scan``.  S is a multiple of
+    ``chunk``.  Op for op ``repro/models/ssm.py::ssd_chunked``, float32
+    throughout: in each chunk the decay-masked (C.B^T) applied to x.dt and
+    the carried state's C.exp(cum).h, then the state update
+    h = exp(total) h + sum_s exp(total - cum[s]) B_s (x dt)_s."""
+    Bb, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if S % chunk:
+        raise ValueError(f"S={S} is not a multiple of the chunk {chunk}")
+    nc = S // chunk
+    f32 = torch.float32
+    xc = x.reshape(Bb, nc, chunk, H, P)
+    dtc = dt.reshape(Bb, nc, chunk, H).to(f32)
+    Bc = Bm.reshape(Bb, nc, chunk, N).to(f32)
+    Cc = Cm.reshape(Bb, nc, chunk, N).to(f32)
+
+    da = dtc * A.to(f32)                                  # (B, nc, L, H)
+    cum = torch.cumsum(da, dim=2)
+    total = cum[:, :, -1]                                 # (B, nc, H)
+
+    # intra-chunk: M[t, s] = exp(cum[t] - cum[s]) (C_t . B_s), t >= s; the
+    # exp only where t >= s, whose differences are <= 0
+    CB = torch.einsum("bcln,bcmn->bclm", Cc, Bc)          # (B, nc, L, L)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (B, nc, L, L, H)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=x.device))[None, None, :, :, None]
+    zero = torch.zeros((), dtype=f32, device=x.device)
+    decay = torch.where(mask, torch.exp(torch.where(mask, seg, zero)), zero)
+    M = CB[..., None] * decay
+    xdt = xc.to(f32) * dtc[..., None]                     # (B, nc, L, H, P)
+    y_intra = torch.einsum("bclmh,bcmhp->bclhp", M, xdt)
+
+    # each chunk's own state: sum_s exp(total - cum[s]) xdt_s (x) B_s
+    decay_end = torch.exp(total[:, :, None] - cum)        # (B, nc, L, H)
+    states = torch.einsum("bclh,bclhp,bcln->bchpn", decay_end, xdt, Bc)
+
+    # the carry over chunks, in the JAX model's (B, H, P, N) layout
+    h = (torch.zeros((Bb, H, P, N), dtype=f32, device=x.device)
+         if h0 is None else h0.to(f32).transpose(-1, -2))
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(h)
+        h = torch.exp(total[:, c])[:, :, None, None] * h + states[:, c]
+    if nc:
+        h_prev = torch.stack(h_prevs, dim=1)              # (B, nc, H, P, N)
+    else:
+        h_prev = torch.zeros((Bb, 0, H, P, N), dtype=f32, device=x.device)
+    y_inter = torch.einsum("bcln,bchpn,bclh->bclhp", Cc, h_prev,
+                           torch.exp(cum))
+    y = y_intra + y_inter + D.to(f32)[None, None, :, None] * xc.to(f32)
+    return (y.reshape(Bb, S, H, P).to(x.dtype),
+            h.transpose(-1, -2).contiguous())

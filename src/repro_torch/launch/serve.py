@@ -3,6 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
         --requests 16 --max-new 24 [--device cpu]
 
+``--arch`` names a dense or ssm architecture (``h2o-danube-1.8b``,
+``codeqwen1.5-7b``, ``gemma2-9b``, ``mamba2-780m``, ...); the others raise.
+
 Without ``--device`` the engine runs on the card (and raises without one);
 ``--device cpu`` runs the kernels' plain versions on the CPU.
 """

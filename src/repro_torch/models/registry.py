@@ -1,4 +1,5 @@
-"""build_model(cfg) -> DecoderLM (the dense family; the others raise)."""
+"""build_model(cfg) -> DecoderLM (the dense and ssm families; the others
+raise)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
@@ -6,6 +7,6 @@ from repro_torch.models.transformer import DecoderLM
 
 
 def build_model(cfg: ModelConfig) -> DecoderLM:
-    """The encoder-decoder family and the non-dense decoders raise
+    """The MoE, hybrid and encoder-decoder families raise
     ``NotImplementedError`` naming their ROADMAP.md item."""
     return DecoderLM(cfg)

@@ -1,24 +1,31 @@
-"""Decoder-only LM, the dense family (gemma2 and qwen1.5 features included).
+"""Decoder-only LM: the dense family (gemma2 and qwen1.5 features included)
+and the ssm family (mamba2).
 
 Depth is ``n_steps`` repetitions of a per-arch *pattern*, as in the JAX
 package's ``models/transformer.py``:
 
     dense  : ("block",)            n_steps = n_layers
     gemma2 : ("local", "global")   n_steps = n_layers // 2
+    ssm    : ("mamba",)            n_steps = n_layers
 
 Pattern params are stacked along a leading 'layers' dim; the port walks
 that axis in a Python loop (no scan, no remat, no mesh).  Inference only:
 ``forward``, ``prefill`` and ``decode_step``.  The decode cache is the JAX
-package's pytree -- per pattern entry ``k``, ``v`` (n_steps, B, max_len,
-Hkv, D) in bfloat16 whatever the compute dtype, and ``len`` (n_steps, B)
--- but the port updates it in place: a decode step writes one row per slot
-and layer, and ``prefill(..., cache=, rows=)`` writes a prompt's rows into
-the given slots of a live cache.  A write position past the cache end is
-clamped to the last row, as ``lax.dynamic_update_slice`` clamps it.
+package's pytree -- per attention entry ``k``, ``v`` (n_steps, B, max_len,
+Hkv, D) in bfloat16 whatever the compute dtype, and ``len`` (n_steps, B);
+per mamba entry the conv states ``conv_x``, ``conv_B``, ``conv_C`` (n_steps,
+B, K-1, .) in the compute dtype, a prompt's rounded through bfloat16 as the
+reference's merge rounds them, and the float32 SSM ``state`` (n_steps, B,
+H, P, N) -- but the port updates it in place: a decode step writes one row
+per slot and layer (and each layer's SSM entries whole), and
+``prefill(..., cache=, rows=)`` writes a prompt's rows and states into the
+given slots of a live cache.  A write position past the cache end is clamped to the last row, as
+``lax.dynamic_update_slice`` clamps it.
 
-The attention and norms run the hand-written kernels (``models/attention``,
-``models/layers``).  MoE, SSM and hybrid families, the
-int8 KV cache and vision / audio prefixes raise ``NotImplementedError``.
+The attention, the norms and the SSM's chunk scan run the hand-written
+kernels (``models/attention``, ``models/layers``, ``models/ssm``).  The MoE,
+hybrid and encoder-decoder families, the int8 KV cache and vision / audio
+prefixes raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm
 from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.params import Spec, init_params, tree_map
 
@@ -36,7 +44,6 @@ KV_CACHE_DTYPE = torch.bfloat16
 # what ports each missing piece (ROADMAP.md section 1, "Still to port")
 _LATER = {
     "moe": "the MoE decoder family (models/moe.py)",
-    "ssm": "mamba2-780m serving (models/ssm.py on the ssd_scan kernel)",
     "hybrid": "the hybrid family (zamba2: models/ssm.py plus the shared "
               "attention block)",
     "encdec": "the encoder-decoder family (models/encdec.py)",
@@ -92,9 +99,17 @@ def mlp_specs_full(cfg: ModelConfig) -> dict:
 
 def _pattern(cfg: ModelConfig) -> tuple[list[str], int]:
     require_ported(cfg)
+    if cfg.family == "ssm":
+        return ["mamba"], cfg.n_layers
     if cfg.local_global_period:
         return ["local", "global"], cfg.n_layers // cfg.local_global_period
     return ["block"], cfg.n_layers
+
+
+def _sub_specs(cfg: ModelConfig, kind: str) -> dict:
+    if kind == "mamba":
+        return {"mamba": ssm.mamba_specs(cfg)}
+    return {"attn": attn_specs(cfg), "mlp": mlp_specs_full(cfg)}
 
 
 def _stack(specs, n: int):
@@ -105,8 +120,7 @@ def _stack(specs, n: int):
 
 def lm_specs(cfg: ModelConfig) -> dict:
     pattern, n_steps = _pattern(cfg)
-    step = {f"s{i}_{k}": {"attn": attn_specs(cfg), "mlp": mlp_specs_full(cfg)}
-            for i, k in enumerate(pattern)}
+    step = {f"s{i}_{k}": _sub_specs(cfg, k) for i, k in enumerate(pattern)}
     sp: dict[str, Any] = {
         "embed": L.embed_specs(cfg.vocab, cfg.d_model),
         "blocks": _stack(step, n_steps),
@@ -218,6 +232,14 @@ def make_block_step(cfg: ModelConfig, mode: str):
             p = step_params[f"s{i}_{kind}"]
             ckey = f"s{i}"
             csl = cache_slice.get(ckey) if mode == "decode" else None
+            if kind == "mamba":              # no pre-norm, as in the JAX model
+                if mode == "decode":
+                    dx, nc = ssm.mamba_decode(p["mamba"], x, cfg, csl)
+                else:
+                    dx, nc = ssm.mamba_block(p["mamba"], x, cfg)
+                x = x + dx
+                new_cache[ckey] = nc
+                continue
             x, nc = attn_sublayer(p["attn"], x, cfg, window=window_for[kind],
                                   q_offset=q_offset, cache=csl, mode=mode)
             if nc is not None:
@@ -235,36 +257,59 @@ def _layer(tree, i):
 # ============================================================== caches =====
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       prefilled: int = 0, device="cpu") -> dict:
-    """Stacked (n_steps, ...) cache: zeros in bfloat16, len = prefilled."""
+    """Stacked (n_steps, ...) cache: k and v zeros in bfloat16 and len =
+    prefilled for attention entries; zero conv states (in the compute
+    dtype) and SSM states (float32) for mamba entries, which have no
+    length."""
     require_ported(cfg, cache=True)
     pattern, n_steps = _pattern(cfg)
     Hkv = cfg.n_kv_heads * cfg.kv_repeat
     shape = (n_steps, batch, max_len, Hkv, cfg.head_dim)
-    return {f"s{i}": {
-        "k": torch.zeros(shape, dtype=KV_CACHE_DTYPE, device=device),
-        "v": torch.zeros(shape, dtype=KV_CACHE_DTYPE, device=device),
-        "len": torch.full((n_steps, batch), prefilled, dtype=torch.int32,
-                          device=device)}
-        for i, _ in enumerate(pattern)}
+    cache = {}
+    for i, kind in enumerate(pattern):
+        if kind == "mamba":
+            cache[f"s{i}"] = tree_map(
+                lambda a: a.expand((n_steps,) + a.shape).clone(),
+                ssm.init_ssm_cache(cfg, batch, _dt(cfg.compute_dtype),
+                                   device))
+            continue
+        cache[f"s{i}"] = {
+            "k": torch.zeros(shape, dtype=KV_CACHE_DTYPE, device=device),
+            "v": torch.zeros(shape, dtype=KV_CACHE_DTYPE, device=device),
+            "len": torch.full((n_steps, batch), prefilled, dtype=torch.int32,
+                              device=device)}
+    return cache
 
 
 def _merge_prefill_cache(cfg, B, S, max_len, raw, *, cache=None, rows=None,
                          device="cpu"):
-    """raw: per pattern entry {'k', 'v'} stacked (n_steps, B, S, H, D).
-    Writes them, rounded to the cache dtype, into rows [0, S) of the slots
-    ``rows`` of ``cache`` (in place; a new cache of B slots when None) and
-    sets those slots' len to S.  Rows past S keep what they held: a slot
-    never reads a row at or past its len."""
+    """raw: per pattern entry, stacked over n_steps, either attention's
+    {'k', 'v'} (n_steps, B, S, H, D) or mamba's conv and SSM states.
+    Writes them, rounded to the cache's dtypes, into the slots ``rows`` of
+    ``cache`` (in place; a new cache of B slots when None): k and v into
+    rows [0, S), with those slots' len set to S, and the mamba states whole,
+    replacing what the slots held.  The conv states are rounded through
+    bfloat16 on the way, as the reference rounds them into the bfloat16
+    cache of its ``init_ssm_cache`` (its decode steps then carry them in
+    the compute dtype).  Rows past S keep what they held: a slot never
+    reads a row at or past its len."""
     if cache is None:
         cache = init_decode_cache(cfg, B, max_len, prefilled=S, device=device)
         rows = torch.arange(B, device=device)
     rows = torch.as_tensor(rows, dtype=torch.long, device=device)
-    if S > cache[next(iter(cache))]["k"].shape[2]:
-        raise ValueError(f"a {S}-token prompt does not fit the cache")
     for key, src in raw.items():
+        dst = cache[key]
+        if "state" in src:
+            for f, a in src.items():
+                if f != "state":
+                    a = a.to(KV_CACHE_DTYPE)
+                dst[f][:, rows] = a.to(dst[f].dtype)
+            continue
+        if S > dst["k"].shape[2]:
+            raise ValueError(f"a {S}-token prompt does not fit the cache")
         for f in ("k", "v"):
-            cache[key][f][:, rows, :S] = src[f].to(KV_CACHE_DTYPE)
-        cache[key]["len"][:, rows] = S
+            dst[f][:, rows, :S] = src[f].to(KV_CACHE_DTYPE)
+        dst["len"][:, rows] = S
     return cache
 
 
@@ -304,7 +349,9 @@ class DecoderLM:
 
     def _run(self, params, x, mode, q_offset=0, cache=None):
         """The layer loop; returns the final hidden state and, in prefill,
-        the stacked raw per-layer k/v."""
+        the stacked raw per-layer k/v and mamba states.  In decode, the new
+        lengths and mamba states go back into ``cache`` (k and v rows were
+        written in place by the attention)."""
         step = make_block_step(self.cfg, mode)
         n_steps = _pattern(self.cfg)[1]
         carry, raws = (x, q_offset), []
@@ -313,19 +360,22 @@ class DecoderLM:
             carry, nc = step(carry, _layer(params["blocks"], i), csl)
             if mode == "decode":
                 for key, c in nc.items():
-                    cache[key]["len"][i] = c["len"]
+                    # attention wrote its k, v rows in place; mamba's
+                    # states come back whole
+                    for f in (("len",) if "len" in c else c):
+                        cache[key][f][i] = c[f]
             elif mode == "prefill":
                 raws.append(nc)
         if mode == "prefill":
             raws = {key: {f: torch.stack([r[key][f] for r in raws])
-                          for f in ("k", "v")} for key in raws[0]}
+                          for f in raws[0][key]} for key in raws[0]}
         return carry[0], raws
 
     # ---- forward (inference)
     @torch.no_grad()
     def forward(self, params, tokens, *, extra_embeds=None, q_offset=0):
-        """tokens (B, S) -> (logits (B, S, V), aux = 0): the dense family
-        has no auxiliary loss."""
+        """tokens (B, S) -> (logits (B, S, V), aux = 0): the dense and ssm
+        families have no auxiliary loss."""
         x = self._embed_inputs(params, tokens, extra_embeds,
                                _dt(self.cfg.compute_dtype))
         x, _ = self._run(params, x, "train", q_offset)
@@ -336,9 +386,10 @@ class DecoderLM:
     def prefill(self, params, tokens, *, max_len=None, extra_embeds=None,
                 cache=None, rows=None):
         """tokens (B, S) -> (logits of the last position (B, 1, V), cache).
-        With ``cache`` and ``rows`` (B slot indices) the prompt's k/v go
-        into those slots of that cache, in place; otherwise into a new
-        cache of B slots and ``max_len`` (default S) positions."""
+        With ``cache`` and ``rows`` (B slot indices) the prompt's k/v (or
+        mamba states) go into those slots of that cache, in place;
+        otherwise into a new cache of B slots and ``max_len`` (default S)
+        positions."""
         x = self._embed_inputs(params, tokens, extra_embeds,
                                _dt(self.cfg.compute_dtype))
         B, S = x.shape[:2]
@@ -351,7 +402,8 @@ class DecoderLM:
     @torch.no_grad()
     def decode_step(self, params, cache, tokens):
         """tokens (B, 1) -> (logits (B, 1, V), cache); the cache is updated
-        in place (one row a slot and layer, len + 1) and returned."""
+        in place (one row a slot and layer, len + 1; each mamba layer's
+        states) and returned."""
         x = self._embed_inputs(params, tokens, None,
                                _dt(self.cfg.compute_dtype))
         x, _ = self._run(params, x, "decode", cache=cache)

@@ -1,5 +1,5 @@
-"""The port's dense decoder (configs, params, layers, ``DecoderLM``) against
-the JAX package.
+"""The port's decoder (configs, params, layers, ``DecoderLM``: the dense
+family and mamba2) against the JAX package.
 
 The same weights go to both packages (JAX's ``init`` in float32, carried
 over with ``params_from_numpy``), the same tokens from a numpy generator.
@@ -69,7 +69,8 @@ def _spec_tree(tree):
     return (tuple(tree.shape), tuple(tree.axes), tree.init, tree.scale)
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["llama3-405b", "pixtral-12b"])
+@pytest.mark.parametrize("arch", ARCHS + ["llama3-405b", "pixtral-12b",
+                                          "mamba2-780m"])
 def test_specs_and_counts_equal_jax(arch):
     for cfg_fn in ("get_config", "smoke_config"):
         tcfg = getattr(tconfigs, cfg_fn)(arch)
@@ -84,6 +85,13 @@ def test_specs_and_counts_equal_jax(arch):
 def test_h2o_danube_full_width_count():
     specs = ttransformer.lm_specs(tconfigs.get_config("h2o-danube-1.8b"))
     assert tparams.param_count(specs) == 1_835_133_440
+
+
+def test_mamba2_full_width_count():
+    """The count chip_smoke.py's serving phase asserts, in both packages."""
+    t = ttransformer.lm_specs(tconfigs.get_config("mamba2-780m"))
+    j = jtransformer.lm_specs(jconfigs.get_config("mamba2-780m"))
+    assert tparams.param_count(t) == jparams.param_count(j) == 781_328_640
 
 
 def test_init_params_seeded_scales_and_round_trip():
@@ -144,7 +152,7 @@ def test_row_update_clamps_like_dynamic_update_slice():
 
 
 def test_later_families_raise_naming_roadmap():
-    for arch in ("granite-moe-1b-a400m", "mamba2-780m", "zamba2-2.7b",
+    for arch in ("granite-moe-1b-a400m", "zamba2-2.7b",
                  "seamless-m4t-medium"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tbuild(tconfigs.smoke_config(arch))
@@ -249,7 +257,7 @@ def test_forward_matches_jax_f32():
     assert bool((tl[..., V:] == torch.finfo(tl.dtype).min).all())
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["mamba2-780m"])
 def test_decode_after_prefill_matches_prefill(arch):
     """As tests/test_prefill_decode.py holds the JAX package: decoding one
     token after a prefill equals prefilling the extended sequence (2e-2,
@@ -267,6 +275,67 @@ def test_decode_after_prefill_matches_prefill(arch):
     err = float((lg_dec[:, -1].float() - lg_full[:, -1].float())
                 .abs()[..., :cfg.vocab].max())
     assert err < 2e-2, (arch, err)
+
+
+def _rel(got, want, V):
+    """Largest logit difference over the largest logit of ``want``."""
+    want = _np(want, V)
+    return float(np.abs(np.asarray(got, np.float32)[..., :V] - want).max()
+                 / np.abs(want).max())
+
+
+def test_mamba2_forward_prefill_decode_match_jax_f32():
+    """The ssm family in float32: forward logits, prefill logits and caches
+    (a prompt off the chunk), then three decode steps, within 1e-4 of the
+    largest logit; the SSM states within 1e-5 (and 1e-5 relative: they
+    reach about 6)."""
+    jcfg, jm, jp, tm, tp = _pair("mamba2-780m", "float32")
+    V = jcfg.vocab
+    rng = np.random.default_rng(7)
+    B, S = 2, 37
+    toks = rng.integers(0, V, (B, S))
+    jl, _ = jm.forward(jp, jnp.asarray(toks), mode="prefill")
+    tl, aux = tm.forward(tp, torch.tensor(toks))
+    assert _rel(tl.numpy(), jl, V) <= 1e-4 and float(aux) == 0.0
+    jl, jc = jm.prefill(jp, jnp.asarray(toks), max_len=S + 8)
+    tl, tc = tm.prefill(tp, torch.tensor(toks), max_len=S + 8)
+    assert _rel(tl.numpy(), jl, V) <= 1e-4
+    assert set(tc["s0"]) == {"conv_x", "conv_B", "conv_C", "state"}
+    assert tc["s0"]["state"].shape == (jcfg.n_layers, B, jcfg.ssm_heads,
+                                       jcfg.ssm_head_dim, jcfg.ssm_state)
+    np.testing.assert_allclose(tc["s0"]["state"].numpy(),
+                               np.asarray(jc["s0"]["state"]), atol=1e-5,
+                               rtol=1e-5)
+    for _ in range(3):
+        nxt = rng.integers(0, V, (B, 1))
+        jl, jc = jm.decode_step(jp, jc, jnp.asarray(nxt))
+        tl, tc = tm.decode_step(tp, tc, torch.tensor(nxt))
+        assert _rel(tl.numpy(), jl, V) <= 1e-4
+    for f in ("conv_x", "state"):
+        np.testing.assert_allclose(tc["s0"][f].numpy(),
+                                   np.asarray(jc["s0"][f]), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def test_mamba2_prefill_and_decode_match_jax_bf16(monkeypatch):
+    """bfloat16, the JAX side's ``layers.rmsnorm`` (the gated and final
+    norms) swapped for the Pallas rmsnorm as in the dense bf16 test:
+    within 5e-2 of the largest logit."""
+    monkeypatch.setattr(jlayers, "rmsnorm", _pallas_rmsnorm)
+    jcfg, jm, jp, tm, tp = _pair("mamba2-780m", "bfloat16")
+    V = jcfg.vocab
+    rng = np.random.default_rng(8)
+    toks = rng.integers(0, V, (2, 40))
+    jl, jc = jm.prefill(jp, jnp.asarray(toks), max_len=48)
+    tl, tc = tm.prefill(tp, torch.tensor(toks), max_len=48)
+    assert tl.dtype == torch.bfloat16
+    assert tc["s0"]["conv_x"].dtype == torch.bfloat16
+    assert _rel(tl.float().numpy(), jl, V) <= BF16_REL
+    for _ in range(2):
+        nxt = rng.integers(0, V, (2, 1))
+        jl, jc = jm.decode_step(jp, jc, jnp.asarray(nxt))
+        tl, tc = tm.decode_step(tp, tc, torch.tensor(nxt))
+        assert _rel(tl.float().numpy(), jl, V) <= BF16_REL
 
 
 def test_prefill_into_live_cache_rows():
@@ -334,3 +403,38 @@ def test_plain_model_equals_kernel_model_on_cpu(monkeypatch):
     L = cfg.n_layers
     assert calls == {"rmsnorm": 2 * (4 * L + 1), "flash_attention": L,
                      "decode_attention": L}
+
+
+def test_plain_mamba2_equals_kernel_mamba2_on_cpu(monkeypatch):
+    """As above for the ssm family: every gated and final norm and every
+    prefill's chunk scan go through the wrapper modules' attributes, so
+    swapping them for the plain versions builds the plain model."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels import ssd_scan as sk
+    cfg = tconfigs.smoke_config("mamba2-780m")
+    m = tbuild(cfg)
+    params = m.init(0)
+    toks = torch.tensor(np.random.default_rng(9).integers(0, cfg.vocab,
+                                                          (1, 12)))
+    nxt = torch.tensor([[3]])
+    a, ca = m.prefill(params, toks)
+    a_dec = m.decode_step(params, ca, nxt)[0]
+    calls = dict.fromkeys(["rmsnorm", "ssd_scan"], 0)
+
+    def counted(name):
+        def fn(*args, **kw):
+            calls[name] += 1
+            return getattr(ref, name)(*args, **kw)
+        return fn
+
+    monkeypatch.setattr(rk, "rmsnorm", counted("rmsnorm"))
+    monkeypatch.setattr(sk, "ssd_scan", counted("ssd_scan"))
+    b, cb = m.prefill(params, toks)
+    b_dec = m.decode_step(params, cb, nxt)[0]
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    torch.testing.assert_close(a_dec, b_dec, rtol=0, atol=0)
+    # a gated norm a layer and the final norm, in the prefill and the
+    # decode step; one chunk scan a layer in the prefill only
+    L = cfg.n_layers
+    assert calls == {"rmsnorm": 2 * (L + 1), "ssd_scan": L}

@@ -10,7 +10,10 @@ smallest top-2 logit margin of an active slot is 1.8e-4, 160 times the
 largest difference between the two packages' logits there (1.1e-6).
 Slot isolation and recycling are tested as
 ``tests/test_serving.py`` tests the JAX engine, and a slot that decodes
-past ``max_len`` clamps its writes instead of raising.
+past ``max_len`` clamps its writes instead of raising.  The same engine on
+mamba2 (the ssm family: no KV cache, a conv and SSM state a slot and layer)
+gives the JAX engine's greedy tokens, and an insert replaces one slot's
+states whole and leaves the other slots' bit for bit.
 """
 import jax
 import jax.numpy as jnp
@@ -189,8 +192,69 @@ def test_engine_needs_a_device_or_the_cpu():
                      max_len=8, device="cpu")
 
 
+@pytest.fixture(scope="module")
+def both_mamba2():
+    cfg = jsmoke("mamba2-780m").replace(compute_dtype="float32")
+    jparams = jbuild(cfg).init(jax.random.PRNGKey(0), jnp.float32)
+    reqs = _requests(seed=2)
+    je = JEngine(cfg, jparams, slots=SLOTS, max_len=MAX_LEN)
+    j_out, j_snaps = _serve(JBatcher(je), JRequest, reqs)
+    te = DecodeEngine(smoke_config("mamba2-780m").replace(
+        compute_dtype="float32"), params_from_numpy(
+            jax.tree.map(np.asarray, jparams)), slots=SLOTS, max_len=MAX_LEN,
+        device="cpu")
+    t_out, t_snaps = _serve(ContinuousBatcher(te), Request, reqs)
+    return dict(reqs=reqs, je=je, te=te, j_out=j_out, t_out=t_out,
+                j_snaps=j_snaps, t_snaps=t_snaps)
+
+
+def test_mamba2_greedy_tokens_equal_jax(both_mamba2):
+    b = both_mamba2
+    assert b["t_out"] == b["j_out"]
+    for i, (_, n) in enumerate(b["reqs"]):
+        assert len(b["t_out"][i]) == 1 + n
+    assert b["te"].steps == b["je"].steps
+    np.testing.assert_array_equal(b["t_snaps"], b["j_snaps"])
+    np.testing.assert_allclose(b["te"].cache["s0"]["state"].numpy(),
+                               np.asarray(b["je"].cache["s0"]["state"]),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_mamba2_insert_replaces_one_slot_whole():
+    """A prefill into slot 1 of a live cache writes that slot's conv and SSM
+    states -- equal to a prefill alone -- and leaves the other slots' bit
+    for bit, whatever they held."""
+    cfg = smoke_config("mamba2-780m")
+    e = DecodeEngine(cfg, build_model(cfg).init(0), slots=3, max_len=32,
+                     device="cpu")
+    rng = np.random.default_rng(4)
+    for rid in range(3):
+        e.insert(rid, rng.integers(0, 200, 9 + rid), 5)
+    for _ in range(2):
+        e.step()
+    before = {f: t.clone() for f, t in e.cache["s0"].items()}
+    e.slot_state[1] = type(e.slot_state[1])()        # free slot 1
+    prompt = rng.integers(0, 200, 21)
+    assert e.insert(7, prompt, 5) == 1
+    alone, cache = e.model.prefill(e.params, torch.tensor(prompt)[None])
+    for f, t in e.cache["s0"].items():
+        torch.testing.assert_close(t[:, [0, 2]], before[f][:, [0, 2]],
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(t[:, 1], cache["s0"][f][:, 0]
+                                   .to(t.dtype), rtol=0, atol=0)
+        assert not torch.equal(t[:, 1], before[f][:, 1])
+    assert e.tokens[1, 0].item() == int(torch.argmax(alone[0, -1]))
+
+
 def test_serve_launcher_on_cpu():
     done = tserve.main(["--arch", ARCH, "--requests", "3", "--max-new", "4",
                         "--prompt-len", "8", "--slots", "2", "--device",
                         "cpu"])
+    assert sorted(len(r.output) for r in done) == [5, 5, 5]
+
+
+def test_serve_launcher_on_cpu_mamba2():
+    done = tserve.main(["--arch", "mamba2-780m", "--requests", "3",
+                        "--max-new", "4", "--prompt-len", "40", "--slots",
+                        "2", "--device", "cpu"])
     assert sorted(len(r.output) for r in done) == [5, 5, 5]

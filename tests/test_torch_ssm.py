@@ -1,0 +1,331 @@
+"""The port's Mamba2 pieces (``kernels/ssd_scan.py`` and ``models/ssm.py``)
+against the JAX package.
+
+On the CPU the ``ssd_scan`` wrapper runs its plain version
+(``repro_torch.kernels.ref.ssd_scan``, op for op the JAX model's
+``ssd_chunked``), held here against the JAX package's sequential oracle
+(``repro.kernels.ref.ssd_scan``) and its Pallas kernel in interpret mode
+(``repro.kernels.ops.ssd_scan``, as ``tests/test_kernels.py`` runs it) on
+the same numpy inputs, within that file's 2e-4 absolute / 1e-3 relative
+(a chunked form against a sequential one), and against ``ssd_chunked``
+itself within 1e-5 (the same op sequence).  The model's pieces (conv,
+decode step, block, decode) are held against ``repro.models.ssm`` within
+1e-5 in float32, and the chunked continuation as
+``tests/test_moe_ssm.py`` holds the JAX block.  The CUDA kernel is held
+against the plain version on the card (the ``cuda`` tests below, which
+also check that a kernel with the chunk carry dropped fails that check,
+and ``chip_smoke.py``).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import ModelConfig as JConfig
+from repro.kernels import ops, ref as jref
+from repro.models import params as jparams
+from repro.models import ssm as jssm
+from repro_torch.configs.base import ModelConfig as TConfig
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ssd_scan as tssd
+from repro_torch.models import params as tparams
+from repro_torch.models import ssm as tssm
+
+torch.set_num_threads(1)
+
+ORACLE_TOL = dict(atol=2e-4, rtol=1e-3)
+SAME_OPS_TOL = dict(atol=1e-5, rtol=0)
+# the one statement that carries the state from one chunk to the next
+CARRY = ("sH[(n0 + i) * PT + q0 + j] = hn[i][j];",
+         "sH[(n0 + i) * PT + q0 + j] = 0.0f;")
+
+
+def _inputs(rng, B, S, H, P, N, dt_scale=0.1):
+    """test_kernels.py's draws: x, B, C, D unit normal, dt = |N| * scale,
+    A = -|N|."""
+    return [rng.normal(size=(B, S, H, P)).astype(np.float32),
+            (np.abs(rng.normal(size=(B, S, H))) * dt_scale).astype(np.float32),
+            -np.abs(rng.normal(size=(H,))).astype(np.float32),
+            rng.normal(size=(B, S, N)).astype(np.float32),
+            rng.normal(size=(B, S, N)).astype(np.float32),
+            rng.normal(size=(H,)).astype(np.float32)]
+
+
+def _t(arrs):
+    return [torch.tensor(a) for a in arrs]
+
+
+def _j(arrs):
+    return [jnp.asarray(a) for a in arrs]
+
+
+def _pnp(h):
+    """(B, H, P, N) -> the kernel's (B, H, N, P), as numpy."""
+    return np.asarray(h).transpose(0, 1, 3, 2)
+
+
+# ------------------------------------------------------------ ssd_scan ---
+@pytest.mark.parametrize("shape", [(2, 256, 3, 32, 16), (1, 128, 2, 16, 8)])
+def test_plain_ssd_scan_matches_jax(shape):
+    B, S, H, P, N = shape
+    arrs = _inputs(np.random.default_rng(sum(shape)), B, S, H, P, N)
+    y, h = tssd.ssd_scan(*_t(arrs), chunk=64)
+    assert y.shape == (B, S, H, P) and h.shape == (B, H, N, P)
+    y_seq, h_seq = jref.ssd_scan(*_j(arrs))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_seq), **ORACLE_TOL)
+    np.testing.assert_allclose(h.numpy(), _pnp(h_seq), **ORACLE_TOL)
+    y_pl, h_pl = ops.ssd_scan(*_j(arrs), chunk=64)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_pl), **ORACLE_TOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_pl), **ORACLE_TOL)
+    y_ch, h_ch = jssm.ssd_chunked(*_j(arrs), chunk=64)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ch), **SAME_OPS_TOL)
+    np.testing.assert_allclose(h.numpy(), _pnp(h_ch), **SAME_OPS_TOL)
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 128])
+def test_plain_ssd_scan_with_h0_matches_jax(chunk):
+    """A given initial state, in the kernel's (B, H, N, P) layout, against
+    the oracle's h0 in the JAX model's (B, H, P, N)."""
+    B, S, H, P, N = 2, 128, 3, 8, 16
+    rng = np.random.default_rng(chunk)
+    arrs = _inputs(rng, B, S, H, P, N, dt_scale=0.05)
+    h0 = rng.normal(size=(B, H, N, P)).astype(np.float32)
+    y, h = tssd.ssd_scan(*_t(arrs), chunk=chunk, h0=torch.tensor(h0))
+    y_seq, h_seq = jref.ssd_scan(*_j(arrs), h0=jnp.asarray(_pnp(h0)))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_seq), **ORACLE_TOL)
+    np.testing.assert_allclose(h.numpy(), _pnp(h_seq), **ORACLE_TOL)
+    y_ch, h_ch = jssm.ssd_chunked(*_j(arrs), chunk=chunk,
+                                  h0=jnp.asarray(_pnp(h0)))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ch), **SAME_OPS_TOL)
+    np.testing.assert_allclose(h.numpy(), _pnp(h_ch), **SAME_OPS_TOL)
+
+
+def test_plain_ssd_scan_bf16_rounds_once():
+    """bf16 x, B, C: float32 inside, y rounded once to bf16, the state in
+    float32; against the float32 computation on the same (rounded) inputs
+    within one bf16 rounding of each row's scale."""
+    arrs = _inputs(np.random.default_rng(7), 1, 64, 2, 16, 8)
+    t = _t(arrs)
+    for i in (0, 3, 4):
+        t[i] = t[i].to(torch.bfloat16)
+    y, h = tssd.ssd_scan(*t, chunk=32)
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    f = [a.float() for a in t]
+    y32, h32 = tref.ssd_scan(*f, chunk=32)
+    torch.testing.assert_close(h, h32, rtol=0, atol=0)
+    row = (y.float() - y32).abs().amax(-1) / y32.abs().amax(-1)
+    assert float(row.max()) <= 2.0 ** -8
+
+
+def test_ssd_scan_wrapper_rejects_and_cpu_counts_nothing():
+    arrs = _t(_inputs(np.random.default_rng(0), 1, 64, 2, 8, 8))
+    tssd.reset_launch_counts()
+    tssd.ssd_scan(*arrs, chunk=32)
+    assert tssd.LAUNCHES == {"ssd_scan": 0}
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        tssd.ssd_scan(*arrs, chunk=48)
+    with pytest.raises(TypeError):
+        tssd.ssd_scan(arrs[0].double(), *arrs[1:], chunk=32)
+    with pytest.raises(TypeError):
+        tssd.ssd_scan(arrs[0], arrs[1].to(torch.bfloat16), *arrs[2:],
+                      chunk=32)
+    with pytest.raises(ValueError, match="h0"):
+        tssd.ssd_scan(*arrs, chunk=32, h0=torch.zeros(1, 2, 8, 9))
+    with pytest.raises(ValueError, match="contiguous"):
+        tssd.ssd_scan(arrs[0].transpose(2, 3).contiguous().transpose(2, 3),
+                      *arrs[1:], chunk=32)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tssd.ssd_scan(*[a.to("meta") for a in arrs], chunk=32)
+
+
+# --------------------------------------------------------------- model ---
+def _cfgs(**kw):
+    base = dict(name="t", family="ssm", d_model=32, ssm_state=16,
+                ssm_heads=4, ssm_head_dim=16, ssm_expand=2, ssm_chunk=16)
+    base.update(kw)
+    return JConfig(**base), TConfig(**base)
+
+
+def _block_params(jcfg, seed):
+    jp = jparams.init_params(jssm.mamba_specs(jcfg), jax.random.PRNGKey(seed),
+                             jnp.float32)
+    # a non-trivial dt bias and decay, so the carry matters
+    rng = np.random.default_rng(seed)
+    jp = dict(jp)
+    jp["dt_bias"] = jnp.asarray(rng.uniform(-3, -1, jp["dt_bias"].shape),
+                                jnp.float32)
+    jp["A_log"] = jnp.asarray(rng.uniform(-1, 1, jp["A_log"].shape),
+                              jnp.float32)
+    return jp, tparams.params_from_numpy(jax.tree.map(np.asarray, jp))
+
+
+def test_specs_equal_jax():
+    jcfg, tcfg = _cfgs()
+    js, ts = jssm.mamba_specs(jcfg), tssm.mamba_specs(tcfg)
+    assert {k: (v.shape, v.axes, v.init, v.scale) for k, v in ts.items()} \
+        == {k: (v.shape, v.axes, v.init, v.scale) for k, v in js.items()}
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_causal_depthwise_conv_matches_jax(with_state):
+    rng = np.random.default_rng(int(with_state))
+    x = rng.normal(size=(2, 9, 12)).astype(np.float32)
+    w = rng.normal(size=(4, 12)).astype(np.float32)
+    st = rng.normal(size=(2, 3, 12)).astype(np.float32) if with_state \
+        else None
+    y, ns = tssm.causal_depthwise_conv(
+        torch.tensor(x), torch.tensor(w),
+        None if st is None else torch.tensor(st))
+    jy, jns = jssm.causal_depthwise_conv(
+        jnp.asarray(x), jnp.asarray(w),
+        None if st is None else jnp.asarray(st))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **SAME_OPS_TOL)
+    np.testing.assert_array_equal(ns.numpy(), np.asarray(jns))
+
+
+def test_ssd_decode_step_matches_jax():
+    rng = np.random.default_rng(3)
+    B, H, P, N = 3, 4, 8, 16
+    x = rng.normal(size=(B, H, P)).astype(np.float32)
+    dt = np.abs(rng.normal(size=(B, H))).astype(np.float32) * 0.1
+    A = -np.abs(rng.normal(size=(H,))).astype(np.float32)
+    Bm, Cm = (rng.normal(size=(B, N)).astype(np.float32) for _ in range(2))
+    D = rng.normal(size=(H,)).astype(np.float32)
+    h = rng.normal(size=(B, H, P, N)).astype(np.float32)
+    args = (x, dt, A, Bm, Cm, D, h)
+    y, hn = tssm.ssd_decode_step(*_t(args))
+    jy, jhn = jssm.ssd_decode_step(*_j(args))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **SAME_OPS_TOL)
+    np.testing.assert_allclose(hn.numpy(), np.asarray(jhn), **SAME_OPS_TOL)
+
+
+@pytest.mark.parametrize("S", [37, 64])
+def test_mamba_block_and_decode_match_jax(S):
+    """A prefill (S off and on the chunk) and two decode steps from its
+    cache, outputs and caches."""
+    jcfg, tcfg = _cfgs()
+    jp, tp = _block_params(jcfg, S)
+    rng = np.random.default_rng(S)
+    u = rng.normal(size=(2, S + 2, jcfg.d_model)).astype(np.float32)
+    out, cache = tssm.mamba_block(tp, torch.tensor(u[:, :S]), tcfg)
+    jout, jcache = jssm.mamba_block(jp, jnp.asarray(u[:, :S]), jcfg)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), **SAME_OPS_TOL)
+    for k in ("conv_x", "conv_B", "conv_C", "state"):
+        np.testing.assert_allclose(cache[k].numpy(), np.asarray(jcache[k]),
+                                   **SAME_OPS_TOL)
+    for t in (S, S + 1):
+        out, cache = tssm.mamba_decode(tp, torch.tensor(u[:, t:t + 1]), tcfg,
+                                       cache)
+        jout, jcache = jssm.mamba_decode(jp, jnp.asarray(u[:, t:t + 1]), jcfg,
+                                         jcache)
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout),
+                                   **SAME_OPS_TOL)
+        np.testing.assert_allclose(cache["state"].numpy(),
+                                   np.asarray(jcache["state"]),
+                                   **SAME_OPS_TOL)
+
+
+def test_mamba_block_chunked_continuation():
+    """Prefilling in two halves through the cache equals one full pass
+    (test_moe_ssm.py's case, the same bound)."""
+    jcfg, tcfg = _cfgs()
+    _, tp = _block_params(jcfg, 2)
+    u = torch.tensor(np.random.default_rng(2).normal(
+        size=(2, 64, tcfg.d_model)).astype(np.float32))
+    full, cache_full = tssm.mamba_block(tp, u, tcfg)
+    _, c1 = tssm.mamba_block(tp, u[:, :32], tcfg)
+    h2, c2 = tssm.mamba_block(tp, u[:, 32:], tcfg, cache=c1)
+    torch.testing.assert_close(h2, full[:, 32:], atol=3e-4, rtol=1e-3)
+    torch.testing.assert_close(c2["state"], cache_full["state"], atol=3e-4,
+                               rtol=1e-3)
+
+
+def test_mamba_decode_matches_block():
+    jcfg, tcfg = _cfgs()
+    _, tp = _block_params(jcfg, 3)
+    u = torch.tensor(np.random.default_rng(3).normal(
+        size=(1, 17, tcfg.d_model)).astype(np.float32))
+    full, _ = tssm.mamba_block(tp, u, tcfg)
+    _, cache = tssm.mamba_block(tp, u[:, :16], tcfg)
+    step, _ = tssm.mamba_decode(tp, u[:, 16:17], tcfg, cache)
+    torch.testing.assert_close(step, full[:, 16:17], atol=3e-4, rtol=1e-3)
+
+
+def test_init_ssm_cache_equals_jax():
+    jcfg, tcfg = _cfgs()
+    jc, tc = jssm.init_ssm_cache(jcfg, 3), tssm.init_ssm_cache(tcfg, 3)
+    for k in jc:
+        assert tuple(tc[k].shape) == jc[k].shape
+        assert str(tc[k].dtype).split(".")[1] == str(jc[k].dtype)
+        assert not bool(tc[k].any())
+
+
+# ------------------------------------------------------------- the card ---
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _card_inputs(dev, B, S, H, P, N, dtype, seed=0):
+    """Unit-normal x, B, C, D; dt = |N| * 0.05 and A in -[0.02, 0.5]: a
+    chunk's decay stays between exp(-0.1) and exp(-2.5) at L = 128, so the
+    carried state is alive."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((B, S, H, P), generator=g).to(dev, dtype)
+    dt = (torch.randn((B, S, H), generator=g).abs() * 0.05).to(dev)
+    A = -(0.02 + 0.48 * torch.rand((H,), generator=g)).to(dev)
+    Bm = torch.randn((B, S, N), generator=g).to(dev, dtype)
+    Cm = torch.randn((B, S, N), generator=g).to(dev, dtype)
+    D = torch.randn((H,), generator=g).to(dev)
+    return x, dt, A, Bm, Cm, D
+
+
+def _errs(got, want):
+    """(y's largest row error over the row's largest |want|, h's largest
+    error over its largest |want|)."""
+    (y, h), (wy, wh) = got, want
+    row = (y.float() - wy).abs().amax(-1) / wy.abs().amax(-1).clamp_min(
+        1e-30)
+    return float(row.max()), float((h - wh).abs().max() / wh.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,chunk,shape", [
+    (torch.bfloat16, 128, (1, 512, 48, 64, 128)),
+    (torch.float32, 128, (1, 256, 4, 64, 128)),
+    (torch.float32, 64, (2, 192, 3, 32, 64)),
+    (torch.bfloat16, 32, (2, 64, 4, 32, 16)),
+    (torch.float32, 32, (1, 32, 2, 20, 16))])
+def test_cuda_ssd_scan_matches_plain(cuda_device, dtype, chunk, shape):
+    """The kernel against its plain version computed in f32 from the same
+    inputs, with and without h0: y row by row within 1e-2 (bf16: one
+    rounding is 2^-8 of the row's scale) or 1e-4 (f32) of the row's scale,
+    the state within 1e-4 of its scale."""
+    B, S, H, P, N = shape
+    ins = _card_inputs(cuda_device, B, S, H, P, N, dtype)
+    f32 = [t.float() for t in ins]
+    y_tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    for h0 in (None, torch.randn((B, H, N, P), device=cuda_device)):
+        got = tssd.ssd_scan(*ins, chunk=chunk, h0=h0)
+        want = tref.ssd_scan(*f32, chunk=chunk, h0=h0)
+        torch.cuda.synchronize()
+        assert got[0].dtype == dtype and bool(torch.isfinite(got[0]).all())
+        ey, eh = _errs(got, want)
+        assert ey <= y_tol and eh <= 1e-4, (ey, eh)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_without_carry_fails_the_check(cuda_device, tmp_path):
+    """A kernel that drops the state between chunks, built from the source
+    with the carry's one statement changed, must fail the check above."""
+    from repro_torch.kernels import _build
+    lib = tssd.bind(_build.build_variant("ssd_scan", [CARRY], tmp_path))
+    ins = _card_inputs(cuda_device, 1, 512, 8, 64, 128, torch.bfloat16)
+    got = tssd.launch(lib, *ins, 128, None)
+    want = tref.ssd_scan(*[t.float() for t in ins], chunk=128)
+    torch.cuda.synchronize()
+    ey, eh = _errs(got, want)
+    assert ey > 1e-2 and eh > 1e-4, (ey, eh)
