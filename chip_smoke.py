@@ -10,8 +10,11 @@ card, through the seven hand-written CUDA kernels of ``kernels/csrc/``:
 
 1. device facts (``nvidia-smi`` name and power limit), TF32 off for float32
    products, the seven kernels built from the checkout's sources with
-   ``nvcc`` (one process per source, started together, beside an eighth
-   that builds ``ssd_scan.cu`` with its chunk carry dropped);
+   ``nvcc`` (one process per source, started together, beside three that
+   build the ``MUTANTS``: ``ssd_scan.cu`` with its chunk carry dropped,
+   ``flash_attention.cu`` without its accumulator's rescale,
+   ``decode_attention.cu`` merging every split with weight 1), each
+   kernel's registers and spills from ptxas;
 2. every kernel wrapper against its plain PyTorch version at the main
    paths' shapes and at edge shapes (f32 and bf16 for the decoder's
    kernels), the LSTM kernels' autograd gradients against autograd through
@@ -19,7 +22,10 @@ card, through the seven hand-written CUDA kernels of ``kernels/csrc/``:
    library yardstick where one exists (cuDNN's LSTM, ``torch.lstm_cell``,
    ``F.rms_norm``, ``scaled_dot_product_attention``), and its bound on an
    H100; the chunk scan on inputs whose decay keeps the carried state
-   alive, where the kernel without its carry must fail the same check;
+   alive, where the kernel without its carry must fail the same check; the
+   bf16 serving shapes through flash's tensor-core kernel
+   (``PATH_LAUNCHES``) and decode's split kernel (its only kernel), where
+   the flash and decode mutants must fail the bf16 bars;
 3. the paper-scale closed loop of examples/multizone_control.py: a 1800 s
    collection run, 7 per-target LSTM(50) fits on the card, ``FleetController``
    + ``Updater(FINETUNE)`` over 30 simulated minutes of NASA + Random Access;
@@ -39,9 +45,10 @@ card, through the seven hand-written CUDA kernels of ``kernels/csrc/``:
    parameters) serves 49 bursty requests through ``ContinuousBatcher`` (one
    prompt of 6144 tokens crosses the 4096 window) while a PPA fed
    ``batcher.snapshot`` decides replicas and refits its LSTM on the card;
-   then the kernels' engine against the plain versions' engine, every
-   kernel launch of that check against its plain version, decode after
-   prefill against prefill, and five profiled decode steps;
+   every flash launch on the tensor-core kernel (decode has one kernel,
+   the split one); then the kernels' engine against the plain versions'
+   engine, every kernel launch of that check against its plain version,
+   decode after prefill against prefill, and five profiled decode steps;
 9. phase 8 on mamba2-780m at full width (48 layers, d_model 1536,
    781,328,640 seeded bf16 parameters, the dt path at Mamba2's published
    scales, ``mamba2_conditioned``): each prefill runs the chunk scan, a
@@ -127,10 +134,20 @@ KERNELS = {
     "lstm_cell": "src/repro_torch/kernels/csrc/lstm_cell.cu",
     "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
-# the one statement of ssd_scan.cu that carries the state into the next
-# chunk, and the change that drops the carry (phase 2's mutant)
-SSD_CARRY_MUTANT = ("sH[(n0 + i) * PT + q0 + j] = hn[i][j];",
-                    "sH[(n0 + i) * PT + q0 + j] = 0.0f;")
+# phase 2's mutants, each a one-statement edit of a source that must fail
+# the check its kernel passes: the chunk scan without the state it carries
+# into the next chunk; flash attention without the accumulator's rescale
+# when the running max moves; split decode merging every split with weight
+# 1 instead of exp(m_s - M)
+MUTANTS = {
+    "ssd_scan": ("sH[(n0 + i) * PT + q0 + j] = hn[i][j];",
+                 "sH[(n0 + i) * PT + q0 + j] = 0.0f;"),
+    "flash_attention": ("rescale_rows(o_acc, alpha[0], alpha[1]);",
+                        "rescale_rows(o_acc, 1.0f, 1.0f);"),
+    "decode_attention": (
+        "const float w = ms == -INFINITY ? 0.0f : expf(ms - M);",
+        "const float w = ms == -INFINITY ? 0.0f : 1.0f;"),
+}
 KERNEL_SYMBOL = {
     "lstm_seq_grouped_kernel": ("lstm_seq", "lstm_seq_stacked",
                                 "lstm_seq_grouped"),
@@ -138,8 +155,10 @@ KERNEL_SYMBOL = {
                                      "attn_lstm_seq_stacked",
                                      "attn_lstm_seq_grouped"),
     "rmsnorm_kernel": ("rmsnorm",),
-    "flash_attention_kernel": ("flash_attention",),
-    "decode_attention_kernel": ("decode_attention",),
+    # both flash kernels: flash_attention_bf16_tc_kernel (tensor cores) and
+    # flash_attention_f32_kernel (CUDA cores); decode is one launch a call
+    "flash_attention_": ("flash_attention",),
+    "decode_attention_split_kernel": ("decode_attention",),
     "lstm_cell_grouped_kernel": ("lstm_cell",),
     "ssd_scan_kernel": ("ssd_scan",),
 }
@@ -190,6 +209,13 @@ def launch_counts():
     for mod in _wrapper_modules():
         out.update(mod.LAUNCHES)
     return out
+
+
+def path_launches():
+    """Flash attention's launches by kernel: the bf16 tensor-core and the
+    f32 CUDA-core kernel."""
+    from repro_torch.kernels import flash_attention
+    return dict(flash_attention.PATH_LAUNCHES)
 
 
 def attn_row_err(got, want):
@@ -306,24 +332,78 @@ def device_facts():
         f"count {torch.cuda.device_count()}")
     log(f"[1] matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
-    from repro_torch.kernels import _build, ssd_scan
+    from repro_torch.kernels import _build, decode_attention
+    from repro_torch.kernels import flash_attention, ssd_scan
+    binders = {"ssd_scan": ssd_scan.bind, "flash_attention":
+               flash_attention.bind, "decode_attention": decode_attention.bind}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:  # one nvcc a source
-        mutant = pool.submit(_build.build_variant, "ssd_scan",
-                             [SSD_CARRY_MUTANT], _build.BUILD_DIR / "variants")
+    # one nvcc a source and a mutant, all started together
+    with ThreadPoolExecutor(len(KERNELS) + len(MUTANTS)) as pool:
+        mutants = {name: pool.submit(_build.build_variant, name, [edit],
+                                     _build.BUILD_DIR / "variants")
+                   for name, edit in MUTANTS.items()}
         list(pool.map(_build.build, KERNELS))
-        mutant = ssd_scan.bind(mutant.result())
+        mutants = {name: binders[name](f.result())
+                   for name, f in mutants.items()}
     for mod in _wrapper_modules():
         mod._lib()
     log(f"[1] built+loaded "
         f"{', '.join(_build.library_path(n).name for n in KERNELS)} and "
-        f"ssd_scan without its carry in {time.perf_counter() - t0:.2f} s")
+        f"the mutants of {', '.join(MUTANTS)} in "
+        f"{time.perf_counter() - t0:.2f} s")
     for name, secs, ptxas in _build.build_log:
         log(f"[1] nvcc {name}.cu {secs:.2f} s; ptxas: "
-            + " | ".join(ln.strip() for ln in ptxas.splitlines()
-                         if "registers" in ln or "spill" in ln
-                         or "smem" in ln.lower()))
-    return smi_line, mutant
+            + "; ".join(ptxas_summary(ptxas)))
+    return smi_line, mutants
+
+
+def demangle(names):
+    """Readable names for mangled kernel names: the CUDA toolkit's
+    ``cu++filt`` (beside nvcc), without the parameter list, the return
+    type, the anonymous namespace and the casts of integer template
+    arguments; the mangled names where it fails."""
+    import re
+    from repro_torch.kernels import _build
+    names = list(names)
+    if not names:
+        return names
+    try:
+        tool = Path(_build.find_nvcc()).with_name("cu++filt")
+        proc = subprocess.run([str(tool), *names], capture_output=True,
+                              text=True, timeout=60)
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return names
+    out = proc.stdout.splitlines()
+    if proc.returncode != 0 or len(out) != len(names):
+        return names
+    tidy = []
+    for d in out:
+        d = re.sub(r"<unnamed>::|\(anonymous namespace\)::|^void ", "", d)
+        d = re.sub(r"\((?:unsigned )?(?:int|long|bool|char)\)", "", d)
+        tidy.append(d.split("(", 1)[0].replace("__nv_bfloat16", "bf16")
+                    .replace(", ", ","))
+    return tidy
+
+
+def ptxas_summary(report):
+    """One entry a kernel of an ``-Xptxas -v`` report: its name with its
+    template arguments, registers, spill bytes and static shared memory."""
+    import re
+    rows, name, spill = [], None, "?"
+    for ln in report.splitlines():
+        ent = re.search(r"Compiling entry function '(\w+)'", ln)
+        if ent:
+            name, spill = ent.group(1), "?"
+        elif "spill stores" in ln and name:
+            spill = ln.split(",")[1].strip().split()[0]
+        elif "Used" in ln and "registers" in ln and name:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            smem = re.search(r"(\d+) bytes smem", ln)
+            rows.append((name, f" {regs} regs, {spill} B spilled"
+                         + (f", {smem.group(1)} B smem" if smem else "")))
+            name = None
+    return [n + rest for n, (_, rest) in
+            zip(demangle(m for m, _ in rows), rows)]
 
 
 # --------------------------------------------------------------- phase 2 --
@@ -595,11 +675,26 @@ def _sdpa(q, k, v, mask):
             attn_mask=mask)
 
 
-def llm_kernels_vs_plain():
+def attn_passes(got, want):
+    """(whether a bf16 attention output passes phase 2's bars -- 2e-2
+    absolute and 1e-2 of each row's scale, finite --, max abs err, row
+    err); ``want`` computed in f32 from the same inputs."""
+    import torch
+    e = float((got.float() - want.float()).abs().max())
+    r = attn_row_err(got, want)
+    ok = (bool(torch.isfinite(got).all()) and e <= BF16_ATTN_TOL
+          and r <= BF16_ATTN_ROW_TOL)
+    return ok, e, r
+
+
+def llm_kernels_vs_plain(mutants):
     """The decoder's three kernels against their plain versions at the
     serving path's shapes (bf16) and at edge shapes (f32 and bf16); their
     times at the path's shapes beside their bounds, the plain versions'
-    times and one PyTorch call each (``F.rms_norm``, SDPA)."""
+    times and one PyTorch call each (``F.rms_norm``, SDPA).  The bf16
+    serving shapes must go through the tensor-core flash kernel
+    (``PATH_LAUNCHES``), and the flash and decode ``mutants`` must fail the
+    bars on the same serving inputs."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -698,6 +793,7 @@ def llm_kernels_vs_plain():
         # ---- flash attention: the prefill's (B, H, S, D) views of (B, S,
         # H, D) projections, window 4096, Sq = 512 and 6144
         subs = {}
+        fk.reset_launch_counts()
         for Sq in (512, 6144):
             qs = rnd(1, Sq, LLM_HQ, LLM_HEAD_DIM, dtype=bf16)
             ks = rnd(1, Sq, LLM_HKV, LLM_HEAD_DIM, dtype=bf16)
@@ -719,7 +815,23 @@ def llm_kernels_vs_plain():
                 flash_bound(1, LLM_HQ, LLM_HKV, Sq, Sq, LLM_HEAD_DIM, 2,
                             flash_pairs(Sq, Sq, True, LLM_WINDOW)),
                 iters=10 if Sq > 1000 else 20, row_tol=BF16_ATTN_ROW_TOL)
-        records["flash_attention"] = {**subs[512], "long_prompt": subs[6144]}
+            if Sq == 512:
+                # without the rescale, on the same inputs: must fail
+                want = ref.flash_attention(q.float(), k.float(), v.float(),
+                                           **kw)
+                ok, me, mr = attn_passes(
+                    fk.launch(mutants["flash_attention"], q, k, v, **kw),
+                    want)
+                check(not ok, f"flash without its rescale passed the check "
+                      f"(max_abs_err {me}, row err {mr})")
+                flash_mutant = {"max_abs_err": me, "max_row_err": mr}
+        paths = dict(fk.PATH_LAUNCHES)
+        check(paths["tensor_core"] == fk.LAUNCHES["flash_attention"] > 0
+              and paths["cuda_core"] == 0,
+              f"bf16 flash at the serving shapes: launches by path {paths}")
+        records["flash_attention"] = {**subs[512], "long_prompt": subs[6144],
+                                      "rescale_dropped": flash_mutant,
+                                      "path_launches": paths}
         # edge shapes: head dims, G = 1 and 4, Sq off the block, q_offset,
         # kv_valid (0, inside, past Skv), cap, no causality, small windows
         for (B, Hq, Hkv, Sq, Skv, D, opts) in [
@@ -731,7 +843,9 @@ def llm_kernels_vs_plain():
                 (1, 4, 1, 1, 200, 80, dict(q_offset=199, window=64)),
                 (2, 8, 2, 64, 64, 80, dict(kv_valid=0)),
                 (1, 4, 4, 97, 31, 80, dict(causal=False, window=16,
-                                           q_offset=10))]:
+                                           q_offset=10)),
+                (1, 4, 2, 150, 150, 256, dict(cap=20.0, window=100)),
+                (2, 6, 3, 64, 300, 48, dict(q_offset=236))]:
             for dt in (f32, bf16):
                 q = rnd(B, Sq, Hq, D, dtype=dt).transpose(1, 2)
                 k = rnd(B, Skv, Hkv, D, dtype=dt).transpose(1, 2)
@@ -744,6 +858,19 @@ def llm_kernels_vs_plain():
                        fk.flash_attention(q, k, v, **kw), want,
                        **attn_tols(dt == f32))
                 edges += 1
+        # bf16 takes only the tensor-core kernel: a head dim off 16 or a
+        # view off 16 bytes raises instead of running elsewhere
+        odd = rnd(1, 2, 8, 72, dtype=bf16)
+        shifted = rnd(1, 2, 8 * 64 + 1, dtype=bf16)[..., 1:].reshape(
+            1, 2, 8, 64)
+        for name, args in [("D=72", (odd,) * 3),
+                           ("a base off 16 bytes", (shifted,) * 3)]:
+            try:
+                fk.flash_attention(*args)
+            except ValueError:
+                pass
+            else:
+                check(False, f"bf16 flash at {name} did not raise")
 
         # ---- decode attention: 16 slots against the (B, S, Hkv, D) cache
         # slice, read as a (B, Hkv, S, D) view; kv_valid spread over
@@ -773,6 +900,21 @@ def llm_kernels_vs_plain():
             decode_bound(SLOTS, LLM_HQ, LLM_HKV, LLM_HEAD_DIM, 2, 2, rows),
             iters=20, row_tol=BF16_ATTN_ROW_TOL)
         records["decode_attention"]["visible_rows"] = int(rows.sum())
+        # the grid the wrapper plans from S and the window, and how many of
+        # its CTAs these kv_valid give rows (computed, not counted)
+        n_splits, run = dk.split_plan(MAX_LEN, LLM_WINDOW)
+        plan = (f"{n_splits} splits of {run} rows; "
+                f"{int(np.ceil(rows / run).sum()) * LLM_HKV} of "
+                f"{n_splits * LLM_HKV * SLOTS} CTAs with rows")
+        # every split weighted 1 in the merge, on the same inputs: must fail
+        want = ref.decode_attention(q.float(), k.float(), v.float(), **kw)
+        ok, me, mr = attn_passes(
+            dk.launch(mutants["decode_attention"], q, k, v, valid,
+                      window=LLM_WINDOW), want)
+        check(not ok, f"decode merging every split with weight 1 passed the "
+              f"check (max_abs_err {me}, row err {mr})")
+        records["decode_attention"]["merge_unweighted"] = {
+            "max_abs_err": me, "max_row_err": mr}
         for (B, Hq, Hkv, S, D, opts, qd, kd) in [
                 (3, 4, 1, 300, 16, {}, f32, f32),
                 (2, 4, 4, 257, 64, dict(cap=5.0), bf16, bf16),
@@ -780,7 +922,15 @@ def llm_kernels_vs_plain():
                 (2, 2, 2, 64, 128, {}, bf16, f32),
                 (2, 4, 1, 200, 256, dict(window=64, cap=20.0), f32, f32),
                 (2, 4, 1, 150, 256, {}, bf16, bf16),
-                (2, 32, 8, 1000, 80, dict(window=300), bf16, bf16)]:
+                (2, 32, 8, 1000, 80, dict(window=300), bf16, bf16),
+                # against the split plan (vals above): G = 1 and G = 16
+                (4, 4, 4, 2000, 64, dict(kv_valid="plan"), bf16, bf16),
+                (4, 16, 1, 1500, 128, dict(kv_valid="plan", window=768),
+                 bf16, bf16),
+                (4, 16, 1, 1500, 256, dict(kv_valid="plan", window=900,
+                                           cap=30.0), f32, f32),
+                (4, 8, 1, 3000, 80, dict(kv_valid="plan", window=2000),
+                 f32, bf16)]:
             kv = rnd(B, S, Hkv, D, dtype=kd)
             vv = rnd(B, S, Hkv, D, dtype=kd)
             qq = rnd(B, Hq, D, dtype=qd)
@@ -788,6 +938,21 @@ def llm_kernels_vs_plain():
             # past the cache end)
             vals = torch.as_tensor([1, S, S // 2 + 1, S + 7][:B],
                                    dtype=torch.int32, device=dev)
+            if isinstance(opts.get("kv_valid"), str):
+                # rows placed against the split plan: a window over many
+                # splits, a range ending on a split boundary (each window
+                # here is a whole number of runs), one inside a single
+                # split, one that sees no row (past S + window; 0 without
+                # a window): it gives 0
+                w = opts.get("window")
+                n_sp, run = dk.split_plan(S, w)
+                vals = torch.as_tensor(
+                    [S - 3, (w or 0) + 2 * run, 37, S + w + 5 if w else 0],
+                    dtype=torch.int32, device=dev)
+                check(n_sp > 2, f"decode edge S={S} window={w}: "
+                      f"{n_sp} splits")
+                opts = {k_: v_ for k_, v_ in opts.items()
+                        if k_ != "kv_valid"}
             kw = dict(dict(kv_valid=vals), **opts)
             want = ref.decode_attention(qq.float(), kv.transpose(1, 2).float(),
                                         vv.transpose(1, 2).float(), **kw)
@@ -808,12 +973,18 @@ def llm_kernels_vs_plain():
                 check(False, f"{fn.__name__}: float64 input did not raise")
     for name, r in records.items():
         for tag, rr in [("", r)] + [(f" ({k})", v) for k, v in r.items()
-                                    if isinstance(v, dict)]:
+                                    if isinstance(v, dict) and "shape" in v]:
             log(f"[2] {name}{tag} {rr['shape']}: kernel {rr['call_ms']:.4f} "
                 f"ms a call ({rr['kernel_ms']:.4f} ms on the device), plain "
                 f"{rr['plain_ms']:.4f} ms, library {rr['library_ms']}, bound "
                 f"{rr['bound_ms']:.4f} ms ({rr['bound_by']}), max_abs_err "
                 f"{rr['max_abs_err']:.3g}, row err {rr.get('max_row_err')}")
+    fr, dr = records["flash_attention"], records["decode_attention"]
+    log(f"[2] flash launches by path at the serving shapes: "
+        f"{fr['path_launches']}; decode's plan: {plan}")
+    log(f"[2] flash without its rescale (Sq=512): "
+        f"{fr['rescale_dropped']}; decode merging every split with weight "
+        f"1: {dr['merge_unweighted']} -- both fail the bars, as they must")
     log(f"[2] {edges} edge shapes of the decoder's kernels match their plain "
         f"versions (f32 {FWD_TOL}; bf16 attention {BF16_ATTN_TOL} abs and "
         f"{BF16_ATTN_ROW_TOL} of each row's scale, norm {BF16_NORM_REL} "
@@ -1714,6 +1885,7 @@ def serving(device, arch="h2o-danube-1.8b", cfg=None, slots=SLOTS,
     sync()
     t_serve = time.perf_counter() - t0
     launches = launch_counts()
+    paths = path_launches()
     del engine.insert, engine.step     # the class's again; breaks the cycle
 
     done = sorted(batcher.done, key=lambda r: r.request_id)
@@ -1742,6 +1914,10 @@ def serving(device, arch="h2o-danube-1.8b", cfg=None, slots=SLOTS,
         expect.update({"rmsnorm": (2 * L + 1) * (n_prefill + n_decode),
                        "flash_attention": L * n_prefill,
                        "decode_attention": L * n_decode})
+        # every flash launch on the bf16 tensor-core kernel
+        check(paths == {"tensor_core": launches["flash_attention"],
+                        "cuda_core": 0},
+              f"{tag} flash launches by path {paths}, launches {launches}")
     mem = (torch.cuda.max_memory_allocated(device)
            if device.type == "cuda" else 0)
     n_out = sum(len(r.output) for r in done)
@@ -1827,6 +2003,8 @@ def serving(device, arch="h2o-danube-1.8b", cfg=None, slots=SLOTS,
     log(f"{tag} PPA: {len(decisions)} decisions, replicas {decisions}; "
         f"{n_pred} proactive; {ppa.updater.n_updates} refits; "
         f"{len(ppa.predictions)} forecasts")
+    if cfg.family != "ssm":
+        log(f"{tag} flash launches by path {paths}")
     log(f"{tag} every kernel launch of that check against its plain "
         f"version on its own inputs, (launches, worst err): "
         f"{checked}")
@@ -1855,7 +2033,7 @@ def serving(device, arch="h2o-danube-1.8b", cfg=None, slots=SLOTS,
             "profiled_busy_share": busy["busy_share"],
             "profiled_kernels_per_step": busy["n_kernels"] / 5,
             "profiled_device_ms_per_step": busy["device_ms"] / 5,
-            "launches": launches, "expect": expect}
+            "path_launches": paths, "launches": launches, "expect": expect}
 
 
 def profile_start(device):
@@ -1911,12 +2089,12 @@ def main() -> int:
     import numpy as np
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
-    smi_line, mutant = device_facts()
+    smi_line, mutants = device_facts()
     n_rows = len(np.arange(15.0, 1800.0, 15.0))
     fit_batch, attn_fit_batch = n_rows - WINDOW, n_rows - ATTN_WINDOW
     records = kernels_vs_plain(fit_batch, attn_fit_batch)
-    records.update(llm_kernels_vs_plain())
-    records.update(ssm_kernels_vs_plain(mutant))
+    records.update(llm_kernels_vs_plain(mutants))
+    records.update(ssm_kernels_vs_plain(mutants["ssd_scan"]))
 
     # each phase sets the counts to 0 before it drives its path and reads
     # them right after, before its own comparison checks

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.metrics import N_METRICS
+from repro_torch.device import resolve_device
 from repro_torch.kernels import attn_lstm_seq as _attn
 from repro_torch.kernels import lstm_seq as _seq
 from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
@@ -103,21 +104,6 @@ class Scaler:
         return np.clip((x - self.mean) / self.std, -Z_CLIP, Z_CLIP)
     def inverse(self, x):    return x * self.std + self.mean
     def inverse_std(self, s): return s * self.std
-
-
-# ---------------------------------------------------------------- device ---
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card.  A CUDA device without an index is pinned to
-    the current one, so equal placements compare equal."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port runs on the card unless the caller "
-                "asks for the CPU (device='cpu')")
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 def params_from_numpy(d: dict, device) -> dict[str, torch.Tensor]:

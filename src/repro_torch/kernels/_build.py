@@ -28,7 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
-# (source name, seconds, ptxas report) of every build this process ran
+# (source name, seconds, ptxas report) of every build this process ran,
+# variants included
 build_log: list[tuple[str, float, str]] = []
 
 
@@ -100,8 +101,10 @@ def build_variant(name: str, edits, out_dir) -> ctypes.CDLL:
     key = hashlib.sha256(src.encode()).hexdigest()[:12]
     cu, lib = out / f"{name}_{key}.cu", out / f"lib{name}_{key}.so"
     cu.write_text(src)
+    t0 = time.perf_counter()
     proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(lib), str(cu)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {cu.name}:\n{proc.stderr}")
+    build_log.append((cu.stem, time.perf_counter() - t0, proc.stderr.strip()))
     return ctypes.CDLL(str(lib))

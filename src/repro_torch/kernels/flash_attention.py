@@ -5,11 +5,16 @@
 sliding-window / ``kv_valid`` masks, ``q_offset`` and a logit soft-cap, in
 the kernels' layout q (B, Hq, Sq, D), k, v (B, Hkv, Skv, D).  CUDA tensors
 go to ``csrc/flash_attention.cu``, CPU tensors to the plain version
-(``kernels/ref.py``); any other device raises.  Unlike the Pallas kernel it
-takes any Sq and Skv (not only multiples of a block) and strided views
-(any strides over B, H and S, unit stride over D), so the decoder passes
-its (B, S, H, D) projections transposed, without a copy.  ``LAUNCHES``
-counts the kernel's launches.  The decoder serves, so there is no backward.
+(``kernels/ref.py``); any other device raises.  On the card the dtype picks
+the kernel: bfloat16 runs the tensor-core kernel, which takes D a multiple
+of 16 and 16-byte aligned base pointers and strides (anything else raises:
+it never falls back), float32 the exact CUDA-core kernel.  Unlike the
+Pallas kernel it takes any Sq and Skv (not only multiples of a block) and
+strided views (any strides over B, H and S, unit stride over D), so the
+decoder passes its (B, S, H, D) projections transposed, without a copy.
+``LAUNCHES`` counts the launches, ``PATH_LAUNCHES`` splits them by kernel
+(``tensor_core``: bf16; ``cuda_core``: f32).  The decoder serves, so there
+is no backward.
 """
 from __future__ import annotations
 
@@ -22,25 +27,32 @@ from repro_torch.kernels.lstm_seq import _MAX_SMEM
 from repro_torch.kernels.rmsnorm import DTYPE_CODES
 
 LAUNCHES = {"flash_attention": 0}
+PATH_LAUNCHES = {"tensor_core": 0, "cuda_core": 0}
 
 MAX_HEAD_DIM = 256
 _MAX_GRID_YZ = 65_535
 
 
 def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, PATH_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _lib():
-    lib = _build.load("flash_attention")
+    return bind(_build.load("flash_attention"))
+
+
+def bind(lib):
+    """Set the C entry points' argument types on a loaded library (the
+    source's, or a variant of it from ``_build.build_variant``)."""
     if not getattr(lib, "_argtypes_set", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_forward.argtypes = (
             [vp] * 4 + [i] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
             + [i, i, ctypes.c_float, i, i, ctypes.c_float, i, vp])
         lib.flash_attention_forward.restype = i
-        lib.flash_attention_smem_bytes.argtypes = [i]
+        lib.flash_attention_smem_bytes.argtypes = [i, i]
         lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -48,10 +60,20 @@ def _lib():
     return lib
 
 
-def flash_attention_smem_bytes(D: int) -> int:
-    """Dynamic shared memory a CTA needs at head dimension D (the kernel
-    sets the attribute at every launch; above 48 KB from D=80 on)."""
-    return int(_lib().flash_attention_smem_bytes(D))
+def flash_attention_smem_bytes(D: int, dtype=torch.bfloat16) -> int:
+    """Dynamic shared memory a CTA needs at head dimension D (0 where the
+    dtype's kernel does not take D; the attribute is set at every launch)."""
+    return int(_lib().flash_attention_smem_bytes(D, DTYPE_CODES[dtype]))
+
+
+def aligned16(t) -> bool:
+    """Whether the tensor-core kernel's 16-byte copies can read ``t``: its
+    base pointer and the byte stride of every dimension longer than one
+    (the last, D, has unit stride) are multiples of 16."""
+    es = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        (t.stride(i) * es) % 16 == 0 for i in range(t.dim())
+        if t.shape[i] > 1 and i != t.dim() - 1)
 
 
 def _check(q, k, v):
@@ -89,20 +111,11 @@ def check_options(window, cap):
         raise ValueError(f"cap must be None or > 0, got {cap}")
 
 
-def flash_attention(q, k, v, *, causal=True, window=None, cap=None,
-                    q_offset=0, kv_valid=None, scale=None):
-    """q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) -> (B, Hq, Sq, D)."""
-    _check(q, k, v)
-    check_options(window, cap)
-    if kv_valid is not None and kv_valid < 0:
-        raise ValueError(f"kv_valid must be None or >= 0, got {kv_valid}")
-    if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, causal=causal, window=window,
-                                   cap=cap, q_offset=q_offset,
-                                   kv_valid=kv_valid, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on CUDA or CPU, not "
-                         f"{q.device}")
+def launch(lib, q, k, v, *, causal=True, window=None, cap=None, q_offset=0,
+           kv_valid=None, scale=None):
+    """One launch of the library's kernel for these checked CUDA tensors
+    (no count): the tensor-core kernel for bfloat16, the CUDA-core kernel
+    for float32."""
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
@@ -110,8 +123,19 @@ def flash_attention(q, k, v, *, causal=True, window=None, cap=None,
         return out
     if Hq > _MAX_GRID_YZ or B > _MAX_GRID_YZ:
         raise ValueError(f"B={B}, Hq={Hq} exceed the kernel's grid")
-    lib = _lib()
-    smem = lib.flash_attention_smem_bytes(D)
+    if q.dtype == torch.bfloat16:
+        if D % 16:
+            raise ValueError(f"the bf16 tensor-core kernel takes a head dim "
+                             f"that is a multiple of 16, not {D}")
+        if not all(aligned16(t) for t in (q, k, v)):
+            raise ValueError("the bf16 tensor-core kernel copies 16 bytes at "
+                             "a time: q, k and v need 16-byte aligned base "
+                             "pointers and strides")
+        if scale is not None and not scale > 0:
+            raise ValueError(f"the bf16 tensor-core kernel takes its row "
+                             f"max before the scale: scale must be > 0, "
+                             f"not {scale}")
+    smem = lib.flash_attention_smem_bytes(D, DTYPE_CODES[q.dtype])
     if smem > _MAX_SMEM:
         raise ValueError(f"flash_attention needs {smem} B of shared memory "
                          f"at D={D}; a Hopper CTA has {_MAX_SMEM}")
@@ -130,5 +154,26 @@ def flash_attention(q, k, v, *, causal=True, window=None, cap=None,
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"{lib.flash_attention_error_string(rc).decode()}")
-    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, cap=None,
+                    q_offset=0, kv_valid=None, scale=None):
+    """q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) -> (B, Hq, Sq, D)."""
+    _check(q, k, v)
+    check_options(window, cap)
+    if kv_valid is not None and kv_valid < 0:
+        raise ValueError(f"kv_valid must be None or >= 0, got {kv_valid}")
+    kw = dict(causal=causal, window=window, cap=cap, q_offset=q_offset,
+              kv_valid=kv_valid, scale=scale)
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on CUDA or CPU, not "
+                         f"{q.device}")
+    out = launch(_lib(), q, k, v, **kw)
+    if out.numel():
+        LAUNCHES["flash_attention"] += 1
+        PATH_LAUNCHES["tensor_core" if q.dtype == torch.bfloat16
+                      else "cuda_core"] += 1
     return out

@@ -28,7 +28,7 @@ def main(argv=None):
 
     import torch
     from repro_torch.configs import smoke_config
-    from repro_torch.core.forecaster import resolve_device
+    from repro_torch.device import resolve_device
     from repro_torch.models.registry import build_model
     from repro_torch.serving import ContinuousBatcher, DecodeEngine, Request
 

@@ -22,6 +22,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class Spec:
@@ -81,12 +83,13 @@ def init_one(gen: torch.Generator, spec: Spec, dtype, device) -> torch.Tensor:
     return x.mul_(scale).to(dt)
 
 
-def init_params(specs, seed: int = 0, dtype=torch.float32, device="cpu"):
-    """Seeded params on ``device``: normal draws in float32 scaled as the
+def init_params(specs, seed: int = 0, dtype=torch.float32, device=None):
+    """Seeded params on ``device`` (None: the card; raises without one):
+    normal draws in float32 scaled as the
     JAX package scales them, then cast to ``dtype`` (a Spec's own dtype
     wins).  The numbers differ from ``jax.random``'s; tests hand the same
     weights to both packages through ``params_from_numpy``."""
-    device = torch.device(device)
+    device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     out: dict = {}
     for path, spec in tree_leaves(specs):
@@ -109,10 +112,13 @@ def param_bytes(specs, dtype=torch.bfloat16) -> int:
     return total
 
 
-def params_from_numpy(tree, device="cpu", dtype=None):
+def params_from_numpy(tree, device=None, dtype=None):
     """numpy (or any array) leaves of a nested dict -> tensors on
-    ``device``, in their own dtype or ``dtype``: turns the JAX package's
-    params (``jax.tree.map(np.asarray, params)``) into the port's."""
+    ``device`` (None: the card; raises without one), in their own dtype or
+    ``dtype``: turns the JAX package's params (``jax.tree.map(np.asarray,
+    params)``) into the port's."""
+    device = resolve_device(device)
+
     def one(a):
         a = np.asarray(a)
         if a.dtype.name == "bfloat16":       # ml_dtypes' bf16: via float32

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ssd_scan as ssd_kernel
 from repro_torch.models import layers as L
 from repro_torch.models.params import Spec
@@ -143,8 +144,10 @@ def mamba_decode(p, u, cfg, cache):
 
 
 def init_ssm_cache(cfg, batch: int, dtype=torch.bfloat16,
-                   device="cpu") -> dict:
-    """Zero conv states in ``dtype`` and a zero float32 SSM state."""
+                   device=None) -> dict:
+    """Zero conv states in ``dtype`` and a zero float32 SSM state, on
+    ``device`` (None: the card; raises without one)."""
+    device = resolve_device(device)
     K = cfg.ssm_conv
     return {
         "conv_x": torch.zeros((batch, K - 1, cfg.d_inner), dtype=dtype,

@@ -35,6 +35,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
 from repro_torch.models.attention import attention, decode_attention
@@ -256,12 +257,13 @@ def _layer(tree, i):
 
 # ============================================================== caches =====
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
-                      prefilled: int = 0, device="cpu") -> dict:
-    """Stacked (n_steps, ...) cache: k and v zeros in bfloat16 and len =
-    prefilled for attention entries; zero conv states (in the compute
-    dtype) and SSM states (float32) for mamba entries, which have no
-    length."""
+                      prefilled: int = 0, device=None) -> dict:
+    """Stacked (n_steps, ...) cache on ``device`` (None: the card; raises
+    without one): k and v zeros in bfloat16 and len = prefilled for
+    attention entries; zero conv states (in the compute dtype) and SSM
+    states (float32) for mamba entries, which have no length."""
     require_ported(cfg, cache=True)
+    device = resolve_device(device)
     pattern, n_steps = _pattern(cfg)
     Hkv = cfg.n_kv_heads * cfg.kv_repeat
     shape = (n_steps, batch, max_len, Hkv, cfg.head_dim)
@@ -325,7 +327,9 @@ class DecoderLM:
     def specs(self):
         return lm_specs(self.cfg)
 
-    def init(self, seed: int = 0, dtype=torch.float32, device="cpu"):
+    def init(self, seed: int = 0, dtype=torch.float32, device=None):
+        """Seeded params on ``device`` (None: the card; raises without
+        one)."""
         return init_params(self.specs(), seed, dtype, device)
 
     # ---- embedding frontend

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.forecaster import resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.models.registry import build_model
 from repro_torch.models.transformer import init_decode_cache
 

@@ -14,15 +14,20 @@ bfloat16 outputs one bf16 rounding apart, 2^-7 relative (two ulps).  The
 CUDA kernels themselves are held against the plain versions on the card
 (the ``cuda`` tests below and ``chip_smoke.py``).
 """
+import ast
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro.kernels import ops, ref as jref
 from repro.models import layers as jlayers
+from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import ref as tref
@@ -258,6 +263,167 @@ def test_decode_scalar_kv_valid_and_cache_view():
     torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+# ------------------------------------------------- split-KV decode plan ---
+def _split_rows(split, run, kv_valid, S, window=None):
+    """[start, end) of the cache rows split ``split`` scores for a row with
+    this kv_valid (empty when start >= end), as ``decode_attention.cu``'s
+    split kernel computes them from ``split_plan``'s run."""
+    hi = min(kv_valid, S)
+    lo = 0 if window is None else max(0, kv_valid - window)
+    start = lo + split * run
+    return start, max(start, min(hi, start + run))
+
+
+def _split_merge_decode(q, k, v, kv_valid, window, run_rows):
+    """The split kernel's algorithm on plain f32 tensors: each (row, kv
+    head)'s visible rows cut by ``split_plan`` / ``_split_rows``, a partial
+    softmax (m, l, acc) a split, the partials merged with weights
+    exp(m_s - M) (an empty split, m = -inf, weighs 0); a row that sees no
+    key gives 0."""
+    B, Hq, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    n, run = tdec.split_plan(S, window, run_rows)
+    out = torch.zeros_like(q)
+    for b in range(B):
+        for h in range(Hq):
+            kk, vv = k[b, h // G], v[b, h // G]
+            parts = []
+            for s in range(n):
+                lo, hi = _split_rows(s, run, int(kv_valid[b]), S, window)
+                if hi <= lo:
+                    parts.append((-np.inf, 0.0, torch.zeros(D)))
+                    continue
+                sc = (kk[lo:hi] @ q[b, h]) * D ** -0.5
+                m = float(sc.max())
+                p = torch.exp(sc - m)
+                parts.append((m, float(p.sum()), p @ vv[lo:hi]))
+            M = max(m for m, _, _ in parts)
+            if M == -np.inf:
+                continue
+            w = [0.0 if m == -np.inf else float(np.exp(m - M))
+                 for m, _, _ in parts]
+            L = sum(wi * l for wi, (_, l, _) in zip(w, parts))
+            out[b, h] = sum(wi * a for wi, (_, _, a) in zip(w, parts)) / L
+    return out
+
+
+@pytest.mark.parametrize("window,run_rows", [(None, 64), (100, 32),
+                                             (256, 64), (37, 8)])
+def test_split_merge_equals_plain_decode(window, run_rows):
+    """Partials over runs of rows merged by exp(m_s - M) equal the plain
+    version within 1e-6 in f32: rows over many splits, one ending on a
+    split boundary, one inside a single split, empty splits (short rows),
+    and a row that sees no key."""
+    g = torch.Generator().manual_seed(run_rows)
+    B, Hq, Hkv, S, D = 6, 8, 2, 300, 16
+    q = torch.randn((B, Hq, D), generator=g)
+    k = torch.randn((B, Hkv, S, D), generator=g)
+    v = torch.randn((B, Hkv, S, D), generator=g)
+    n, run = tdec.split_plan(S, window, run_rows)
+    assert n > 2
+    past = S + window + 1 if window else 0            # sees no key
+    kv_valid = torch.tensor([S, S - 1, 2 * run, 5, S + 40, past])
+    got = _split_merge_decode(q, k, v, kv_valid, window, run_rows)
+    want = tref.decode_attention(q, k, v, kv_valid=kv_valid, window=window)
+    assert bool((got[-1] == 0).all()) and bool((want[-1] == 0).all())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+def test_split_plan_on_the_serving_path():
+    """h2o-danube's cache (8192 rows, window 4096): 16 splits of 256 rows,
+    so 16 x 8 kv heads x 16 slots = 2,048 CTAs; no window: 32 of 256."""
+    assert tdec.split_plan(8192, 4096) == (16, 256)
+    assert tdec.split_plan(8192) == (32, 256)
+    assert tdec.split_plan(1) == (1, 1)
+
+
+@settings(max_examples=300, deadline=None)
+@given(S=st.integers(1, 20_000), window=st.none() | st.integers(1, 20_000),
+       kv_valid=st.integers(0, 45_000),
+       run_rows=st.sampled_from([1, 7, 64, 256]))
+def test_split_plan_covers_each_visible_row_once(S, window, kv_valid,
+                                                  run_rows):
+    """For any S, window and kv_valid, the splits' row ranges are disjoint
+    and together are exactly the visible rows [max(0, kv_valid - window),
+    min(kv_valid, S))."""
+    n, run = tdec.split_plan(S, window, run_rows)
+    assert n >= 1 and run >= 1
+    lo = 0 if window is None else max(0, kv_valid - window)
+    hi = min(kv_valid, S)
+    ranges = [_split_rows(s, run, kv_valid, S, window) for s in range(n)]
+    filled = [(a, b) for a, b in ranges if b > a]
+    if hi <= lo:
+        assert not filled
+        return
+    assert filled[0][0] == lo and filled[-1][1] == hi
+    for (_, b0), (a1, _) in zip(filled, filled[1:]):
+        assert a1 == b0                  # no gap, no overlap
+    assert sum(b - a for a, b in filled) == hi - lo
+
+
+def test_alignment_predicates():
+    """The 16-byte copies of both kernels: a view of a (B, S, H, D) bf16
+    projection with D=80 passes; one element off its base, or a row of
+    72 bytes for decode, does not."""
+    x = torch.zeros(1, 64, 8, 80, dtype=torch.bfloat16)
+    view = x.transpose(1, 2)
+    assert tflash.aligned16(view) and tdec.aligned16(view)
+    flat = torch.zeros(8 * 64 * 80 + 1, dtype=torch.bfloat16)
+    off = flat[1:].reshape(1, 8, 64, 80)
+    assert not tflash.aligned16(off) and not tdec.aligned16(off)
+    odd_rows = torch.zeros(2, 2, 10, 36, dtype=torch.bfloat16)   # 72 B a row
+    assert not tdec.aligned16(odd_rows)
+    assert tdec.aligned16(torch.zeros(2, 2, 10, 4))              # 16 B a row
+    # a length-one dimension's stride never moves the pointer
+    one = torch.zeros(1, 1, 8, 16, dtype=torch.bfloat16).as_strided(
+        (1, 1, 8, 16), (3, 3, 16, 1))
+    assert tflash.aligned16(one)
+
+
+def test_cpu_counts_no_launch_by_path():
+    for mod in (tflash, tdec):
+        mod.reset_launch_counts()
+    x = torch.randn(1, 2, 4, 8, dtype=torch.bfloat16)
+    tflash.flash_attention(x, x, x)       # D=8: the CPU takes any head dim
+    tdec.decode_attention(torch.randn(1, 2, 8), torch.randn(1, 2, 4, 8),
+                          torch.randn(1, 2, 4, 8), kv_valid=2)
+    assert tflash.PATH_LAUNCHES == {"tensor_core": 0, "cuda_core": 0}
+    assert tdec.LAUNCHES == {"decode_attention": 0}
+
+
+def _literal(path, name):
+    """The value of the module-level literal ``name`` of a script, read
+    without running the script."""
+    tree = ast.parse(path.read_text())
+    return next(ast.literal_eval(node.value) for node in tree.body
+                if isinstance(node, ast.Assign)
+                and any(getattr(t, "id", None) == name for t in node.targets))
+
+
+@pytest.mark.parametrize("script,names", [
+    ("chip_smoke.py", ("MUTANTS",)),
+    ("tools/attention_variants.py", ("FLASH", "DECODE"))])
+def test_source_edits_each_match_one_line(script, names):
+    """Every one-line edit that chip_smoke.py's mutants and the attention
+    variants tool make to a kernel source matches exactly one place of the
+    current source, as ``_build.build_variant`` requires: a later edit of
+    the source that moves such a line fails here, not first on the card."""
+    root = Path(__file__).resolve().parents[1]
+    for name in names:
+        table = _literal(root / script, name)
+        for key, edits in table.items():
+            if name == "MUTANTS":
+                src, edits = key, [edits]
+            else:
+                src = "flash_attention" if name == "FLASH" else \
+                    "decode_attention"
+            text = (_build.CSRC / f"{src}.cu").read_text()
+            for old, new in edits:
+                assert text.count(old) == 1, (script, key, old)
+                assert old != new
+
+
 # ------------------------------------------------------------- wrappers ---
 def test_cpu_runs_plain_and_counts_no_launch():
     for mod in (trms, tflash, tdec):
@@ -345,3 +511,86 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
                                  window=128)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want, rtol=0, atol=tol)
+
+
+def _row_err(got, want):
+    d = (got.float() - want).abs().amax(-1)
+    return float((d / want.abs().amax(-1).clamp_min(1e-30)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,kw", [
+    (16, dict()), (64, dict(window=33)), (80, dict(q_offset=64,
+                                                     kv_valid=120)),
+    (128, dict(cap=5.0)), (256, dict(causal=False, kv_valid=50)),
+    (256, dict(cap=20.0, window=100)), (48, dict(window=70))])
+def test_cuda_flash_tensor_core_matches_plain(cuda_device, D, kw):
+    """The bf16 tensor-core kernel against the plain version computed in
+    f32 from the same bf16 inputs, on (B, S, H, D) projections read as
+    (B, H, S, D) views: 2e-2 absolute and 1e-2 of each row's scale, every
+    launch on the tensor-core path."""
+    g = torch.Generator().manual_seed(D)
+    bf = torch.bfloat16
+    q = torch.randn((1, 130, 8, D), generator=g).to(cuda_device, bf)
+    k = torch.randn((1, 200, 2, D), generator=g).to(cuda_device, bf)
+    v = torch.randn((1, 200, 2, D), generator=g).to(cuda_device, bf)
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    tflash.reset_launch_counts()
+    got = tflash.flash_attention(q, k, v, **kw)
+    want = tref.flash_attention(q.float(), k.float(), v.float(), **kw)
+    torch.cuda.synchronize()
+    assert tflash.PATH_LAUNCHES == {"tensor_core": 1, "cuda_core": 0}
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=2e-2)
+    assert _row_err(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bf16_raises_off_16(cuda_device):
+    """bf16 takes only the tensor-core kernel: a head dim off 16, or a view
+    whose base is off 16 bytes, raises instead of running elsewhere."""
+    x = torch.randn(1, 2, 8, 72, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tflash.flash_attention(x, x, x)
+    flat = torch.randn(2 * 8 * 64 + 1, device=cuda_device,
+                       dtype=torch.bfloat16)
+    off = flat[1:].reshape(1, 2, 8, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        tflash.flash_attention(off, off, off)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,D,window,dtypes", [
+    (1, 64, None, (torch.bfloat16, torch.bfloat16)),
+    (4, 80, 512, (torch.bfloat16, torch.bfloat16)),
+    (16, 128, 768, (torch.float32, torch.bfloat16)),
+    (16, 256, 900, (torch.float32, torch.float32))])
+def test_cuda_split_decode_matches_plain(cuda_device, G, D, window, dtypes):
+    """The split kernel against the plain version computed in f32, on a
+    (B, S, Hkv, D) cache read through its (B, Hkv, S, D) view: rows over
+    many splits, one ending on a split boundary, one inside a single split,
+    one that sees no row (0).  f32 within 1e-4, bf16 within 2e-2 and 1e-2
+    of each row's scale; one launch a call."""
+    qd, kd = dtypes
+    g = torch.Generator().manual_seed(G * D)
+    B, Hkv, S = 4, 2, 1500
+    q = torch.randn((B, Hkv * G, D), generator=g).to(cuda_device, qd)
+    kc = torch.randn((B, S, Hkv, D), generator=g).to(cuda_device, kd)
+    vc = torch.randn((B, S, Hkv, D), generator=g).to(cuda_device, kd)
+    n, run = tdec.split_plan(S, window)
+    vals = torch.tensor([S - 3, (window or 0) + 2 * run, 37,
+                         S + window + 5 if window else 0],
+                        dtype=torch.int32, device=cuda_device)
+    tdec.reset_launch_counts()
+    got = tdec.decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2),
+                                kv_valid=vals, window=window)
+    want = tref.decode_attention(q.float(), kc.transpose(1, 2).float(),
+                                 vc.transpose(1, 2).float(), kv_valid=vals,
+                                 window=window)
+    torch.cuda.synchronize()
+    assert tdec.LAUNCHES == {"decode_attention": 1}
+    assert bool((got[-1] == 0).all())
+    if (qd, kd) == (torch.float32, torch.float32):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    else:
+        torch.testing.assert_close(got.float(), want, rtol=0, atol=2e-2)
+        assert _row_err(got, want) <= 1e-2

@@ -36,6 +36,7 @@ from repro.models.registry import build_model as jbuild
 from repro_torch import configs as tconfigs
 from repro_torch.models import layers as tlayers
 from repro_torch.models import params as tparams
+from repro_torch.models import ssm as tssm
 from repro_torch.models import transformer as ttransformer
 from repro_torch.models.registry import build_model as tbuild
 
@@ -94,20 +95,76 @@ def test_mamba2_full_width_count():
     assert tparams.param_count(t) == jparams.param_count(j) == 781_328_640
 
 
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: None means the card there")
+
+
+@pytest.mark.parametrize("make", [
+    lambda cfg: tbuild(cfg).init(0),
+    lambda cfg: tparams.init_params(tbuild(cfg).specs()),
+    lambda cfg: tparams.params_from_numpy({"w": np.ones(3, np.float32)}),
+    lambda cfg: ttransformer.init_decode_cache(cfg, 2, 16),
+    lambda cfg: ttransformer.init_decode_cache(
+        tconfigs.smoke_config("mamba2-780m"), 2, 16),
+    lambda cfg: tssm.init_ssm_cache(tconfigs.smoke_config("mamba2-780m"),
+                                    2)],
+    ids=["DecoderLM.init", "init_params", "params_from_numpy",
+         "init_decode_cache", "init_decode_cache_ssm", "init_ssm_cache"])
+def test_no_device_means_the_card(no_card, make):
+    """Without a device argument the model's params and caches go to the
+    card, as the JAX package's go to its default accelerator: without one
+    they raise, as ``LSTMForecaster()`` does."""
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make(tconfigs.smoke_config("h2o-danube-1.8b"))
+
+
+def test_cpu_params_and_caches_as_asked():
+    """With ``device="cpu"`` the five entry points give what they gave
+    before the default moved to the card: the same seeded leaves as
+    ``init_params`` on a CPU generator, zero caches of the reference's
+    shapes and dtypes."""
+    cfg = tconfigs.smoke_config("h2o-danube-1.8b")
+    m = tbuild(cfg)
+    got = m.init(2, device="cpu")
+    want = tparams.init_params(m.specs(), 2, torch.float32,
+                               torch.device("cpu"))
+    for (pa, a), (pb, b) in zip(tparams.tree_leaves(got),
+                                tparams.tree_leaves(want)):
+        assert pa == pb and a.device.type == "cpu" and torch.equal(a, b)
+    back = tparams.params_from_numpy({"w": np.arange(3.0)}, "cpu")
+    assert back["w"].device.type == "cpu"
+    assert back["w"].dtype == torch.float64
+    cache = ttransformer.init_decode_cache(cfg, 2, 16, prefilled=3,
+                                           device="cpu")
+    for entry in cache.values():
+        assert entry["k"].device.type == "cpu"
+        assert entry["k"].dtype == torch.bfloat16
+        assert not entry["k"].any() and not entry["v"].any()
+        assert bool((entry["len"] == 3).all())
+    scfg = tconfigs.smoke_config("mamba2-780m")
+    sc = tssm.init_ssm_cache(scfg, 2, device="cpu")
+    assert sc["state"].dtype == torch.float32
+    assert sc["conv_x"].dtype == torch.bfloat16
+    assert all(t.device.type == "cpu" and not t.any() for t in sc.values())
+
+
 def test_init_params_seeded_scales_and_round_trip():
     cfg = tconfigs.smoke_config("h2o-danube-1.8b")
     m = tbuild(cfg)
-    p1, p2 = m.init(3), m.init(3)
+    p1, p2 = m.init(3, device="cpu"), m.init(3, device="cpu")
     leaves1 = dict(tparams.tree_leaves(p1))
     assert all(torch.equal(a, b) for (_, a), (_, b)
                in zip(tparams.tree_leaves(p1), tparams.tree_leaves(p2)))
-    assert not torch.equal(leaves1[("lm_head",)], m.init(4)["lm_head"])
+    assert not torch.equal(leaves1[("lm_head",)],
+                           m.init(4, device="cpu")["lm_head"])
     w_q = leaves1[("blocks", "s0_block", "attn", "w_q")]       # (L, d, H, Dh)
     assert abs(float(w_q.std()) - cfg.n_heads ** -0.5) < 0.05
     assert bool((leaves1[("final_norm",)] == 1).all())
-    pb = m.init(3, torch.bfloat16)
+    pb = m.init(3, torch.bfloat16, "cpu")
     assert pb["lm_head"].dtype == torch.bfloat16
-    back = tparams.params_from_numpy(tparams.params_to_numpy(p1))
+    back = tparams.params_from_numpy(tparams.params_to_numpy(p1), "cpu")
     assert all(torch.equal(a, b) for (_, a), (_, b)
                in zip(tparams.tree_leaves(p1), tparams.tree_leaves(back)))
 
@@ -160,7 +217,8 @@ def test_later_families_raise_naming_roadmap():
         kv_cache_dtype="int8")
     m = tbuild(cfg)
     with pytest.raises(NotImplementedError, match="int8"):
-        m.prefill(m.init(0), torch.zeros((1, 4), dtype=torch.long))
+        m.prefill(m.init(0, device="cpu"),
+                  torch.zeros((1, 4), dtype=torch.long))
 
 
 # ----------------------------------------------------------------- model ---
@@ -169,7 +227,7 @@ def _pair(arch, compute_dtype, seed=0):
     tcfg = tconfigs.smoke_config(arch).replace(compute_dtype=compute_dtype)
     jm, tm = jbuild(jcfg), tbuild(tcfg)
     jp = jm.init(jax.random.PRNGKey(seed), jnp.float32)
-    tp = tparams.params_from_numpy(jax.tree.map(np.asarray, jp))
+    tp = tparams.params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     # the JAX calls jitted, as its engine runs them (and faster to compile
     # than op by op)
     jm = _Jitted(jax.jit(jm.prefill, static_argnames=("max_len",)),
@@ -265,7 +323,7 @@ def test_decode_after_prefill_matches_prefill(arch):
     cache)."""
     cfg = tconfigs.smoke_config(arch)
     m = tbuild(cfg)
-    params = m.init(1)
+    params = m.init(1, device="cpu")
     rng = np.random.default_rng(4)
     toks = torch.tensor(rng.integers(0, cfg.vocab, (2, 32)))
     _, cache = m.prefill(params, toks, max_len=40)
@@ -343,8 +401,8 @@ def test_prefill_into_live_cache_rows():
     and leaves the other slots as they were."""
     cfg = tconfigs.smoke_config("h2o-danube-1.8b")
     m = tbuild(cfg)
-    params = m.init(0)
-    cache = ttransformer.init_decode_cache(cfg, 3, 48)
+    params = m.init(0, device="cpu")
+    cache = ttransformer.init_decode_cache(cfg, 3, 48, device="cpu")
     before = cache["s0"]["k"].clone()
     toks = torch.tensor(np.random.default_rng(5).integers(0, cfg.vocab,
                                                           (1, 20)))
@@ -376,7 +434,7 @@ def test_plain_model_equals_kernel_model_on_cpu(monkeypatch):
     from repro_torch.kernels import rmsnorm as rk
     cfg = tconfigs.smoke_config("gemma2-9b")
     m = tbuild(cfg)
-    params = m.init(0)
+    params = m.init(0, device="cpu")
     toks = torch.tensor(np.random.default_rng(6).integers(0, cfg.vocab,
                                                           (1, 12)))
     nxt = torch.tensor([[3]])
@@ -414,7 +472,7 @@ def test_plain_mamba2_equals_kernel_mamba2_on_cpu(monkeypatch):
     from repro_torch.kernels import ssd_scan as sk
     cfg = tconfigs.smoke_config("mamba2-780m")
     m = tbuild(cfg)
-    params = m.init(0)
+    params = m.init(0, device="cpu")
     toks = torch.tensor(np.random.default_rng(9).integers(0, cfg.vocab,
                                                           (1, 12)))
     nxt = torch.tensor([[3]])

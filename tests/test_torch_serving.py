@@ -71,7 +71,7 @@ def both():
     j_out, j_snaps = _serve(JBatcher(je), JRequest, reqs)
     tcfg = smoke_config(ARCH).replace(compute_dtype="float32")
     te = DecodeEngine(tcfg, params_from_numpy(jax.tree.map(np.asarray,
-                                                           jparams)),
+                                                           jparams), "cpu"),
                       slots=SLOTS, max_len=MAX_LEN, device="cpu")
     t_out, t_snaps = _serve(ContinuousBatcher(te), Request, reqs)
     return dict(reqs=reqs, je=je, te=te, j_out=j_out, t_out=t_out,
@@ -137,7 +137,7 @@ def test_ppa_on_snapshots_decides_as_jax(both):
 
 def _engine(slots=4, max_len=64, **kw):
     cfg = smoke_config(ARCH)
-    params = build_model(cfg).init(0)
+    params = build_model(cfg).init(0, device="cpu")
     return DecodeEngine(cfg, params, slots=slots, max_len=max_len,
                         device="cpu", **kw)
 
@@ -183,7 +183,7 @@ def test_sampling_is_seeded():
 
 def test_engine_needs_a_device_or_the_cpu():
     cfg = smoke_config(ARCH)
-    params = build_model(cfg).init(0)
+    params = build_model(cfg).init(0, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             DecodeEngine(cfg, params, slots=1, max_len=8)
@@ -201,8 +201,8 @@ def both_mamba2():
     j_out, j_snaps = _serve(JBatcher(je), JRequest, reqs)
     te = DecodeEngine(smoke_config("mamba2-780m").replace(
         compute_dtype="float32"), params_from_numpy(
-            jax.tree.map(np.asarray, jparams)), slots=SLOTS, max_len=MAX_LEN,
-        device="cpu")
+            jax.tree.map(np.asarray, jparams), "cpu"), slots=SLOTS,
+        max_len=MAX_LEN, device="cpu")
     t_out, t_snaps = _serve(ContinuousBatcher(te), Request, reqs)
     return dict(reqs=reqs, je=je, te=te, j_out=j_out, t_out=t_out,
                 j_snaps=j_snaps, t_snaps=t_snaps)
@@ -225,8 +225,8 @@ def test_mamba2_insert_replaces_one_slot_whole():
     states -- equal to a prefill alone -- and leaves the other slots' bit
     for bit, whatever they held."""
     cfg = smoke_config("mamba2-780m")
-    e = DecodeEngine(cfg, build_model(cfg).init(0), slots=3, max_len=32,
-                     device="cpu")
+    e = DecodeEngine(cfg, build_model(cfg).init(0, device="cpu"), slots=3,
+                     max_len=32, device="cpu")
     rng = np.random.default_rng(4)
     for rid in range(3):
         e.insert(rid, rng.integers(0, 200, 9 + rid), 5)

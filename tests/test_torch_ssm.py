@@ -157,7 +157,8 @@ def _block_params(jcfg, seed):
                                 jnp.float32)
     jp["A_log"] = jnp.asarray(rng.uniform(-1, 1, jp["A_log"].shape),
                               jnp.float32)
-    return jp, tparams.params_from_numpy(jax.tree.map(np.asarray, jp))
+    return jp, tparams.params_from_numpy(jax.tree.map(np.asarray, jp),
+                                         "cpu")
 
 
 def test_specs_equal_jax():
@@ -254,7 +255,8 @@ def test_mamba_decode_matches_block():
 
 def test_init_ssm_cache_equals_jax():
     jcfg, tcfg = _cfgs()
-    jc, tc = jssm.init_ssm_cache(jcfg, 3), tssm.init_ssm_cache(tcfg, 3)
+    jc = jssm.init_ssm_cache(jcfg, 3)
+    tc = tssm.init_ssm_cache(tcfg, 3, device="cpu")
     for k in jc:
         assert tuple(tc[k].shape) == jc[k].shape
         assert str(tc[k].dtype).split(".")[1] == str(jc[k].dtype)
