@@ -11,7 +11,8 @@ card, through the seven hand-written CUDA kernels of ``kernels/csrc/``:
 1. device facts (``nvidia-smi`` name and power limit), TF32 off for float32
    products, the seven kernels built from the checkout's sources with
    ``nvcc`` (one process per source, started together, beside three that
-   build the ``MUTANTS``: ``ssd_scan.cu`` with its chunk carry dropped,
+   build the ``MUTANTS``: ``ssd_scan.cu`` with its chunk hand-off's carry
+   dropped,
    ``flash_attention.cu`` without its accumulator's rescale,
    ``decode_attention.cu`` merging every split with weight 1), each
    kernel's registers and spills from ptxas;
@@ -21,11 +22,15 @@ card, through the seven hand-written CUDA kernels of ``kernels/csrc/``:
    the plain version, and each kernel's time beside the plain version's, a
    library yardstick where one exists (cuDNN's LSTM, ``torch.lstm_cell``,
    ``F.rms_norm``, ``scaled_dot_product_attention``), and its bound on an
-   H100; the chunk scan on inputs whose decay keeps the carried state
-   alive, where the kernel without its carry must fail the same check; the
-   bf16 serving shapes through flash's tensor-core kernel
-   (``PATH_LAUNCHES``) and decode's split kernel (its only kernel), where
-   the flash and decode mutants must fail the bf16 bars;
+   H100; the norm's host cost piece by piece at R=16, and both serving
+   shapes on its vector kernel (``PATH_LAUNCHES``), the edges on the
+   kernel ``vector_path`` picks; the chunk scan on inputs whose decay
+   keeps the carried state alive, bf16 on its tensor-core path (each of
+   its four kernels timed) and f32 on its CUDA-core kernel, where the scan
+   without its carry must fail the same check; the bf16 serving shapes
+   through flash's tensor-core kernel and decode's split kernel (its only
+   kernel), where the flash and decode mutants must fail the bf16 bars;
+   the norm and the scan on a side stream;
 3. the paper-scale closed loop of examples/multizone_control.py: a 1800 s
    collection run, 7 per-target LSTM(50) fits on the card, ``FleetController``
    + ``Updater(FINETUNE)`` over 30 simulated minutes of NASA + Random Access;
@@ -46,14 +51,16 @@ card, through the seven hand-written CUDA kernels of ``kernels/csrc/``:
    prompt of 6144 tokens crosses the 4096 window) while a PPA fed
    ``batcher.snapshot`` decides replicas and refits its LSTM on the card;
    every flash launch on the tensor-core kernel (decode has one kernel,
-   the split one); then the kernels' engine against the plain versions'
-   engine, every kernel launch of that check against its plain version,
+   the split one) and every norm on the vector kernel; then the kernels'
+   engine against the plain versions' engine, every kernel launch of that check against its plain version,
    decode after prefill against prefill, and five profiled decode steps;
 9. phase 8 on mamba2-780m at full width (48 layers, d_model 1536,
    781,328,640 seeded bf16 parameters, the dt path at Mamba2's published
    scales, ``mamba2_conditioned``): each prefill runs the chunk scan, a
    decode step the SSM update in plain PyTorch; no KV cache, a conv and SSM
-   state a slot and layer; the same 49 bursty requests and refitting PPA.
+   state a slot and layer; the same 49 bursty requests and refitting PPA;
+   every chunk scan on the tensor-core path, every norm on the vector
+   kernel.
 
 Phases 3 to 9 (and phase 4's lane) each set the launch counts to 0 before
 they drive their path and read them right after it, before the checks that
@@ -135,13 +142,14 @@ KERNELS = {
     "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
 # phase 2's mutants, each a one-statement edit of a source that must fail
-# the check its kernel passes: the chunk scan without the state it carries
-# into the next chunk; flash attention without the accumulator's rescale
-# when the running max moves; split decode merging every split with weight
-# 1 instead of exp(m_s - M)
+# the check its kernel passes: the chunk scan's hand-off (the bf16
+# tensor-core path) without the state carried into the next chunk, so each
+# chunk starts from its predecessor's own state alone; flash attention
+# without the accumulator's rescale when the running max moves; split
+# decode merging every split with weight 1 instead of exp(m_s - M)
 MUTANTS = {
-    "ssd_scan": ("sH[(n0 + i) * PT + q0 + j] = hn[i][j];",
-                 "sH[(n0 + i) * PT + q0 + j] = 0.0f;"),
+    "ssd_scan": ("const float decay = expf(tt[c0 + u]);",
+                 "const float decay = 0.0f;"),
     "flash_attention": ("rescale_rows(o_acc, alpha[0], alpha[1]);",
                         "rescale_rows(o_acc, 1.0f, 1.0f);"),
     "decode_attention": (
@@ -154,13 +162,17 @@ KERNEL_SYMBOL = {
     "attn_lstm_seq_grouped_kernel": ("attn_lstm_seq",
                                      "attn_lstm_seq_stacked",
                                      "attn_lstm_seq_grouped"),
-    "rmsnorm_kernel": ("rmsnorm",),
+    # both norm kernels: rmsnorm_vector_kernel and rmsnorm_general_kernel
+    "rmsnorm_": ("rmsnorm",),
     # both flash kernels: flash_attention_bf16_tc_kernel (tensor cores) and
     # flash_attention_f32_kernel (CUDA cores); decode is one launch a call
     "flash_attention_": ("flash_attention",),
     "decode_attention_split_kernel": ("decode_attention",),
     "lstm_cell_grouped_kernel": ("lstm_cell",),
-    "ssd_scan_kernel": ("ssd_scan",),
+    # the tensor-core path's four kernels (ssd_scan_cb_kernel,
+    # ssd_scan_state_kernel, ssd_scan_pass_kernel, ssd_scan_out_kernel) and
+    # the f32 path's ssd_scan_kernel: a call's time is their sum
+    "ssd_scan_": ("ssd_scan",),
 }
 REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm.py:21",
@@ -212,10 +224,13 @@ def launch_counts():
 
 
 def path_launches():
-    """Flash attention's launches by kernel: the bf16 tensor-core and the
-    f32 CUDA-core kernel."""
-    from repro_torch.kernels import flash_attention
-    return dict(flash_attention.PATH_LAUNCHES)
+    """Launches by kernel of the wrappers with more than one: flash
+    attention's and the chunk scan's bf16 tensor-core and f32 CUDA-core
+    paths, the norm's vector and general kernels."""
+    from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
+    return {"flash_attention": dict(flash_attention.PATH_LAUNCHES),
+            "rmsnorm": dict(rmsnorm.PATH_LAUNCHES),
+            "ssd_scan": dict(ssd_scan.PATH_LAUNCHES)}
 
 
 def attn_row_err(got, want):
@@ -257,18 +272,31 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, symbol, iters=50):
-    """The CUDA kernel's own device time per call, from the profiler's
-    device events over ``iters`` calls (no host time in it)."""
+def kernel_split_ms(fn, symbol, iters=50):
+    """Device time per call of each kernel whose name holds ``symbol``,
+    from the profiler's device events over ``iters`` calls (no host time
+    in it), by the kernel's name without its namespace and parameters."""
     import torch
     fn()
     prof = profile_start(torch.device("cuda"))
     for _ in range(iters):
         fn()
     res = profile_stop(prof, torch.device("cuda"))
-    ms = sum(v for n, v in res["by_name"].items() if symbol in n)
+    split = {}
+    for n, v in res["by_name"].items():
+        if symbol in n:
+            key = n.replace("(anonymous namespace)::", "").replace(
+                "void ", "").split("(")[0]
+            split[key] = split.get(key, 0.0) + v / iters
+    return split
+
+
+def kernel_device_ms(fn, symbol, iters=50):
+    """The device time per call of the kernels whose names hold
+    ``symbol`` (every kernel of a call), from the profiler."""
+    ms = sum(kernel_split_ms(fn, symbol, iters).values())
     check(ms > 0, f"the profiler saw no {symbol} launch")
-    return ms / iters
+    return ms
 
 
 def bound(G_w, G, N, W, M_, H, n_out):
@@ -621,6 +649,86 @@ def rmsnorm_bound(R, D, es_x, es_w):
     return _bound(R * D * es_x * 2 + D * es_w, 4 * R * D)
 
 
+HOST_COST_CALLS = 2000
+
+
+def rmsnorm_host_costs(x, w, n=HOST_COST_CALLS, eps=1e-6):
+    """Median host time (us) of each piece of the first rmsnorm wrapper's
+    call on these CUDA inputs -- its checks (``rmsnorm._check``, which the
+    wrapper now runs only to raise), ``torch.empty`` with dtype and device,
+    the ``torch.cuda.device`` switch, the ``current_stream(...).cuda_stream``
+    lookup, and the ctypes call of the general kernel with its launch --,
+    of this call's own pieces (``new_empty`` beside ``empty_like``, the
+    device index public and private, the raw stream), and of whole calls:
+    ``rmsnorm.rmsnorm`` and ``F.rms_norm``.  Each piece is timed alone over
+    ``n`` calls on the host clock, the stream drained every 200 calls; the
+    two whole calls in ten blocks taken in turns."""
+    import statistics
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as rk
+    lib = rk._lib()
+    R, D = x.shape
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = rk.PAIR_CODES[(x.dtype, w.dtype)]
+
+    def switch():
+        with torch.cuda.device(x.device):
+            pass
+
+    pieces = {
+        "checks": lambda: rk._check(x, w),
+        "torch.empty": lambda: torch.empty((R, D), dtype=x.dtype,
+                                           device=x.device),
+        "device switch": switch,
+        "stream lookup": lambda: torch.cuda.current_stream(
+            x.device).cuda_stream,
+        "ctypes call + launch": lambda: lib.rmsnorm_general(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), R, D, x.stride(0),
+            float(eps), code, stream),
+        "new_empty": lambda: x.new_empty((R, D)),
+        "empty_like": lambda: torch.empty_like(x),
+        "current_device": torch.cuda.current_device,
+        "_cuda_getDevice": torch._C._cuda_getDevice,
+        "raw stream": lambda: torch._C._cuda_getCurrentRawStream(
+            x.get_device()),
+    }
+    # the two whole calls in turns, blocks of n / 10 calls, so that a drift
+    # of the host between blocks reaches both alike
+    calls = {"rmsnorm call": lambda: rk.rmsnorm(x, w, eps),
+             "F.rms_norm call": lambda: F.rms_norm(x, (D,), w, eps)}
+
+    def sample(fn, k, ts):
+        for i in range(k):
+            t0 = time.perf_counter_ns()
+            fn()
+            ts.append(time.perf_counter_ns() - t0)
+            if i % 200 == 199:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+
+    costs = {}
+    for name, fn in pieces.items():
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        ts = []
+        sample(fn, n, ts)
+        costs[name] = round(statistics.median(ts) / 1e3, 3)
+    samples = {name: [] for name in calls}
+    for fn in calls.values():
+        for _ in range(20):
+            fn()
+    order = list(calls)
+    for b in range(10):
+        for name in (order if b % 2 == 0 else order[::-1]):
+            sample(calls[name], n // 10, samples[name])
+    for name, ts in samples.items():
+        costs[name] = round(statistics.median(ts) / 1e3, 3)
+    return costs
+
+
 def flash_pairs(Sq, Skv, causal, window, q_offset=0, kv_valid=None):
     """Visible (query, key) pairs: this run's masks, counted exactly."""
     import numpy as np
@@ -734,10 +842,14 @@ def llm_kernels_vs_plain(mutants):
                 dict(tol=BF16_ATTN_TOL, row_tol=BF16_ATTN_ROW_TOL))
 
     def measure(name, shape, kernel, plain, library, want, tol, bnd,
-                iters=20, rel=False, row_tol=None):
+                iters=20, rel=False, row_tol=None, rounds=1):
         """Kernel against its plain version (``want``: computed in f32 from
         the same inputs), then the kernel's call and device times, the
-        plain version's time on the path's dtype and the library call's."""
+        plain version's time on the path's dtype and the library call's.
+        With ``rounds`` > 1 the kernel's and the library's calls are timed
+        in turns (kernel, library, library, kernel, ...) and each call time
+        is the median of its rounds; the library's device time is taken
+        too (every device event of its calls)."""
         got = kernel()
         err = err_of(name, got, want, tol, rel, row_tol)
         rec = dict(shape=shape, tol=tol,
@@ -755,13 +867,25 @@ def llm_kernels_vs_plain(mutants):
             rec["library_max_abs_err"] = float(
                 (library().float() - want.float()).abs().max())
             rec["library_ms"] = time_ms(library, iters)
+        if library is not None and rounds > 1:
+            ks, ls = [], []
+            for r in range(rounds):
+                pair = [(ks, kernel), (ls, library)]
+                for out, fn in (pair if r % 2 == 0 else pair[::-1]):
+                    out.append(time_ms(fn, iters))
+            rec["call_ms"] = rec["ms"] = float(np.median(ks))
+            rec["library_ms"] = float(np.median(ls))
+            rec["call_ms_rounds"], rec["library_ms_rounds"] = ks, ls
+            rec["library_kernel_ms"] = kernel_device_ms(library, "", iters)
         rec.update(bnd)
         return rec
 
     with torch.no_grad():
-        # ---- rmsnorm: R = 16 slots (a decode step), 6144 (the long prompt)
+        # ---- rmsnorm: R = 16 slots (a decode step), 6144 (the long prompt),
+        # both on the vector kernel
         w = (1.0 + 0.1 * rnd(LLM_D_MODEL)).to(bf16)
         subs = {}
+        rk.reset_launch_counts()
         for R in (16, 6144):
             x = rnd(R, LLM_D_MODEL, dtype=bf16)
             subs[R] = measure(
@@ -769,26 +893,57 @@ def llm_kernels_vs_plain(mutants):
                 lambda: rk.rmsnorm(x, w), lambda: ref.rmsnorm(x, w),
                 lambda: F.rms_norm(x, (LLM_D_MODEL,), w, 1e-6),
                 ref.rmsnorm(x.float(), w.float()), BF16_NORM_REL,
-                rmsnorm_bound(R, LLM_D_MODEL, 2, 2), iters=50, rel=True)
-        records["rmsnorm"] = {**subs[16], "prefill": subs[6144]}
-        for R, D, xd, wd in [(1, 16, f32, f32), (3, 80, f32, bf16),
-                             (5, 2560, bf16, f32), (7, 4096, f32, f32),
-                             (0, 64, bf16, bf16), (2, 6912, bf16, bf16)]:
-            x, ww = rnd(R, D, dtype=xd), (1.0 + 0.1 * rnd(D)).to(wd)
-            want = ref.rmsnorm(x.float(), ww.float())
-            if xd == f32:
-                err_of(f"rmsnorm R={R} D={D}", rk.rmsnorm(x, ww), want,
-                       FWD_TOL)
+                rmsnorm_bound(R, LLM_D_MODEL, 2, 2), iters=50, rel=True,
+                rounds=9)
+            if R == 16:
+                subs[R]["host_us"] = rmsnorm_host_costs(x, w)
+        norm_paths = dict(rk.PATH_LAUNCHES)
+        check(norm_paths["vector"] == rk.LAUNCHES["rmsnorm"] > 0
+              and norm_paths["general"] == 0,
+              f"the norm at the serving shapes: launches by path "
+              f"{norm_paths}")
+        records["rmsnorm"] = {**subs[16], "prefill": subs[6144],
+                              "path_launches": norm_paths}
+        # edge shapes on both kernels (f32 within FWD_TOL, bf16 relative),
+        # each on the kernel vector_path picks: rows wider than a warp
+        # holds, a 16-byte row stride, D off the vector, a base or a row
+        # stride off 16 bytes, a row too wide for the vector kernel
+        for R, D, xd, wd, view, path in [
+                (1, 16, f32, f32, None, "vector"),
+                (3, 80, f32, bf16, None, "vector"),
+                (5, 2560, bf16, f32, None, "vector"),
+                (7, 4096, f32, f32, None, "vector"),
+                (0, 64, bf16, bf16, None, None),
+                (2, 6912, bf16, bf16, None, "vector"),
+                (5, 3072, bf16, bf16, None, "vector"),
+                (3, 1536, bf16, f32, None, "vector"),
+                (6, 96, f32, f32, "rows", "vector"),
+                (9, 2560, bf16, bf16, "rows", "vector"),
+                (6, 2564, bf16, bf16, None, "general"),
+                (4, 2560, bf16, bf16, "base", "general"),
+                (6, 96, f32, f32, "stride", "general"),
+                (3, 30000, bf16, bf16, None, "general"),
+                (2, 13, f32, bf16, None, "general")]:
+            if view == "rows":              # a row stride of 2 D
+                x = rnd(R, 2 * D, dtype=xd)[:, :D]
+            elif view == "stride":          # a row stride of D + 1
+                x = rnd(R, D + 1, dtype=xd)[:, :D]
+            elif view == "base":            # one element off the base
+                x = rnd(R * D + 1, dtype=xd)[1:].reshape(R, D)
             else:
-                err_of(f"rmsnorm R={R} D={D}", rk.rmsnorm(x, ww), want,
-                       BF16_NORM_REL, rel=True)
+                x = rnd(R, D, dtype=xd)
+            ww = (1.0 + 0.1 * rnd(D)).to(wd)
+            want = ref.rmsnorm(x.float(), ww.float())
+            rk.reset_launch_counts()
+            name = f"rmsnorm R={R} D={D} {view or ''}"
+            if xd == f32:
+                err_of(name, rk.rmsnorm(x, ww), want, FWD_TOL)
+            else:
+                err_of(name, rk.rmsnorm(x, ww), want, BF16_NORM_REL, rel=True)
+            check(path is None and rk.LAUNCHES["rmsnorm"] == 0
+                  or rk.PATH_LAUNCHES[path] == rk.LAUNCHES["rmsnorm"] == 1,
+                  f"{name}: launches by path {rk.PATH_LAUNCHES}, not {path}")
             edges += 1
-        # a strided row view (the wrapper takes a row stride)
-        xb = rnd(6, 2 * 96)
-        ones = torch.ones(96, device=dev)
-        err_of("rmsnorm strided rows", rk.rmsnorm(xb[:, :96], ones),
-               ref.rmsnorm(xb[:, :96], ones), FWD_TOL)
-        edges += 1
 
         # ---- flash attention: the prefill's (B, H, S, D) views of (B, S,
         # H, D) projections, window 4096, Sq = 512 and 6144
@@ -980,6 +1135,21 @@ def llm_kernels_vs_plain(mutants):
                 f"{rr['bound_ms']:.4f} ms ({rr['bound_by']}), max_abs_err "
                 f"{rr['max_abs_err']:.3g}, row err {rr.get('max_row_err')}")
     fr, dr = records["flash_attention"], records["decode_attention"]
+    nr = records["rmsnorm"]
+    log(f"[2] rmsnorm host cost a piece at R=16 (median us of "
+        f"{HOST_COST_CALLS} calls; the first wrapper's pieces: checks, "
+        f"torch.empty, device switch, stream lookup, ctypes call + "
+        f"launch; then this call's pieces and whole calls): "
+        f"{nr['host_us']}")
+    for tag, rr in (("R=16", nr), ("R=6144", nr["prefill"])):
+        log(f"[2] rmsnorm call at {tag}: {rr['call_ms']:.4f} ms against "
+            f"F.rms_norm's {rr['library_ms']:.4f} ms "
+            f"({'at or below' if rr['call_ms'] <= rr['library_ms'] else 'above'}"
+            f"; medians of 9 rounds in turns: {rr['call_ms_rounds']} and "
+            f"{rr['library_ms_rounds']}); device {rr['kernel_ms']:.4f} "
+            f"against {rr['library_kernel_ms']:.4f} ms")
+    log(f"[2] norm launches by path at the serving shapes: "
+        f"{nr['path_launches']}")
     log(f"[2] flash launches by path at the serving shapes: "
         f"{fr['path_launches']}; decode's plan: {plan}")
     log(f"[2] flash without its rescale (Sq=512): "
@@ -1013,6 +1183,25 @@ def ssd_bound(B, S, H, P, N, L, es, h0=False):
            + B * H * nc * (pairs * (2 * P + 2) + 4 * L * N * P + 5 * L * P
                            + 2 * N * P))
     return _bound(nbytes, ops)
+
+
+def ssd_bound_tc(B, S, H, P, N, L, es, h0=False):
+    """``ssd_bound``'s bytes and operations with the products (C.B^T,
+    M.(x dt), C.h, B^T.(x dt)) at the bf16 tensor-core peak and the rest
+    (the decay mask, the scalings, the sums, the state's decay) at the
+    float32 CUDA-core rate, the two times added: the least time of the
+    bf16 path, whose products run on tensor cores."""
+    nc = S // L
+    pairs = L * (L + 1) // 2
+    f32_bound = ssd_bound(B, S, H, P, N, L, es, h0)
+    products = (B * nc * pairs * 2 * N
+                + B * H * nc * (pairs * 2 * P + 4 * L * N * P))
+    t_ops = (products / BF16_TC_FLOP_PER_S
+             + (f32_bound["ops"] - products) / F32_FLOP_PER_S)
+    t_bytes = f32_bound["bytes"] / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": f32_bound["bytes"], "ops": f32_bound["ops"]}
 
 
 def cell_bound(Gw, G, N, In, H):
@@ -1100,6 +1289,7 @@ def ssm_kernels_vs_plain(mutant):
     with torch.no_grad():
         H, P, N, L = SSM_HEADS, SSM_HEAD_DIM, SSM_STATE, SSM_CHUNK
         subs = {}
+        sk.reset_launch_counts()
         for S in (512, 6144):
             ins = ssd_inputs(gen, dev, 1, S, H, P, N, bf16)
             f32_ins = [t.float() for t in ins]
@@ -1121,7 +1311,10 @@ def ssm_kernels_vs_plain(mutant):
                                                 iters)
             rec["plain_ms"] = time_ms(plain, max(3, iters // 4))
             rec["library_ms"] = None
-            rec.update(ssd_bound(1, S, H, P, N, L, 2))
+            rec["kernels_ms"] = {
+                k: round(v, 5) for k, v in kernel_split_ms(
+                    kernel, symbol_of("ssd_scan"), iters).items()}
+            rec.update(ssd_bound_tc(1, S, H, P, N, L, 2))
             subs[S] = rec
             if S == 512:
                 # the kernel without its carry, on the same inputs
@@ -1131,13 +1324,21 @@ def ssm_kernels_vs_plain(mutant):
                 check(not ok, f"ssd_scan without its carry passed the check "
                       f"(y row err {my}, state rel err {mh})")
                 mutant_errs = {"max_row_err": my, "state_rel_err": mh}
+        ssd_paths = dict(sk.PATH_LAUNCHES)
+        check(ssd_paths["tensor_core"] == sk.LAUNCHES["ssd_scan"] > 0
+              and ssd_paths["cuda_core"] == 0,
+              f"bf16 chunk scans at the serving shapes: launches by path "
+              f"{ssd_paths}")
         records["ssd_scan"] = {**subs[512], "long_prompt": subs[6144],
-                               "carry_dropped": mutant_errs}
+                               "carry_dropped": mutant_errs,
+                               "path_launches": ssd_paths}
         log("[2] library yardstick for ssd_scan: none -- no single PyTorch "
             "call computes the SSD chunk scan")
-        # edge shapes: f32 (whose budget takes 16-column tiles at N=128),
-        # chunk 32 and 64, N 16 and 64, P 32, 20 (a ragged tile) and 16, two
-        # batch rows, one chunk, no step at all, a given h0
+        # edge shapes: f32 on the CUDA-core kernel (whose budget takes
+        # 16-column tiles at N=128), bf16 on the tensor-core path; chunk 32
+        # and 64, N 8 (padded to 16), 16 and 64, P 32, 20 (a ragged tile),
+        # 16 and 96 (two column tiles), two batch rows, one chunk, no step
+        # at all, a given h0
         for (B, S, H_, P_, N_, L_, dt_, with_h0) in [
                 (1, 256, 4, 64, 128, 128, f32, False),
                 (2, 96, 4, 32, 16, 32, bf16, False),
@@ -1147,14 +1348,25 @@ def ssm_kernels_vs_plain(mutant):
                 (1, 256, 3, 64, 128, 128, bf16, True),
                 (1, 64, 2, 20, 16, 32, f32, True),
                 (2, 128, 2, 16, 8, 64, f32, False),
-                (1, 0, 2, 32, 16, 32, f32, True)]:
+                (1, 0, 2, 32, 16, 32, f32, True),
+                (1, 64, 2, 20, 16, 32, bf16, True),
+                (2, 128, 2, 16, 8, 64, bf16, False),
+                (2, 512, 3, 96, 128, 128, bf16, True),
+                (1, 192, 4, 32, 64, 64, bf16, True),
+                (1, 0, 2, 32, 16, 32, bf16, True)]:
             ins = ssd_inputs(gen, dev, B, S, H_, P_, N_, dt_)
             h0 = (torch.randn((B, H_, N_, P_), generator=gen).to(dev)
                   if with_h0 else None)
             want = ref.ssd_scan(*[t.float() for t in ins], chunk=L_, h0=h0)
-            ssd_check(f"ssd_scan B={B} S={S} H={H_} P={P_} N={N_} "
-                      f"chunk={L_} {dt_} h0={with_h0}",
-                      sk.ssd_scan(*ins, chunk=L_, h0=h0), want, ins, L_)
+            name = (f"ssd_scan B={B} S={S} H={H_} P={P_} N={N_} chunk={L_} "
+                    f"{dt_} h0={with_h0}")
+            sk.reset_launch_counts()
+            ssd_check(name, sk.ssd_scan(*ins, chunk=L_, h0=h0), want, ins,
+                      L_)
+            path = "tensor_core" if dt_ == bf16 else "cuda_core"
+            check(sk.PATH_LAUNCHES[path] == sk.LAUNCHES["ssd_scan"]
+                  == (1 if S else 0),
+                  f"{name}: launches by path {sk.PATH_LAUNCHES}")
             edges += 1
         try:
             sk.ssd_scan(*[t.double() if t.dtype == f32 else t for t in
@@ -1234,6 +1446,18 @@ def ssm_kernels_vs_plain(mutant):
                 f"{rr['bound_ms']:.4f} ms ({rr['bound_by']}), max_abs_err "
                 f"{rr['max_abs_err']:.3g}, row err {rr.get('max_row_err')}, "
                 f"state rel err {rr.get('state_rel_err')}")
+    for S, rr in ((512, records["ssd_scan"]),
+                  (6144, records["ssd_scan"]["long_prompt"])):
+        f32_bound = ssd_bound(1, S, SSM_HEADS, SSM_HEAD_DIM, SSM_STATE,
+                              SSM_CHUNK, 2)
+        log(f"[2] ssd_scan S={S} by kernel (ms a call): {rr['kernels_ms']}; "
+            f"bound {rr['bound_ms']:.4f} ms with the products on bf16 "
+            f"tensor cores ({rr['bound_by']}), {f32_bound['bound_ms']:.4f} "
+            f"ms at the f32 rate ({f32_bound['bound_by']}); y row err "
+            f"{rr['max_row_err']:.4g} against half its bar "
+            f"{rr['row_tol'] / 2:.4g}")
+    log(f"[2] chunk scan launches by path at the serving shapes: "
+        f"{records['ssd_scan']['path_launches']}")
     log(f"[2] ssd_scan without its carry: y row err "
         f"{mutant_errs['max_row_err']:.4g}, state rel err "
         f"{mutant_errs['state_rel_err']:.4g} -- fails the check, as it must")
@@ -1242,6 +1466,39 @@ def ssm_kernels_vs_plain(mutant):
         f"each + {SSD_CUM_ULPS} f32 roundings of the largest chunk sum of "
         f"dt A; cell {FWD_TOL})")
     return records
+
+
+def side_stream_runs():
+    """The norm and the chunk scan at their serving shapes under
+    ``torch.cuda.stream(side)``: their inputs are copied on the side stream
+    behind long matrix products, so a launch on any other stream would read
+    them unwritten; the outputs must equal the same calls on the default
+    stream (the norm finds its stream through a private PyTorch call)."""
+    import torch
+    from repro_torch.kernels import rmsnorm as rk, ssd_scan as sk
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(16)
+    x = torch.randn((SLOTS, LLM_D_MODEL), generator=gen).to(dev,
+                                                            torch.bfloat16)
+    w = torch.randn((LLM_D_MODEL,), generator=gen).to(dev, torch.bfloat16)
+    ins = ssd_inputs(gen, dev, 1, 512, SSM_HEADS, SSM_HEAD_DIM, SSM_STATE,
+                     torch.bfloat16)
+    with torch.no_grad():
+        base = [rk.rmsnorm(x, w), *sk.ssd_scan(*ins, chunk=SSM_CHUNK)]
+        torch.cuda.synchronize()
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            a = torch.randn((4096, 4096), device=dev)
+            for _ in range(20):
+                a = a @ a * 1e-2
+            xs, ins_s = x.clone(), [t.clone() for t in ins]
+            got = [rk.rmsnorm(xs, w), *sk.ssd_scan(*ins_s, chunk=SSM_CHUNK)]
+        torch.cuda.synchronize()
+    same = [bool(torch.equal(g, b)) for g, b in zip(got, base)]
+    check(all(same), f"a side stream's norm / scan y / scan state differ "
+          f"from the default stream's: equal {same}")
+    log("[2] the norm and the chunk scan on a side stream equal their "
+        "default-stream results bit for bit")
 
 
 # --------------------------------------------------------------- phase 3 --
@@ -1909,15 +2166,25 @@ def serving(device, arch="h2o-danube-1.8b", cfg=None, slots=SLOTS,
         # state in plain PyTorch)
         expect.update({"rmsnorm": (L + 1) * (n_prefill + n_decode),
                        "ssd_scan": L * n_prefill})
+        # every chunk scan on the bf16 tensor-core path
+        check(paths["ssd_scan"] == {"tensor_core": launches["ssd_scan"],
+                                    "cuda_core": 0},
+              f"{tag} chunk scan launches by path {paths['ssd_scan']}, "
+              f"launches {launches}")
     else:
         # two norms a layer and the final norm; an attention a layer
         expect.update({"rmsnorm": (2 * L + 1) * (n_prefill + n_decode),
                        "flash_attention": L * n_prefill,
                        "decode_attention": L * n_decode})
         # every flash launch on the bf16 tensor-core kernel
-        check(paths == {"tensor_core": launches["flash_attention"],
-                        "cuda_core": 0},
-              f"{tag} flash launches by path {paths}, launches {launches}")
+        check(paths["flash_attention"] == {
+                  "tensor_core": launches["flash_attention"], "cuda_core": 0},
+              f"{tag} flash launches by path {paths['flash_attention']}, "
+              f"launches {launches}")
+    # every norm on the vector kernel
+    check(paths["rmsnorm"] == {"vector": launches["rmsnorm"], "general": 0},
+          f"{tag} norm launches by path {paths['rmsnorm']}, launches "
+          f"{launches}")
     mem = (torch.cuda.max_memory_allocated(device)
            if device.type == "cuda" else 0)
     n_out = sum(len(r.output) for r in done)
@@ -2003,8 +2270,7 @@ def serving(device, arch="h2o-danube-1.8b", cfg=None, slots=SLOTS,
     log(f"{tag} PPA: {len(decisions)} decisions, replicas {decisions}; "
         f"{n_pred} proactive; {ppa.updater.n_updates} refits; "
         f"{len(ppa.predictions)} forecasts")
-    if cfg.family != "ssm":
-        log(f"{tag} flash launches by path {paths}")
+    log(f"{tag} launches by path {paths}")
     log(f"{tag} every kernel launch of that check against its plain "
         f"version on its own inputs, (launches, worst err): "
         f"{checked}")
@@ -2095,6 +2361,7 @@ def main() -> int:
     records = kernels_vs_plain(fit_batch, attn_fit_batch)
     records.update(llm_kernels_vs_plain(mutants))
     records.update(ssm_kernels_vs_plain(mutants["ssd_scan"]))
+    side_stream_runs()
 
     # each phase sets the counts to 0 before it drives its path and reads
     # them right after, before its own comparison checks

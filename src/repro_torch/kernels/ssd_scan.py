@@ -8,9 +8,13 @@ Pallas contract it takes an initial state h0 (B, H, N, P), as the JAX
 model's ``ssd_chunked`` does, for a chunked continuation.  The CUDA kernel
 ``csrc/ssd_scan.cu`` runs for CUDA tensors and the plain version
 (``kernels/ref.py``) for CPU tensors; any other device raises.  x, Bm and
-Cm are float32 or bfloat16 (one dtype); dt, A, D and h0 are float32.
-``LAUNCHES`` counts the kernel's launches.  The model serves, so there is
-no backward.
+Cm are float32 or bfloat16 (one dtype); dt, A, D and h0 are float32.  On
+the card the dtype picks the path: bfloat16 runs the chunk-parallel
+tensor-core path (four launches: C.B^T, the chunk states, their ordered
+hand-off, y; its scratch allocated here, in one piece), float32 the exact
+CUDA-core kernel.  ``LAUNCHES`` counts the calls that launch, ``PATH_LAUNCHES``
+splits them by path (``tensor_core``: bf16; ``cuda_core``: f32).  The
+model serves, so there is no backward.
 """
 from __future__ import annotations
 
@@ -21,16 +25,18 @@ import torch
 from repro_torch.kernels import _build, ref
 
 LAUNCHES = {"ssd_scan": 0}
+PATH_LAUNCHES = {"tensor_core": 0, "cuda_core": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-CHUNKS = (32, 64, 128)         # the kernel's instantiations
-MAX_STATE = 128                # N: the (N / 4) x 8 state tiles of 256 threads
+CHUNKS = (32, 64, 128)         # the kernels' instantiations
+MAX_STATE = 128                # N: the f32 kernel's (N / 4) x 8 state tiles
 _MAX_SMEM = 232_448            # dynamic shared memory a Hopper CTA may use
 
 
 def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, PATH_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _lib():
@@ -42,8 +48,10 @@ def bind(lib):
     source's, or a variant of it from ``_build.build_variant``)."""
     if not getattr(lib, "_argtypes_set", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.ssd_scan_forward.argtypes = [vp] * 9 + [i] * 8 + [vp]
+        lib.ssd_scan_forward.argtypes = [vp] * 9 + [i] * 7 + [vp]
         lib.ssd_scan_forward.restype = i
+        lib.ssd_scan_tc_forward.argtypes = [vp] * 12 + [i] * 6 + [vp]
+        lib.ssd_scan_tc_forward.restype = i
         lib.ssd_scan_smem_bytes.argtypes = [i, i, i, i]
         lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
         lib.ssd_scan_error_string.argtypes = [i]
@@ -83,8 +91,9 @@ def _check(x, dt, A, Bm, Cm, D, chunk, h0):
 
 
 def tile_columns(N, chunk, P, elem) -> int:
-    """The state columns a CTA owns: 32 where its shared memory fits the
-    budget and P needs more than 16, else 16 (``csrc/ssd_scan.cu``)."""
+    """The state columns a CTA of the f32 kernel owns: 32 where its shared
+    memory fits the budget and P needs more than 16, else 16
+    (``csrc/ssd_scan.cu``)."""
     lib = _lib()
     for pt in (32, 16):
         if pt == 16 or P > 16:
@@ -95,8 +104,9 @@ def tile_columns(N, chunk, P, elem) -> int:
 
 
 def launch(lib, x, dt, A, Bm, Cm, D, chunk, h0):
-    """One launch of the library's kernel on checked CUDA tensors (no
-    count): (y, final state)."""
+    """One call of the library's kernels on checked CUDA tensors (no
+    count): the tensor-core path for bfloat16, the CUDA-core kernel for
+    float32.  Returns (y, final state)."""
     Bb, S, H, P = x.shape
     N = Bm.shape[-1]
     if chunk not in CHUNKS:
@@ -105,21 +115,49 @@ def launch(lib, x, dt, A, Bm, Cm, D, chunk, h0):
     if N % 4 or not 4 <= N <= MAX_STATE:
         raise ValueError(f"ssd_scan's kernel takes a state width N that is "
                          f"a multiple of 4 up to {MAX_STATE}, not {N}")
+    if x.dtype == torch.bfloat16:
+        # the tensor-core kernels read x, B, C and h0 8 bytes at a time: a
+        # view whose base is off 8 bytes (a slice of a larger buffer) is
+        # copied
+        x, Bm, Cm = (t if t.data_ptr() % 8 == 0 else t.clone()
+                     for t in (x, Bm, Cm))
+        if h0 is not None and h0.data_ptr() % 8:
+            h0 = h0.clone()
     y = torch.empty_like(x)
     hf = torch.empty((Bb, H, N, P), dtype=torch.float32, device=x.device)
     if x.numel() == 0:                     # nothing to scan: h0 or zeros
         if hf.numel():
             hf.copy_(h0 if h0 is not None else torch.zeros_like(hf))
         return y, hf
-    pt = tile_columns(N, chunk, P, x.element_size())
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.ssd_scan_forward(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), D.data_ptr(),
-            h0.data_ptr() if h0 is not None else None, y.data_ptr(),
-            hf.data_ptr(), Bb, S, H, P, N, chunk, pt, DTYPE_CODES[x.dtype],
-            stream)
+    h0p = h0.data_ptr() if h0 is not None else None
+    args = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), D.data_ptr(), h0p, y.data_ptr(), hf.data_ptr())
+    # private PyTorch, as in the norm's wrapper: the current stream's
+    # cudaStream_t as an int without building a torch.cuda.Stream, and the
+    # current device's index
+    idx = x.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    if x.dtype == torch.bfloat16:
+        # the scratch in one allocation: C.B^T (B, S / L, L, L), the chunk
+        # states (B, S / L, H, N, P) and the chunks' decay sums (B, H, S / L),
+        # each 16-byte aligned (L L and N P are multiples of 4)
+        nc = S // chunk
+        n_cb, n_st = Bb * nc * chunk * chunk, Bb * nc * H * N * P
+        scratch = torch.empty(n_cb + n_st + Bb * H * nc, dtype=torch.float32,
+                              device=x.device)
+        cb = scratch.data_ptr()
+        fn = lib.ssd_scan_tc_forward
+        args += (cb, cb + 4 * n_cb, cb + 4 * (n_cb + n_st), Bb, S, H, P, N,
+                 chunk, stream)
+    else:
+        fn = lib.ssd_scan_forward
+        args += (Bb, S, H, P, N, chunk,
+                 tile_columns(N, chunk, P, x.element_size()), stream)
+    if idx == torch._C._cuda_getDevice():
+        rc = fn(*args)
+    else:
+        with torch.cuda.device(idx):
+            rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: "
                            f"{lib.ssd_scan_error_string(rc).decode()}")
@@ -138,4 +176,6 @@ def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk=128, h0=None):
     out = launch(_lib(), x, dt, A, Bm, Cm, D, chunk, h0)
     if x.numel():
         LAUNCHES["ssd_scan"] += 1
+        PATH_LAUNCHES["tensor_core" if x.dtype == torch.bfloat16
+                      else "cuda_core"] += 1
     return out

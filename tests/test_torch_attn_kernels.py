@@ -9,8 +9,8 @@ than the plain LSTM's (two recurrences bridged by a softmax) and the matmul
 sums run in another order, so 1e-5 absolute and relative; Pallas in
 interpret mode gets the same.  Interpret-mode Pallas is slow, so its cases
 stay small (B <= 8, H <= 16, W <= 4).  The CUDA kernel itself is held
-against the plain version on the card (the ``cuda`` tests below and
-``chip_smoke.py``).
+against the plain version on the card (``tests/test_torch_cuda_kernels.py``
+and ``chip_smoke.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -184,51 +184,3 @@ def test_wrapper_rejects_other_devices():
     p = [t.to("meta") for t in _t(_params(rng, (), 5, 8, 5))]
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tattn.attn_lstm_seq(*p, torch.empty((2, 4, 5), device="meta"))
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("G,N,W,H,shared", [(64, 1, 8, 50, False),
-                                            (1, 111, 8, 50, True),
-                                            (1, 1, 8, 50, True),
-                                            (8, 17, 1, 37, False),
-                                            (5, 12, 8, 8, True)])
-def test_cuda_kernel_matches_plain(cuda_device, G, N, W, H, shared):
-    """The CUDA kernel against its plain version on the card: float32 sums
-    over up to 2H=100 terms in another order, through two recurrences and a
-    softmax, so 1e-4 absolute."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    rng = np.random.default_rng(G + N)
-    p = [t.to(cuda_device) for t in _t(_params(rng, (1 if shared else G,),
-                                              5, H, 5))]
-    xs = torch.tensor(rng.normal(0, 1, (G, N, W, 5)).astype(np.float32),
-                      device=cuda_device)
-    got = tattn.attn_lstm_seq_grouped(*p, xs)
-    want = tref.attn_lstm_seq_grouped(*p, xs)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
-
-
-@pytest.mark.cuda
-def test_cuda_kernel_gradients_match_plain(cuda_device):
-    """The ``autograd.Function`` on the card against autograd through the
-    plain version: 1e-4 absolute (the forward's tolerance, carried into
-    the loss)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    rng = np.random.default_rng(9)
-    p = _t(_params(rng, (4,), 5, 50, 5))
-    xs = torch.tensor(rng.normal(0, 1, (4, 12, 8, 5)).astype(np.float32),
-                      device=cuda_device)
-    grads = []
-    for fn in (tattn.attn_lstm_seq_grouped, tref.attn_lstm_seq_grouped):
-        leaves = [t.to(cuda_device).requires_grad_(True) for t in p]
-        loss = torch.mean(fn(*leaves, xs) ** 2)
-        grads.append(torch.autograd.grad(loss, leaves))
-    for a, b in zip(*grads):
-        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)

@@ -1,0 +1,446 @@
+"""The port's hand-written CUDA kernels against their plain versions, on the
+card.
+
+Every test here is marked ``cuda`` and needs a CUDA device; without one the
+``cuda_device`` fixture skips it.  The module imports torch, numpy, pytest
+and ``repro_torch`` alone, so it runs where the kernels run: on the card's
+machine, which has no JAX, as
+
+    PYTHONPATH=src python3 -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
+
+Each kernel is held against ``repro_torch.kernels.ref`` (whose own
+agreement with the JAX package the CPU tests check) on inputs made from a
+seed with numpy or a seeded ``torch.Generator``, at the tolerance each test
+states.
+"""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import attn_lstm_seq as tattn
+from repro_torch.kernels import decode_attention as tdec
+from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels import lstm_cell as tcell
+from repro_torch.kernels import lstm_seq as tseq
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rmsnorm as trms
+from repro_torch.kernels import ssd_scan as tssd
+
+ROOT = Path(__file__).resolve().parents[1]
+BF16 = torch.bfloat16
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _literal(path, name):
+    """The value of the module-level literal ``name`` of a script, read
+    without running the script."""
+    tree = ast.parse(path.read_text())
+    return next(ast.literal_eval(node.value) for node in tree.body
+                if isinstance(node, ast.Assign)
+                and any(getattr(t, "id", None) == name for t in node.targets))
+
+
+def _row_err(got, want):
+    """The largest over rows (the last dim) of a row's largest error over
+    that row's largest |want|."""
+    d = (got.float() - want.float()).abs().amax(-1)
+    return float((d / want.float().abs().amax(-1).clamp_min(1e-30)).max())
+
+
+# ------------------------------------------------------- the forecasters --
+def _lstm_params(rng, lead, M, H, n_out):
+    shapes = [(M, 4 * H), (H, 4 * H), (4 * H,), (H, n_out), (n_out,)]
+    return [rng.normal(0, 0.3, lead + s).astype(np.float32) for s in shapes]
+
+
+def _attn_params(rng, lead, M, H, n_out):
+    shapes = [(M, 4 * H), (H, 4 * H), (4 * H,), (H, H), (H, 4 * H),
+              (H, 4 * H), (4 * H,), (H, n_out), (n_out,)]
+    return [rng.normal(0, 0.3, lead + s).astype(np.float32) for s in shapes]
+
+
+def _on(arrs, dev):
+    return [torch.tensor(a, device=dev) for a in arrs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,N,W,H,shared", [(64, 1, 4, 50, False),
+                                            (1, 116, 4, 50, True),
+                                            (8, 17, 1, 37, False),
+                                            (5, 16, 4, 50, True)])
+def test_cuda_lstm_seq_matches_plain(cuda_device, G, N, W, H, shared):
+    """The LSTM kernel against its plain version: float32 sums over
+    M+H=55 terms in another order, through W recurrent steps, so 1e-4
+    absolute."""
+    rng = np.random.default_rng(G + N)
+    p = _on(_lstm_params(rng, (1 if shared else G,), 5, H, 5), cuda_device)
+    xs = torch.tensor(rng.normal(0, 1, (G, N, W, 5)).astype(np.float32),
+                      device=cuda_device)
+    got = tseq.lstm_seq_grouped(*p, xs)
+    want = tref.lstm_seq_grouped(*p, xs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,N,W,H,shared", [(64, 1, 8, 50, False),
+                                            (1, 111, 8, 50, True),
+                                            (1, 1, 8, 50, True),
+                                            (8, 17, 1, 37, False),
+                                            (5, 12, 8, 8, True)])
+def test_cuda_attn_lstm_seq_matches_plain(cuda_device, G, N, W, H, shared):
+    """The Attention-Double-LSTM kernel against its plain version: float32
+    sums over up to 2H=100 terms in another order, through two recurrences
+    and a softmax, so 1e-4 absolute."""
+    rng = np.random.default_rng(G + N)
+    p = _on(_attn_params(rng, (1 if shared else G,), 5, H, 5), cuda_device)
+    xs = torch.tensor(rng.normal(0, 1, (G, N, W, 5)).astype(np.float32),
+                      device=cuda_device)
+    got = tattn.attn_lstm_seq_grouped(*p, xs)
+    want = tref.attn_lstm_seq_grouped(*p, xs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_attn_lstm_seq_gradients_match_plain(cuda_device):
+    """The ``autograd.Function`` against autograd through the plain
+    version: 1e-4 absolute (the forward's tolerance, carried into the
+    loss)."""
+    rng = np.random.default_rng(9)
+    p = _attn_params(rng, (4,), 5, 50, 5)
+    xs = torch.tensor(rng.normal(0, 1, (4, 12, 8, 5)).astype(np.float32),
+                      device=cuda_device)
+    grads = []
+    for fn in (tattn.attn_lstm_seq_grouped, tref.attn_lstm_seq_grouped):
+        leaves = [t.requires_grad_(True) for t in _on(p, cuda_device)]
+        loss = torch.mean(fn(*leaves, xs) ** 2)
+        grads.append(torch.autograd.grad(loss, leaves))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
+def _cell_args(rng, lead, rows, In, H):
+    """Wx, Wh, b with the leading axes ``lead``; h, c, x of ``rows``."""
+    return [rng.normal(size=lead + s).astype(np.float32)
+            for s in [(In, 4 * H), (H, 4 * H), (4 * H,)]] + \
+        [rng.normal(size=rows + (n,)).astype(np.float32) for n in (H, H, In)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,rows,In,H", [((), (5,), 5, 50),
+                                            ((), (130,), 8, 32),
+                                            ((64,), (64, 1), 5, 50),
+                                            ((1,), (3, 17), 5, 37)])
+def test_cuda_lstm_cell_matches_plain(cuda_device, lead, rows, In, H):
+    """Sums over In + H terms in another order: 1e-5 absolute."""
+    rng = np.random.default_rng(H + len(rows))
+    args = _on(_cell_args(rng, lead, rows, In, H), cuda_device)
+    tcell.reset_launch_counts()
+    got = tcell.lstm_cell(*args)
+    want = (tref.lstm_cell if len(rows) == 1 else tref.lstm_cell_grouped)(
+        *args)
+    torch.cuda.synchronize()
+    assert tcell.LAUNCHES == {"lstm_cell": 1}
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------- the decoder's kernels --
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_cuda_kernels_match_plain(cuda_device, dtype):
+    """Each decoder kernel against its plain version computed in f32 from
+    the same inputs: f32 within 1e-4 absolute; bf16 within 2e-2 absolute
+    for the attentions (unit-scale inputs) and 8e-3 relative for the
+    norm."""
+    g = torch.Generator().manual_seed(0)
+
+    def rnd(*s):
+        return torch.randn(s, generator=g).to(cuda_device, dtype)
+
+    x, w = rnd(37, 2560), rnd(2560)
+    got = trms.rmsnorm(x, w).float()
+    want = tref.rmsnorm(x.float(), w.float())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    else:
+        assert float(((got - want).abs() / want.abs().clamp_min(1e-6))
+                     .max()) <= 8e-3
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    q = rnd(1, 100, 8, 80).transpose(1, 2)
+    k, v = rnd(1, 100, 2, 80).transpose(1, 2), rnd(1, 2, 100, 80)
+    got = tflash.flash_attention(q, k, v, window=33, cap=30.0)
+    want = tref.flash_attention(q.float(), k.float(), v.float(), window=33,
+                                cap=30.0)
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=tol)
+    qd = rnd(4, 32, 80)
+    kc, vc = rnd(4, 300, 8, 80), rnd(4, 300, 8, 80)
+    valid = torch.tensor([1, 300, 150, 307], device=cuda_device)
+    got = tdec.decode_attention(qd, kc.transpose(1, 2), vc.transpose(1, 2),
+                                kv_valid=valid, window=128)
+    want = tref.decode_attention(qd.float(), kc.transpose(1, 2).float(),
+                                 vc.transpose(1, 2).float(), kv_valid=valid,
+                                 window=128)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=tol)
+
+
+def _norm_err(got, want):
+    return float(((got.float() - want).abs()
+                  / want.abs().clamp_min(1e-6)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,D,xd,wd,view,path", [
+    (16, 2560, BF16, BF16, None, "vector"),       # a decode step
+    (6144, 2560, BF16, BF16, None, "vector"),     # the long prompt
+    (5, 3072, BF16, BF16, None, "vector"),        # mamba2's gated norm
+    (7, 1536, torch.float32, BF16, None, "vector"),
+    (3, 4096, BF16, torch.float32, None, "vector"),   # 2 warps a row
+    (2, 6912, BF16, BF16, None, "vector"),        # 4 warps a row
+    (4, 80, torch.float32, torch.float32, None, "vector"),
+    (9, 2560, BF16, BF16, "rows", "vector"),      # a 16-byte row stride
+    (6, 2564, BF16, BF16, None, "general"),       # D off the vector
+    (6, 2560, BF16, BF16, "base", "general"),     # a base off 16 bytes
+    (6, 96, torch.float32, torch.float32, "stride", "general"),  # 388 B rows
+    (3, 30000, BF16, BF16, None, "general")])     # wider than 8 warps hold
+def test_cuda_rmsnorm_paths_match_plain(cuda_device, R, D, xd, wd, view,
+                                        path):
+    """Both kernels against the plain version computed in f32 from the same
+    inputs, and the path ``vector_path`` picks: f32 within 1e-4 absolute,
+    bf16 within 8e-3 relative (one bf16 rounding is up to 2^-8)."""
+    g = torch.Generator().manual_seed(R * D)
+    if view == "rows":
+        x = torch.randn((R, D + 8), generator=g).to(cuda_device, xd)[:, :D]
+    elif view == "base":
+        x = torch.randn((R * D + 1,), generator=g).to(cuda_device, xd)[1:]
+        x = x.reshape(R, D)
+    elif view == "stride":
+        x = torch.randn((R, D + 1), generator=g).to(cuda_device, xd)[:, :D]
+    else:
+        x = torch.randn((R, D), generator=g).to(cuda_device, xd)
+    w = (1.0 + 0.1 * torch.randn((D,), generator=g)).to(cuda_device, wd)
+    trms.reset_launch_counts()
+    got = trms.rmsnorm(x, w)
+    want = tref.rmsnorm(x.float(), w.float())
+    torch.cuda.synchronize()
+    assert trms.LAUNCHES == {"rmsnorm": 1}
+    assert trms.PATH_LAUNCHES[path] == 1, trms.PATH_LAUNCHES
+    assert got.dtype == xd and got.is_contiguous()
+    if xd == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    else:
+        assert _norm_err(got, want) <= 8e-3
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_run_on_a_side_stream(cuda_device):
+    """Under ``torch.cuda.stream(s)`` the norm and the chunk scan launch on
+    s (the norm reads the raw current stream through a private PyTorch
+    call): their inputs are written on s behind long matrix products, so a
+    launch on another stream would read them unwritten; the results equal
+    the same calls on the default stream."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((16, 2560), generator=g).to(cuda_device, BF16)
+    w = torch.randn((2560,), generator=g).to(cuda_device, BF16)
+    ins = _card_inputs(cuda_device, 1, 256, 4, 64, 128, BF16)
+    base_n = trms.rmsnorm(x, w)
+    base_s = tssd.ssd_scan(*ins, chunk=128)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        a = torch.randn((4096, 4096), device=cuda_device)
+        for _ in range(20):
+            a = a @ a * 1e-2
+        x_side = x.clone()
+        ins_side = [t.clone() for t in ins]
+        n_side = trms.rmsnorm(x_side, w)
+        s_side = tssd.ssd_scan(*ins_side, chunk=128)
+    torch.cuda.synchronize()
+    assert torch.equal(n_side, base_n)
+    assert torch.equal(s_side[0], base_s[0])
+    assert torch.equal(s_side[1], base_s[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,kw", [
+    (16, dict()), (64, dict(window=33)), (80, dict(q_offset=64,
+                                                     kv_valid=120)),
+    (128, dict(cap=5.0)), (256, dict(causal=False, kv_valid=50)),
+    (256, dict(cap=20.0, window=100)), (48, dict(window=70))])
+def test_cuda_flash_tensor_core_matches_plain(cuda_device, D, kw):
+    """The bf16 tensor-core kernel against the plain version computed in
+    f32 from the same bf16 inputs, on (B, S, H, D) projections read as
+    (B, H, S, D) views: 2e-2 absolute and 1e-2 of each row's scale, every
+    launch on the tensor-core path."""
+    g = torch.Generator().manual_seed(D)
+    q = torch.randn((1, 130, 8, D), generator=g).to(cuda_device, BF16)
+    k = torch.randn((1, 200, 2, D), generator=g).to(cuda_device, BF16)
+    v = torch.randn((1, 200, 2, D), generator=g).to(cuda_device, BF16)
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    tflash.reset_launch_counts()
+    got = tflash.flash_attention(q, k, v, **kw)
+    want = tref.flash_attention(q.float(), k.float(), v.float(), **kw)
+    torch.cuda.synchronize()
+    assert tflash.PATH_LAUNCHES == {"tensor_core": 1, "cuda_core": 0}
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=2e-2)
+    assert _row_err(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bf16_raises_off_16(cuda_device):
+    """bf16 takes only the tensor-core kernel: a head dim off 16, or a view
+    whose base is off 16 bytes, raises instead of running elsewhere."""
+    x = torch.randn(1, 2, 8, 72, device=cuda_device, dtype=BF16)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tflash.flash_attention(x, x, x)
+    flat = torch.randn(2 * 8 * 64 + 1, device=cuda_device, dtype=BF16)
+    off = flat[1:].reshape(1, 2, 8, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        tflash.flash_attention(off, off, off)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,D,window,dtypes", [
+    (1, 64, None, (BF16, BF16)),
+    (4, 80, 512, (BF16, BF16)),
+    (16, 128, 768, (torch.float32, BF16)),
+    (16, 256, 900, (torch.float32, torch.float32))])
+def test_cuda_split_decode_matches_plain(cuda_device, G, D, window, dtypes):
+    """The split kernel against the plain version computed in f32, on a
+    (B, S, Hkv, D) cache read through its (B, Hkv, S, D) view: rows over
+    many splits, one ending on a split boundary, one inside a single split,
+    one that sees no row (0).  f32 within 1e-4, bf16 within 2e-2 and 1e-2
+    of each row's scale; one launch a call."""
+    qd, kd = dtypes
+    g = torch.Generator().manual_seed(G * D)
+    B, Hkv, S = 4, 2, 1500
+    q = torch.randn((B, Hkv * G, D), generator=g).to(cuda_device, qd)
+    kc = torch.randn((B, S, Hkv, D), generator=g).to(cuda_device, kd)
+    vc = torch.randn((B, S, Hkv, D), generator=g).to(cuda_device, kd)
+    n, run = tdec.split_plan(S, window)
+    vals = torch.tensor([S - 3, (window or 0) + 2 * run, 37,
+                         S + window + 5 if window else 0],
+                        dtype=torch.int32, device=cuda_device)
+    tdec.reset_launch_counts()
+    got = tdec.decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2),
+                                kv_valid=vals, window=window)
+    want = tref.decode_attention(q.float(), kc.transpose(1, 2).float(),
+                                 vc.transpose(1, 2).float(), kv_valid=vals,
+                                 window=window)
+    torch.cuda.synchronize()
+    assert tdec.LAUNCHES == {"decode_attention": 1}
+    assert bool((got[-1] == 0).all())
+    if (qd, kd) == (torch.float32, torch.float32):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    else:
+        torch.testing.assert_close(got.float(), want, rtol=0, atol=2e-2)
+        assert _row_err(got, want) <= 1e-2
+
+
+# --------------------------------------------------------- the chunk scan --
+def _card_inputs(dev, B, S, H, P, N, dtype, seed=0):
+    """Unit-normal x, B, C, D; dt = |N| * 0.05 and A in -[0.02, 0.5]: a
+    chunk's decay stays between exp(-0.1) and exp(-2.5) at L = 128, so the
+    carried state is alive."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((B, S, H, P), generator=g).to(dev, dtype)
+    dt = (torch.randn((B, S, H), generator=g).abs() * 0.05).to(dev)
+    A = -(0.02 + 0.48 * torch.rand((H,), generator=g)).to(dev)
+    Bm = torch.randn((B, S, N), generator=g).to(dev, dtype)
+    Cm = torch.randn((B, S, N), generator=g).to(dev, dtype)
+    D = torch.randn((H,), generator=g).to(dev)
+    return x, dt, A, Bm, Cm, D
+
+
+def _errs(got, want):
+    """(y's largest row error over the row's largest |want|, h's largest
+    error over its largest |want|)."""
+    (y, h), (wy, wh) = got, want
+    return _row_err(y, wy), float((h - wh).abs().max() / wh.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,chunk,shape", [
+    (BF16, 128, (1, 512, 48, 64, 128)),
+    (torch.float32, 128, (1, 256, 4, 64, 128)),
+    (torch.float32, 64, (2, 192, 3, 32, 64)),
+    (BF16, 32, (2, 64, 4, 32, 16)),
+    (torch.float32, 32, (1, 32, 2, 20, 16)),
+    (BF16, 64, (1, 256, 4, 64, 64)),              # zamba2's N and chunk
+    (BF16, 128, (1, 128, 2, 64, 128)),            # one chunk
+    (BF16, 32, (1, 96, 2, 20, 16)),               # a ragged column tile
+    (BF16, 64, (2, 128, 3, 16, 8)),               # N padded to 16
+    (BF16, 128, (2, 1024, 3, 96, 128))])          # two column tiles
+def test_cuda_ssd_scan_matches_plain(cuda_device, dtype, chunk, shape):
+    """Both paths against the plain version computed in f32 from the same
+    inputs, with and without h0: y row by row within 1e-2 (bf16: one
+    rounding is 2^-8 of the row's scale) or 1e-4 (f32) of the row's scale,
+    the state within 1e-4 of its scale; bf16 on the tensor-core path, f32
+    on the CUDA-core kernel."""
+    B, S, H, P, N = shape
+    ins = _card_inputs(cuda_device, B, S, H, P, N, dtype)
+    f32 = [t.float() for t in ins]
+    y_tol = 1e-2 if dtype == BF16 else 1e-4
+    path = "tensor_core" if dtype == BF16 else "cuda_core"
+    for h0 in (None, torch.randn((B, H, N, P), device=cuda_device)):
+        tssd.reset_launch_counts()
+        got = tssd.ssd_scan(*ins, chunk=chunk, h0=h0)
+        want = tref.ssd_scan(*f32, chunk=chunk, h0=h0)
+        torch.cuda.synchronize()
+        assert tssd.PATH_LAUNCHES[path] == tssd.LAUNCHES["ssd_scan"] == 1
+        assert got[0].dtype == dtype and bool(torch.isfinite(got[0]).all())
+        ey, eh = _errs(got, want)
+        assert ey <= y_tol and eh <= 1e-4, (ey, eh)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_without_carry_fails_the_check(cuda_device, tmp_path):
+    """``chip_smoke.MUTANTS["ssd_scan"]``, the source with the one line
+    that carries the state into the next chunk changed, must fail the check
+    above on the bf16 path."""
+    from repro_torch.kernels import _build
+    edit = _literal(ROOT / "chip_smoke.py", "MUTANTS")["ssd_scan"]
+    lib = tssd.bind(_build.build_variant("ssd_scan", [edit], tmp_path))
+    ins = _card_inputs(cuda_device, 1, 512, 8, 64, 128, BF16)
+    got = tssd.launch(lib, *ins, 128, None)
+    want = tref.ssd_scan(*[t.float() for t in ins], chunk=128)
+    torch.cuda.synchronize()
+    ey, eh = _errs(got, want)
+    assert ey > 1e-2 and eh > 1e-4, (ey, eh)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_takes_views_off_8_bytes(cuda_device):
+    """x, B, C and h0 whose bases sit off the kernels' 8-byte copies (views
+    into a larger buffer) give the same result, bit for bit, as the same
+    values in fresh tensors."""
+    ins = _card_inputs(cuda_device, 1, 256, 4, 64, 64, BF16, seed=5)
+    g = torch.Generator().manual_seed(6)
+    h0 = torch.randn((1, 4, 64, 64), generator=g).to(cuda_device)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        v = flat[1:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    views = [shifted(t) if t.dtype == BF16 else t for t in ins]
+    h0_view = shifted(h0)
+    assert all(v.data_ptr() % 8 for v in (views[0], views[3], views[4],
+                                          h0_view))
+    got = tssd.ssd_scan(*views, chunk=64, h0=h0_view)
+    want = tssd.ssd_scan(*ins, chunk=64, h0=h0)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

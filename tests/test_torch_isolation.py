@@ -11,6 +11,8 @@ import pytest
 PORT = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 # the card's smoke drives the port alone, so it is held to the same rule
 CHIP_SMOKE = PORT.parents[1] / "chip_smoke.py"
+# and so are the card's tests, which run where there is no JAX
+CUDA_TESTS = PORT.parents[1] / "tests" / "test_torch_cuda_kernels.py"
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -47,7 +49,7 @@ def _imported_modules(path: Path) -> list[str]:
     return mods
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [CHIP_SMOKE],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [CHIP_SMOKE, CUDA_TESTS],
                          ids=lambda p: str(p.relative_to(PORT.parents[1])))
 def test_source_names_no_jax_or_repro_module(path):
     assert "import jax" not in path.read_text()

@@ -6,8 +6,8 @@ On the CPU the wrappers run their plain PyTorch versions
 same numpy inputs.  Tolerances: float32 forwards through the same op
 sequence agree to rounding (1e-5); Pallas in interpret mode sums the gate
 products in its own order, so it gets the same 1e-5.  The CUDA kernel itself
-is held against the plain version on the card (the ``cuda`` test below and
-``chip_smoke.py``).
+is held against the plain version on the card
+(``tests/test_torch_cuda_kernels.py`` and ``chip_smoke.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -165,31 +165,3 @@ def test_launch_config_covers_hidden_widths():
     assert tseq.launch_config(100, 300) == (320, 3)
     with pytest.raises(ValueError):
         tseq.launch_config(1, 1100)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("G,N,W,H,shared", [(64, 1, 4, 50, False),
-                                            (1, 116, 4, 50, True),
-                                            (8, 17, 1, 37, False),
-                                            (5, 16, 4, 50, True)])
-def test_cuda_kernel_matches_plain(cuda_device, G, N, W, H, shared):
-    """The CUDA kernel against its plain version on the card: float32 sums
-    over M+H=55 terms in another order, through W recurrent steps, so
-    1e-4 absolute."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    rng = np.random.default_rng(G + N)
-    p = [t.to(cuda_device) for t in _t(_params(rng, (1 if shared else G,),
-                                              5, H, 5))]
-    xs = torch.tensor(rng.normal(0, 1, (G, N, W, 5)).astype(np.float32),
-                      device=cuda_device)
-    got = tseq.lstm_seq_grouped(*p, xs)
-    want = tref.lstm_seq_grouped(*p, xs)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)

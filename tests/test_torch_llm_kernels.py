@@ -12,7 +12,7 @@ sequence in another summation order, 3e-5 absolute and 1e-4 relative (the
 JAX package's own bar for the Pallas kernels against their oracles);
 bfloat16 outputs one bf16 rounding apart, 2^-7 relative (two ulps).  The
 CUDA kernels themselves are held against the plain versions on the card
-(the ``cuda`` tests below and ``chip_smoke.py``).
+(``tests/test_torch_cuda_kernels.py`` and ``chip_smoke.py``).
 """
 import ast
 from pathlib import Path
@@ -381,6 +381,35 @@ def test_alignment_predicates():
     assert tflash.aligned16(one)
 
 
+@settings(max_examples=300, deadline=None)
+@given(R=st.integers(1, 4),
+       D=st.integers(1, 72) | st.sampled_from(
+           [trms.MAX_VECTOR_D, trms.MAX_VECTOR_D + 8]),
+       x_es=st.sampled_from([2, 4]), w_es=st.sampled_from([2, 4]),
+       offs=st.tuples(*[st.integers(0, 15)] * 3),
+       extra=st.integers(0, 24))
+def test_rmsnorm_vector_path_only_where_every_load_is_aligned(
+        R, D, x_es, w_es, offs, extra):
+    """``rmsnorm.vector_path`` picks the vector kernel exactly where D is a
+    multiple of its 8-element vector (up to ``MAX_VECTOR_D``) and every
+    vector the kernel loads or stores -- x's rows at their stride, w, the
+    output's rows of D elements -- starts on a 16-byte boundary; each base
+    address is a multiple of its element size."""
+    base = 1 << 20
+    xp, wp, op = (base + o * e for o, e in zip(offs, (x_es, w_es, x_es)))
+    stride = D + extra
+    chosen = trms.vector_path(R, D, xp, wp, op, stride, x_es)
+    vecs = range(0, D - D % trms.VEC, trms.VEC)
+    aligned = all(
+        a % 16 == 0 for r in range(R) for i in vecs
+        for a in (xp + (r * stride + i) * x_es, wp + i * w_es,
+                  op + (r * D + i) * x_es))
+    if chosen:
+        assert D % trms.VEC == 0 and aligned
+    assert chosen == (D % trms.VEC == 0 and D <= trms.MAX_VECTOR_D
+                      and aligned)
+
+
 def test_cpu_counts_no_launch_by_path():
     for mod in (tflash, tdec):
         mod.reset_launch_counts()
@@ -433,6 +462,7 @@ def test_cpu_runs_plain_and_counts_no_launch():
     tdec.decode_attention(torch.randn(1, 2, 8), torch.randn(1, 2, 4, 8),
                           torch.randn(1, 2, 4, 8), kv_valid=2)
     assert trms.LAUNCHES == {"rmsnorm": 0}
+    assert trms.PATH_LAUNCHES == {"vector": 0, "general": 0}
     assert tflash.LAUNCHES == {"flash_attention": 0}
     assert tdec.LAUNCHES == {"decode_attention": 0}
 
@@ -465,132 +495,3 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                               kv, kv_valid=3)
     with pytest.raises(ValueError):
         tdec.decode_attention(torch.randn(1, 4, 8), kv, kv, kv_valid=3)
-
-
-# ------------------------------------------------------------- the card ---
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_kernels_match_plain(cuda_device, dtype):
-    """Each CUDA kernel against its plain version computed in f32 from the
-    same inputs: f32 within 1e-4 absolute; bf16 within 2e-2 absolute for
-    the attentions (unit-scale inputs) and 8e-3 relative for the norm."""
-    g = torch.Generator().manual_seed(0)
-
-    def rnd(*s):
-        return torch.randn(s, generator=g).to(cuda_device, dtype)
-
-    x, w = rnd(37, 2560), rnd(2560)
-    got = trms.rmsnorm(x, w).float()
-    want = tref.rmsnorm(x.float(), w.float())
-    if dtype == torch.float32:
-        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
-    else:
-        assert float(((got - want).abs() / want.abs().clamp_min(1e-6))
-                     .max()) <= 8e-3
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
-    q = rnd(1, 100, 8, 80).transpose(1, 2)
-    k, v = rnd(1, 100, 2, 80).transpose(1, 2), rnd(1, 2, 100, 80)
-    got = tflash.flash_attention(q, k, v, window=33, cap=30.0)
-    want = tref.flash_attention(q.float(), k.float(), v.float(), window=33,
-                                cap=30.0)
-    torch.testing.assert_close(got.float(), want, rtol=0, atol=tol)
-    qd = rnd(4, 32, 80)
-    kc, vc = rnd(4, 300, 8, 80), rnd(4, 300, 8, 80)
-    valid = torch.tensor([1, 300, 150, 307], device=cuda_device)
-    got = tdec.decode_attention(qd, kc.transpose(1, 2), vc.transpose(1, 2),
-                                kv_valid=valid, window=128)
-    want = tref.decode_attention(qd.float(), kc.transpose(1, 2).float(),
-                                 vc.transpose(1, 2).float(), kv_valid=valid,
-                                 window=128)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), want, rtol=0, atol=tol)
-
-
-def _row_err(got, want):
-    d = (got.float() - want).abs().amax(-1)
-    return float((d / want.abs().amax(-1).clamp_min(1e-30)).max())
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("D,kw", [
-    (16, dict()), (64, dict(window=33)), (80, dict(q_offset=64,
-                                                     kv_valid=120)),
-    (128, dict(cap=5.0)), (256, dict(causal=False, kv_valid=50)),
-    (256, dict(cap=20.0, window=100)), (48, dict(window=70))])
-def test_cuda_flash_tensor_core_matches_plain(cuda_device, D, kw):
-    """The bf16 tensor-core kernel against the plain version computed in
-    f32 from the same bf16 inputs, on (B, S, H, D) projections read as
-    (B, H, S, D) views: 2e-2 absolute and 1e-2 of each row's scale, every
-    launch on the tensor-core path."""
-    g = torch.Generator().manual_seed(D)
-    bf = torch.bfloat16
-    q = torch.randn((1, 130, 8, D), generator=g).to(cuda_device, bf)
-    k = torch.randn((1, 200, 2, D), generator=g).to(cuda_device, bf)
-    v = torch.randn((1, 200, 2, D), generator=g).to(cuda_device, bf)
-    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-    tflash.reset_launch_counts()
-    got = tflash.flash_attention(q, k, v, **kw)
-    want = tref.flash_attention(q.float(), k.float(), v.float(), **kw)
-    torch.cuda.synchronize()
-    assert tflash.PATH_LAUNCHES == {"tensor_core": 1, "cuda_core": 0}
-    torch.testing.assert_close(got.float(), want, rtol=0, atol=2e-2)
-    assert _row_err(got, want) <= 1e-2
-
-
-@pytest.mark.cuda
-def test_cuda_flash_bf16_raises_off_16(cuda_device):
-    """bf16 takes only the tensor-core kernel: a head dim off 16, or a view
-    whose base is off 16 bytes, raises instead of running elsewhere."""
-    x = torch.randn(1, 2, 8, 72, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        tflash.flash_attention(x, x, x)
-    flat = torch.randn(2 * 8 * 64 + 1, device=cuda_device,
-                       dtype=torch.bfloat16)
-    off = flat[1:].reshape(1, 2, 8, 64)
-    with pytest.raises(ValueError, match="16-byte"):
-        tflash.flash_attention(off, off, off)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("G,D,window,dtypes", [
-    (1, 64, None, (torch.bfloat16, torch.bfloat16)),
-    (4, 80, 512, (torch.bfloat16, torch.bfloat16)),
-    (16, 128, 768, (torch.float32, torch.bfloat16)),
-    (16, 256, 900, (torch.float32, torch.float32))])
-def test_cuda_split_decode_matches_plain(cuda_device, G, D, window, dtypes):
-    """The split kernel against the plain version computed in f32, on a
-    (B, S, Hkv, D) cache read through its (B, Hkv, S, D) view: rows over
-    many splits, one ending on a split boundary, one inside a single split,
-    one that sees no row (0).  f32 within 1e-4, bf16 within 2e-2 and 1e-2
-    of each row's scale; one launch a call."""
-    qd, kd = dtypes
-    g = torch.Generator().manual_seed(G * D)
-    B, Hkv, S = 4, 2, 1500
-    q = torch.randn((B, Hkv * G, D), generator=g).to(cuda_device, qd)
-    kc = torch.randn((B, S, Hkv, D), generator=g).to(cuda_device, kd)
-    vc = torch.randn((B, S, Hkv, D), generator=g).to(cuda_device, kd)
-    n, run = tdec.split_plan(S, window)
-    vals = torch.tensor([S - 3, (window or 0) + 2 * run, 37,
-                         S + window + 5 if window else 0],
-                        dtype=torch.int32, device=cuda_device)
-    tdec.reset_launch_counts()
-    got = tdec.decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2),
-                                kv_valid=vals, window=window)
-    want = tref.decode_attention(q.float(), kc.transpose(1, 2).float(),
-                                 vc.transpose(1, 2).float(), kv_valid=vals,
-                                 window=window)
-    torch.cuda.synchronize()
-    assert tdec.LAUNCHES == {"decode_attention": 1}
-    assert bool((got[-1] == 0).all())
-    if (qd, kd) == (torch.float32, torch.float32):
-        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
-    else:
-        torch.testing.assert_close(got.float(), want, rtol=0, atol=2e-2)
-        assert _row_err(got, want) <= 1e-2

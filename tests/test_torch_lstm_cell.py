@@ -10,7 +10,8 @@ product against one a group); and the lane of
 ``chip_smoke.py`` (one grouped cell a step over Z targets, then the head)
 against the whole-window ``lstm_seq_stacked`` on the same weights and
 windows within 1e-5 relative.  The CUDA kernel is held against the plain
-version on the card (the ``cuda`` test below and ``chip_smoke.py``).
+version on the card (``tests/test_torch_cuda_kernels.py`` and
+``chip_smoke.py``).
 """
 import importlib.util
 from pathlib import Path
@@ -108,30 +109,3 @@ def test_lstm_cell_wrapper_rejects():
         tcell.lstm_cell(*args[:5], args[5][None])
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tcell.lstm_cell(*[a.to("meta") for a in args])
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("lead,rows,In,H", [((), (5,), 5, 50),
-                                            ((), (130,), 8, 32),
-                                            ((64,), (64, 1), 5, 50),
-                                            ((1,), (3, 17), 5, 37)])
-def test_cuda_lstm_cell_matches_plain(cuda_device, lead, rows, In, H):
-    """Sums over In + H terms in another order: 1e-5 absolute."""
-    rng = np.random.default_rng(H + len(rows))
-    args = [torch.tensor(a, device=cuda_device)
-            for a in _cell_args(rng, lead, rows, In, H)]
-    tcell.reset_launch_counts()
-    got = tcell.lstm_cell(*args)
-    want = (tref.lstm_cell if len(rows) == 1 else tref.lstm_cell_grouped)(
-        *args)
-    torch.cuda.synchronize()
-    assert tcell.LAUNCHES == {"lstm_cell": 1}
-    for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)

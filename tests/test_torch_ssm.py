@@ -12,9 +12,9 @@ itself within 1e-5 (the same op sequence).  The model's pieces (conv,
 decode step, block, decode) are held against ``repro.models.ssm`` within
 1e-5 in float32, and the chunked continuation as
 ``tests/test_moe_ssm.py`` holds the JAX block.  The CUDA kernel is held
-against the plain version on the card (the ``cuda`` tests below, which
-also check that a kernel with the chunk carry dropped fails that check,
-and ``chip_smoke.py``).
+against the plain version on the card (``tests/test_torch_cuda_kernels.py``,
+which also checks that a kernel with the chunk carry dropped fails that
+check, and ``chip_smoke.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -36,9 +36,6 @@ torch.set_num_threads(1)
 
 ORACLE_TOL = dict(atol=2e-4, rtol=1e-3)
 SAME_OPS_TOL = dict(atol=1e-5, rtol=0)
-# the one statement that carries the state from one chunk to the next
-CARRY = ("sH[(n0 + i) * PT + q0 + j] = hn[i][j];",
-         "sH[(n0 + i) * PT + q0 + j] = 0.0f;")
 
 
 def _inputs(rng, B, S, H, P, N, dt_scale=0.1):
@@ -118,11 +115,63 @@ def test_plain_ssd_scan_bf16_rounds_once():
     assert float(row.max()) <= 2.0 ** -8
 
 
+def _chunk_parallel(x, dt, A, Bm, Cm, D, L, h0):
+    """The chunk scan as the tensor-core path of ``csrc/ssd_scan.cu``
+    splits it, in plain f32: C.B^T once per (batch row, chunk); per (batch
+    row, head, chunk), all at once, cum, the decay-masked M' = exp(cum[t] -
+    cum[s]) (C.B^T)[t][s] dt[s] (t >= s) and y's own term M'.x, and the
+    chunk's own state sum_s B_s exp(total - cum[s]) dt_s x_s; then the
+    hand-off h_c = exp(total_c) h_{c-1} + S_c in chunk order; then y."""
+    Bb, S, H, P = x.shape
+    N, nc = Bm.shape[-1], S // L
+    xc = x.reshape(Bb, nc, L, H, P)
+    dtc = dt.reshape(Bb, nc, L, H)
+    Bc, Cc = Bm.reshape(Bb, nc, L, N), Cm.reshape(Bb, nc, L, N)
+    cum = torch.cumsum(dtc * A, dim=2)
+    total = cum[:, :, -1]
+    cb = torch.einsum("bctn,bcsn->bcts", Cc, Bc)
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool))[..., None]
+    seg = torch.where(mask, cum[:, :, :, None] - cum[:, :, None], 0.0)
+    Mp = torch.where(mask, torch.exp(seg), 0.0) * cb[..., None] \
+        * dtc[:, :, None]                                 # (B, nc, t, s, H)
+    y_own = torch.einsum("bctsh,bcshp->bcthp", Mp, xc)
+    w = torch.exp(total[:, :, None] - cum) * dtc          # (B, nc, L, H)
+    own = torch.einsum("bcsn,bcsh,bcshp->bchnp", Bc, w, xc)
+    h = torch.zeros((Bb, H, N, P)) if h0 is None else h0
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = torch.exp(total[:, c])[:, :, None, None] * h + own[:, c]
+    carried = torch.einsum("bctn,bchnp->bcthp", Cc, torch.stack(h_in, 1))
+    y = y_own + torch.exp(cum)[..., None] * carried + D[:, None] * xc
+    return y.reshape(Bb, S, H, P), h
+
+
+@pytest.mark.parametrize("chunk,S,P,with_h0", [
+    (32, 96, 20, True), (64, 128, 20, False), (128, 128, 20, True),
+    (128, 384, 8, True), (64, 256, 16, False)])
+def test_chunk_parallel_decomposition_equals_plain(chunk, S, P, with_h0):
+    """The tensor-core path's split of the scan -- chunk-local terms, the
+    ordered hand-off, then y -- equals the plain version in f32 within
+    1e-5 of each output's scale (one chunk, h0, chunk 32 / 64 / 128, P=20
+    included)."""
+    B, H, N = 2, 3, 16
+    rng = np.random.default_rng(chunk + S + P)
+    arrs = _t(_inputs(rng, B, S, H, P, N, dt_scale=0.05))
+    h0 = (torch.tensor(rng.normal(size=(B, H, N, P)).astype(np.float32))
+          if with_h0 else None)
+    y, h = _chunk_parallel(*arrs, chunk, h0)
+    wy, wh = tref.ssd_scan(*arrs, chunk=chunk, h0=h0)
+    assert float((y - wy).abs().max()) <= 1e-5 * float(wy.abs().max())
+    assert float((h - wh).abs().max()) <= 1e-5 * float(wh.abs().max())
+
+
 def test_ssd_scan_wrapper_rejects_and_cpu_counts_nothing():
     arrs = _t(_inputs(np.random.default_rng(0), 1, 64, 2, 8, 8))
     tssd.reset_launch_counts()
     tssd.ssd_scan(*arrs, chunk=32)
     assert tssd.LAUNCHES == {"ssd_scan": 0}
+    assert tssd.PATH_LAUNCHES == {"tensor_core": 0, "cuda_core": 0}
     with pytest.raises(ValueError, match="multiple of the chunk"):
         tssd.ssd_scan(*arrs, chunk=48)
     with pytest.raises(TypeError):
@@ -261,73 +310,3 @@ def test_init_ssm_cache_equals_jax():
         assert tuple(tc[k].shape) == jc[k].shape
         assert str(tc[k].dtype).split(".")[1] == str(jc[k].dtype)
         assert not bool(tc[k].any())
-
-
-# ------------------------------------------------------------- the card ---
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-def _card_inputs(dev, B, S, H, P, N, dtype, seed=0):
-    """Unit-normal x, B, C, D; dt = |N| * 0.05 and A in -[0.02, 0.5]: a
-    chunk's decay stays between exp(-0.1) and exp(-2.5) at L = 128, so the
-    carried state is alive."""
-    g = torch.Generator().manual_seed(seed)
-    x = torch.randn((B, S, H, P), generator=g).to(dev, dtype)
-    dt = (torch.randn((B, S, H), generator=g).abs() * 0.05).to(dev)
-    A = -(0.02 + 0.48 * torch.rand((H,), generator=g)).to(dev)
-    Bm = torch.randn((B, S, N), generator=g).to(dev, dtype)
-    Cm = torch.randn((B, S, N), generator=g).to(dev, dtype)
-    D = torch.randn((H,), generator=g).to(dev)
-    return x, dt, A, Bm, Cm, D
-
-
-def _errs(got, want):
-    """(y's largest row error over the row's largest |want|, h's largest
-    error over its largest |want|)."""
-    (y, h), (wy, wh) = got, want
-    row = (y.float() - wy).abs().amax(-1) / wy.abs().amax(-1).clamp_min(
-        1e-30)
-    return float(row.max()), float((h - wh).abs().max() / wh.abs().max())
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,chunk,shape", [
-    (torch.bfloat16, 128, (1, 512, 48, 64, 128)),
-    (torch.float32, 128, (1, 256, 4, 64, 128)),
-    (torch.float32, 64, (2, 192, 3, 32, 64)),
-    (torch.bfloat16, 32, (2, 64, 4, 32, 16)),
-    (torch.float32, 32, (1, 32, 2, 20, 16))])
-def test_cuda_ssd_scan_matches_plain(cuda_device, dtype, chunk, shape):
-    """The kernel against its plain version computed in f32 from the same
-    inputs, with and without h0: y row by row within 1e-2 (bf16: one
-    rounding is 2^-8 of the row's scale) or 1e-4 (f32) of the row's scale,
-    the state within 1e-4 of its scale."""
-    B, S, H, P, N = shape
-    ins = _card_inputs(cuda_device, B, S, H, P, N, dtype)
-    f32 = [t.float() for t in ins]
-    y_tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
-    for h0 in (None, torch.randn((B, H, N, P), device=cuda_device)):
-        got = tssd.ssd_scan(*ins, chunk=chunk, h0=h0)
-        want = tref.ssd_scan(*f32, chunk=chunk, h0=h0)
-        torch.cuda.synchronize()
-        assert got[0].dtype == dtype and bool(torch.isfinite(got[0]).all())
-        ey, eh = _errs(got, want)
-        assert ey <= y_tol and eh <= 1e-4, (ey, eh)
-
-
-@pytest.mark.cuda
-def test_cuda_ssd_scan_without_carry_fails_the_check(cuda_device, tmp_path):
-    """A kernel that drops the state between chunks, built from the source
-    with the carry's one statement changed, must fail the check above."""
-    from repro_torch.kernels import _build
-    lib = tssd.bind(_build.build_variant("ssd_scan", [CARRY], tmp_path))
-    ins = _card_inputs(cuda_device, 1, 512, 8, 64, 128, torch.bfloat16)
-    got = tssd.launch(lib, *ins, 128, None)
-    want = tref.ssd_scan(*[t.float() for t in ins], chunk=128)
-    torch.cuda.synchronize()
-    ey, eh = _errs(got, want)
-    assert ey > 1e-2 and eh > 1e-4, (ey, eh)

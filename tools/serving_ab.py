@@ -1,0 +1,68 @@
+#!/usr/bin/env python3
+"""One serving phase of ``chip_smoke.py`` from several checkouts, in turns.
+
+Runs ``chip_smoke.serving`` (phase 9, mamba2-780m, by default; phase 8 with
+``--arch h2o-danube-1.8b``) once per checkout per round, each run in a
+process of its own, in the order A B B A A B ... for two checkouts.  Each
+run prints one JSON line: the checkout, the 6144-token prefill (one sample,
+the first prompt of its length in that engine), the prefill medians by
+prompt length and the decode-step p50, all in ms on the host clock.  The
+first line is the card's name and power limit.
+
+Run on a machine with an H100 and the CUDA toolkit, from the repository
+root, giving the checkouts' roots (a ``git archive`` of each, unpacked):
+``python3 tools/serving_ab.py [--arch A] [--rounds N] ROOT_A ROOT_B``
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+
+
+def child(root, arch):
+    sys.path.insert(0, root)
+    sys.path.insert(0, root + "/src")
+    import torch
+    import chip_smoke as cs
+    tag = "[9]" if arch == "mamba2-780m" else "[8]"
+    r = cs.serving(torch.device("cuda"), arch=arch, tag=tag)
+    print(json.dumps({"root": root, "arch": arch,
+                      "long_prompt_ms": r["long_prompt_ms"],
+                      "prefill_ms_by_len": r["prefill_ms_by_len"],
+                      "decode_ms_p50": r["decode_ms_p50"]}), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("roots", nargs="+")
+    ap.add_argument("--arch", default="mamba2-780m")
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--child", action="store_true")
+    a = ap.parse_args()
+    if a.child:
+        child(a.roots[0], a.arch)
+        return 0
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    rc = 0
+    for r in range(a.rounds):
+        for root in (a.roots if r % 2 == 0 else a.roots[::-1]):
+            p = subprocess.run([sys.executable, __file__, "--child",
+                                "--arch", a.arch, root],
+                               capture_output=True, text=True)
+            lines = [ln for ln in p.stdout.splitlines()
+                     if ln.startswith("{")]
+            if p.returncode or not lines:
+                print(f"{root}: rc {p.returncode}\n{p.stderr[-2000:]}",
+                      flush=True)
+                rc = 1
+            else:
+                print(lines[-1], flush=True)
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())
