@@ -10,11 +10,12 @@ card, through the seven hand-written CUDA kernels of ``kernels/csrc/``:
 
 1. device facts (``nvidia-smi`` name and power limit), TF32 off for float32
    products, the seven kernels built from the checkout's sources with
-   ``nvcc`` (one process per source, started together, beside three that
+   ``nvcc`` (one process per source, started together, beside four that
    build the ``MUTANTS``: ``ssd_scan.cu`` with its chunk hand-off's carry
    dropped,
    ``flash_attention.cu`` without its accumulator's rescale,
-   ``decode_attention.cu`` merging every split with weight 1), each
+   ``decode_attention.cu`` merging every split with weight 1,
+   ``attn_lstm_seq.cu`` copying stage 1 of the target just read), each
    kernel's registers and spills from ptxas;
 2. every kernel wrapper against its plain PyTorch version at the main
    paths' shapes and at edge shapes (f32 and bf16 for the decoder's
@@ -24,13 +25,17 @@ card, through the seven hand-written CUDA kernels of ``kernels/csrc/``:
    ``F.rms_norm``, ``scaled_dot_product_attention``), and its bound on an
    H100; the norm's host cost piece by piece at R=16, and both serving
    shapes on its vector kernel (``PATH_LAUNCHES``), the edges on the
-   kernel ``vector_path`` picks; the chunk scan on inputs whose decay
+   kernel ``vector_path`` picks; each attention-LSTM shape (the fits at
+   B=111 and B=591, the scalar PPA, the plane's forecast and refit, and
+   edges) on the path ``launch_plan`` names, with its shared memory held
+   against the library's, where the attention-LSTM mutant must fail the
+   plane's check; the chunk scan on inputs whose decay
    keeps the carried state alive, bf16 on its tensor-core path (each of
    its four kernels timed) and f32 on its CUDA-core kernel, where the scan
    without its carry must fail the same check; the bf16 serving shapes
    through flash's tensor-core kernel and decode's split kernel (its only
    kernel), where the flash and decode mutants must fail the bf16 bars;
-   the norm and the scan on a side stream;
+   the norm, the scan and the attention LSTM on a side stream;
 3. the paper-scale closed loop of examples/multizone_control.py: a 1800 s
    collection run, 7 per-target LSTM(50) fits on the card, ``FleetController``
    + ``Updater(FINETUNE)`` over 30 simulated minutes of NASA + Random Access;
@@ -40,11 +45,14 @@ card, through the seven hand-written CUDA kernels of ``kernels/csrc/``:
    times leave out; then, as a path of its own, the benchmark's legacy
    per-step lane on the plane's weights and last windows (one grouped
    ``lstm_cell`` launch a step) against ``lstm_seq_stacked``;
-5. phase 3 with ``AttnLSTMForecaster(window=8, hidden=50)`` in every zone;
-6. phase 4 with Z=4096 attn targets made from phase 5's model;
+5. phase 3 with ``AttnLSTMForecaster(window=8, hidden=50)`` in every zone
+   (fits ``row_blocked``, forecasts ``per_target``);
+6. phase 4 with Z=4096 attn targets made from phase 5's model (forecasts
+   ``per_target``, the refit ``row_blocked``);
 7. the paper's §5 harness (``core/experiments.py``): ``run_scenario`` with
    the scalar PPA and the attn forecaster against the reactive HPA on 30
-   simulated minutes of Random Access (tests/test_system.py on the card);
+   simulated minutes of Random Access (tests/test_system.py on the card;
+   fits ``row_blocked``, B=1 forecasts ``per_target``);
 8. examples/autoscale_serving.py at full width: ``DecodeEngine`` (16 slots x
    8192 positions) on h2o-danube-1.8b (24 layers, 1,835,133,440 seeded bf16
    parameters) serves 49 bursty requests through ``ContinuousBatcher`` (one
@@ -70,8 +78,9 @@ forecasting tick, a grouped forward a refit epoch, a shared forward a
 scalar PPA forecast, a cell launch a window step of the lane; 2 x 24 + 1
 norms and 24 attentions a prefill and a decode step of h2o-danube, 48 + 1
 norms a prefill and a decode step and 48 chunk scans a prefill of mamba2),
-and each kernel must have launched.  Any failed check raises, so the script
-exits non-zero.
+and each kernel must have launched; phases 3 to 7 also hold the attention
+LSTM's launches by path to the path's.  Any failed check raises, so the
+script exits non-zero.
 The last three lines are the kernels' JSON record, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
 
@@ -126,6 +135,7 @@ GRAD_TOL = 1e-4
 N_EDGE = 6
 ZONES = tuple(f"edge-{i}" for i in range(N_EDGE)) + ("cloud",)
 THRESHOLD = 350.0
+HARNESS_PRETRAIN_S = 600 * 15   # phase 7's pretraining run
 WINDOW, HIDDEN, M = 4, 50, 5
 ATTN_WINDOW = 8
 WINDOWS = {"lstm": WINDOW, "attn": ATTN_WINDOW}
@@ -146,8 +156,15 @@ KERNELS = {
 # tensor-core path) without the state carried into the next chunk, so each
 # chunk starts from its predecessor's own state alone; flash attention
 # without the accumulator's rescale when the running max moves; split
-# decode merging every split with weight 1 instead of exp(m_s - M)
+# decode merging every split with weight 1 instead of exp(m_s - M); the
+# attention LSTM's register kernel copying stage 1 of the target it has
+# just read, not of the next (the weight set's index not advanced), so
+# every target after a CTA's first runs LSTM-1 and its query with the
+# weights the buffer held before
 MUTANTS = {
+    "attn_lstm_seq": (
+        "issue_stage(L, n, 0, 4, it.weights(i + 1), sm, bulk_mask, bar_s1,",
+        "issue_stage(L, n, 0, 4, it.weights(i), sm, bulk_mask, bar_s1,"),
     "ssd_scan": ("const float decay = expf(tt[c0 + u]);",
                  "const float decay = 0.0f;"),
     "flash_attention": ("rescale_rows(o_acc, alpha[0], alpha[1]);",
@@ -159,9 +176,11 @@ MUTANTS = {
 KERNEL_SYMBOL = {
     "lstm_seq_grouped_kernel": ("lstm_seq", "lstm_seq_stacked",
                                 "lstm_seq_grouped"),
-    "attn_lstm_seq_grouped_kernel": ("attn_lstm_seq",
-                                     "attn_lstm_seq_stacked",
-                                     "attn_lstm_seq_grouped"),
+    # the register, tiled and general kernels (attn_lstm_seq_reg_kernel,
+    # attn_lstm_seq_tiled_kernel<RT>, attn_lstm_seq_general_kernel): one
+    # launch a call
+    "attn_lstm_seq_": ("attn_lstm_seq", "attn_lstm_seq_stacked",
+                       "attn_lstm_seq_grouped"),
     # both norm kernels: rmsnorm_vector_kernel and rmsnorm_general_kernel
     "rmsnorm_": ("rmsnorm",),
     # both flash kernels: flash_attention_bf16_tc_kernel (tensor cores) and
@@ -224,11 +243,14 @@ def launch_counts():
 
 
 def path_launches():
-    """Launches by kernel of the wrappers with more than one: flash
-    attention's and the chunk scan's bf16 tensor-core and f32 CUDA-core
-    paths, the norm's vector and general kernels."""
-    from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
-    return {"flash_attention": dict(flash_attention.PATH_LAUNCHES),
+    """Launches by kernel of the wrappers with more than one: the attention
+    LSTM's per-target, row-blocked and general paths, flash attention's and
+    the chunk scan's bf16 tensor-core and f32 CUDA-core paths, the norm's
+    vector and general kernels."""
+    from repro_torch.kernels import attn_lstm_seq, flash_attention, rmsnorm
+    from repro_torch.kernels import ssd_scan
+    return {"attn_lstm_seq": dict(attn_lstm_seq.PATH_LAUNCHES),
+            "flash_attention": dict(flash_attention.PATH_LAUNCHES),
             "rmsnorm": dict(rmsnorm.PATH_LAUNCHES),
             "ssd_scan": dict(ssd_scan.PATH_LAUNCHES)}
 
@@ -360,10 +382,11 @@ def device_facts():
         f"count {torch.cuda.device_count()}")
     log(f"[1] matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
-    from repro_torch.kernels import _build, decode_attention
+    from repro_torch.kernels import _build, attn_lstm_seq, decode_attention
     from repro_torch.kernels import flash_attention, ssd_scan
     binders = {"ssd_scan": ssd_scan.bind, "flash_attention":
-               flash_attention.bind, "decode_attention": decode_attention.bind}
+               flash_attention.bind, "decode_attention": decode_attention.bind,
+               "attn_lstm_seq": attn_lstm_seq.bind}
     t0 = time.perf_counter()
     # one nvcc a source and a mutant, all started together
     with ThreadPoolExecutor(len(KERNELS) + len(MUTANTS)) as pool:
@@ -446,18 +469,52 @@ def _params(gen, lead, M_, H, n_out, device, arch="lstm"):
             for s in shapes]
 
 
-def kernels_vs_plain(fit_batch, attn_fit_batch):
+def kernels_vs_plain(fit_batch, attn_fit_batch, harness_fit_batch,
+                     attn_mutant):
     """Each wrapper against its plain version at the main paths' shapes and
-    at edge shapes; times at the main paths' shapes."""
+    at edge shapes; times at the main paths' shapes; each attn shape on the
+    path its plan names, and ``attn_mutant`` failing the plane's check."""
     import torch
+    from repro_torch.kernels import _build
     from repro_torch.kernels import attn_lstm_seq as attn
     from repro_torch.kernels import lstm_seq as seq, ref
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     H, W, n_out = HIDDEN, WINDOW, M
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = attn._lib()
 
     def xs_of(*shape):
         return torch.randn(shape, generator=gen).to(dev)
+
+    def off_by_one(t):
+        """t's values in a view one float into a larger buffer: a base
+        address off 16 bytes."""
+        flat = torch.empty(t.numel() + 1, device=t.device)
+        v = flat[1:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    def attn_path_check(name, fn, N_, W_, H_, shared):
+        """One call of ``fn`` with the launch counts at 0 must launch once,
+        on the path its plan names, and the library's shared-memory figure
+        must equal the plan's.  Returns the plan."""
+        plan = attn.launch_plan(N_, W_, M, H_, n_out, shared)
+        attn.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in attn.PATH_LAUNCHES.items() if v}
+        check(got == {plan.path: 1},
+              f"{name}: launches by path {got}, not one on {plan.path}")
+        smem = {"general": lambda: lib.attn_lstm_seq_general_smem_bytes(
+                    M, H_, W_, n_out, plan.rows),
+                "reg": lambda: lib.attn_lstm_seq_reg_smem_bytes(
+                    M, H_, W_, n_out),
+                "tiled": lambda: lib.attn_lstm_seq_tiled_smem_bytes(
+                    M, H_, W_, n_out, plan.rows)}[plan.kernel]()
+        check(smem == plan.smem, f"{name}: the library's shared memory "
+              f"{smem} B != the plan's {plan.smem} B")
+        return plan
 
     records = {}
 
@@ -526,10 +583,11 @@ def kernels_vs_plain(fit_batch, attn_fit_batch):
                 bound(PLANE_Z, PLANE_Z, n_fit, W, M, H, n_out), iters=50)
 
         # --- the attention kernel at its paths' shapes: the fit batch of a
-        # 1800 s collection run at window 8, the scalar PPA's one window
-        # (B=1), the plane's per-target forecast and its refit forward.  No
-        # single PyTorch call computes the Attention-Double-LSTM, so it has
-        # no library yardstick.
+        # 1800 s collection run at window 8 (phase 5) and of the harness's
+        # pretraining run (phase 7), the scalar PPA's one window (B=1), the
+        # plane's per-target forecast and its refit forward.  No single
+        # PyTorch call computes the Attention-Double-LSTM, so it has no
+        # library yardstick.
         Wa_ = ATTN_WINDOW
         ap = _params(gen, (), M, H, n_out, dev, "attn")
         axs = xs_of(attn_fit_batch, Wa_, M)
@@ -537,6 +595,12 @@ def kernels_vs_plain(fit_batch, attn_fit_batch):
                 lambda: attn.attn_lstm_seq(*ap, axs),
                 lambda: ref.attn_lstm_seq(*ap, axs), None,
                 attn_bound(1, 1, attn_fit_batch, Wa_, M, H, n_out), iters=200)
+        hxs = xs_of(harness_fit_batch, Wa_, M)
+        records["attn_lstm_seq"]["harness_fit"] = timed(
+            "attn_lstm_seq", f"B={harness_fit_batch} W={Wa_} M={M} H={H}",
+            lambda: attn.attn_lstm_seq(*ap, hxs),
+            lambda: ref.attn_lstm_seq(*ap, hxs),
+            attn_bound(1, 1, harness_fit_batch, Wa_, M, H, n_out), iters=200)
         records["attn_lstm_seq"]["scalar_ppa"] = timed(
             "attn_lstm_seq", f"B=1 W={Wa_} M={M} H={H}",
             lambda: attn.attn_lstm_seq(*ap, axs[:1]),
@@ -559,6 +623,54 @@ def kernels_vs_plain(fit_batch, attn_fit_batch):
         log("[2] library yardstick for the attn rows: none -- no single "
             "PyTorch call computes the Attention-Double-LSTM (two LSTMs "
             "bridged by temporal attention)")
+        # each attn shape's path (one call, counted), its plan, the
+        # library's shared-memory figure against the plan's, and the
+        # registers and spills of the kernel it runs
+        ptxas = [ln for name, _, rep in _build.build_log
+                 if name == "attn_lstm_seq" for ln in ptxas_summary(rep)]
+        attn_paths = {}
+        for label, fn, G_, N_, shared in [
+                (f"B={attn_fit_batch}", lambda: attn.attn_lstm_seq(*ap, axs),
+                 1, attn_fit_batch, True),
+                (f"B={harness_fit_batch}",
+                 lambda: attn.attn_lstm_seq(*ap, hxs), 1, harness_fit_batch,
+                 True),
+                ("B=1", lambda: attn.attn_lstm_seq(*ap, axs[:1]), 1, 1, True),
+                (f"Z={PLANE_Z}",
+                 lambda: attn.attn_lstm_seq_stacked(*asp, azxs), PLANE_Z, 1,
+                 False),
+                (f"G={PLANE_Z} N={an_fit}",
+                 lambda: attn.attn_lstm_seq_grouped(*asp, agxs), PLANE_Z,
+                 an_fit, False)]:
+            plan = attn_path_check(label, fn, N_, Wa_, H, shared)
+            attn_paths[label] = plan.path
+            kname = {"reg": "attn_lstm_seq_reg_kernel",
+                     "tiled": f"attn_lstm_seq_tiled_kernel<{plan.rows}>",
+                     "general": "attn_lstm_seq_general_kernel"}[plan.kernel]
+            regs = next((ln for ln in ptxas if ln.startswith(kname + " ")),
+                        "(library built before this run)")
+            log(f"[2] attn {label}: path {plan.path}, {plan.kernel} kernel, "
+                f"{plan.rows} row(s) an item, {plan.threads} threads, "
+                f"{plan.smem} B of shared memory, "
+                f"{attn.launch_grid(plan, G_, N_, n_sm)} CTAs; ptxas: {regs}")
+        records["attn_lstm_seq"]["paths"] = attn_paths
+        # the mutant (stage 1 of the target just read) at the plane's shape
+        plan = attn.launch_plan(1, Wa_, M, H, n_out, False)
+        mout = torch.empty((PLANE_Z, 1, n_out), device=dev)
+        rc = attn.run(attn_mutant, plan,
+                      [t.data_ptr() for t in asp] + [azxs.data_ptr()],
+                      mout.data_ptr(), PLANE_Z, 1, Wa_, M, H, n_out, 0,
+                      torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"the attn mutant did not launch ({rc})")
+        torch.cuda.synchronize()
+        mut_err = float((mout[:, 0] - ref.attn_lstm_seq_stacked(
+            *asp, azxs)).abs().max())
+        check(mut_err > FWD_TOL, f"the attn mutant passes the Z={PLANE_Z} "
+              f"check: max_abs_err {mut_err} <= {FWD_TOL}")
+        records["attn_lstm_seq_stacked"]["mutant_max_abs_err"] = mut_err
+        log(f"[2] attn mutant (stage 1 of the target just read) at "
+            f"Z={PLANE_Z}: max_abs_err {mut_err:.3g} > {FWD_TOL}: fails, as "
+            f"it must")
 
         # --- edge shapes: empty, one row, a ragged row block, W=1, an H
         # that is not a multiple of 32, shared weights across groups
@@ -604,6 +716,40 @@ def kernels_vs_plain(fit_batch, attn_fit_batch):
             check(mod.LAUNCHES[shared.__name__] > 0,
                   f"{shared.__name__} never launched")
 
+        # --- attn edges of the new kernels, each on the path its plan
+        # names: distinct weights a target on grids where each CTA walks
+        # several, at odd H (Wa and Wo by 4-byte copies) and at small H
+        # (many CTAs an SM); the refit's tiled kernel on several targets a
+        # CTA; H beyond the register kernel (tiled) and beyond both
+        # (general); weights and windows one float off 16 bytes (every
+        # leaf by 4-byte copies)
+        for kind, G_, N_, W_, H_, off in [
+                ("stacked", 1000, 1, Wa_, 37, False),
+                ("stacked", 600, 1, 3, 8, False),
+                ("grouped", 300, an_fit, Wa_, 50, False),
+                ("shared", 1, 5, Wa_, 60, False),
+                ("shared", 1, 5, Wa_, 72, False),
+                ("stacked", 300, 1, Wa_, 50, True),
+                ("shared", 1, 17, Wa_, 50, True)]:
+            q = _params(gen, () if kind == "shared" else (G_,), M, H_, n_out,
+                        dev, "attn")
+            x = xs_of(*((N_,) if kind == "shared" else (G_, N_)
+                        if kind == "grouped" else (G_,)), W_, M)
+            if off:
+                q, x = [off_by_one(t) for t in q], off_by_one(x)
+            fn = {"shared": attn.attn_lstm_seq,
+                  "stacked": attn.attn_lstm_seq_stacked,
+                  "grouped": attn.attn_lstm_seq_grouped}[kind]
+            pl = {"shared": ref.attn_lstm_seq,
+                  "stacked": ref.attn_lstm_seq_stacked,
+                  "grouped": ref.attn_lstm_seq_grouped}[kind]
+            name = (f"attn {kind} G={G_} N={N_} W={W_} H={H_}"
+                    + (" off 16 B" if off else ""))
+            plan = attn_path_check(name, lambda: fn(*q, x), N_, W_, H_,
+                                   kind == "shared")
+            compare(f"{name} ({plan.kernel})", fn(*q, x), pl(*q, x))
+            edges += 1
+
     # --- gradients: the autograd.Function against autograd through plain
     y = xs_of(max(fit_batch, attn_fit_batch), n_out)
     for name, fn, pl, args in [
@@ -627,8 +773,9 @@ def kernels_vs_plain(fit_batch, attn_fit_batch):
     log(f"[2] {edges} edge shapes match their plain versions "
         f"(tol {FWD_TOL}); gradients within {GRAD_TOL}")
     for name, r in records.items():
-        for tag, rr in [("", r)] + ([(" (scalar PPA)", r["scalar_ppa"])]
-                                    if "scalar_ppa" in r else []):
+        for tag, rr in [("", r)] + [(f" ({k.replace('_', ' ')})", r[k])
+                                    for k in ("harness_fit", "scalar_ppa")
+                                    if k in r]:
             log(f"[2] {name}{tag} {rr['shape']}: kernel {rr['call_ms']:.4f} "
                 f"ms a call ({rr['kernel_ms']:.4f} ms on the device), plain "
                 f"{rr['plain_ms']:.4f} ms, library {rr['library_ms']}, bound "
@@ -1469,12 +1616,15 @@ def ssm_kernels_vs_plain(mutant):
 
 
 def side_stream_runs():
-    """The norm and the chunk scan at their serving shapes under
+    """The norm, the chunk scan and the attention LSTM (the register kernel
+    at the plane's per-target shape, the tiled one at the refit's) under
     ``torch.cuda.stream(side)``: their inputs are copied on the side stream
     behind long matrix products, so a launch on any other stream would read
     them unwritten; the outputs must equal the same calls on the default
-    stream (the norm finds its stream through a private PyTorch call)."""
+    stream (the norm and the attention LSTM find their stream through a
+    private PyTorch call)."""
     import torch
+    from repro_torch.kernels import attn_lstm_seq as ak
     from repro_torch.kernels import rmsnorm as rk, ssd_scan as sk
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(16)
@@ -1483,22 +1633,34 @@ def side_stream_runs():
     w = torch.randn((LLM_D_MODEL,), generator=gen).to(dev, torch.bfloat16)
     ins = ssd_inputs(gen, dev, 1, 512, SSM_HEADS, SSM_HEAD_DIM, SSM_STATE,
                      torch.bfloat16)
+    ap = _params(gen, (PLANE_Z,), M, HIDDEN, M, dev, "attn")
+    axs = torch.randn((PLANE_Z, ATTN_WINDOW, M), generator=gen).to(dev)
+    agxs = torch.randn((PLANE_Z, PLANE_FIT_ROWS - ATTN_WINDOW, ATTN_WINDOW,
+                        M), generator=gen).to(dev)
+
+    def calls(x, ins, axs, agxs):
+        return [rk.rmsnorm(x, w), *sk.ssd_scan(*ins, chunk=SSM_CHUNK),
+                ak.attn_lstm_seq_stacked(*ap, axs),
+                ak.attn_lstm_seq_grouped(*ap, agxs)]
+
     with torch.no_grad():
-        base = [rk.rmsnorm(x, w), *sk.ssd_scan(*ins, chunk=SSM_CHUNK)]
+        base = calls(x, ins, axs, agxs)
         torch.cuda.synchronize()
         side = torch.cuda.Stream()
         with torch.cuda.stream(side):
             a = torch.randn((4096, 4096), device=dev)
             for _ in range(20):
                 a = a @ a * 1e-2
-            xs, ins_s = x.clone(), [t.clone() for t in ins]
-            got = [rk.rmsnorm(xs, w), *sk.ssd_scan(*ins_s, chunk=SSM_CHUNK)]
+            got = calls(x.clone(), [t.clone() for t in ins], axs.clone(),
+                        agxs.clone())
         torch.cuda.synchronize()
     same = [bool(torch.equal(g, b)) for g, b in zip(got, base)]
-    check(all(same), f"a side stream's norm / scan y / scan state differ "
-          f"from the default stream's: equal {same}")
-    log("[2] the norm and the chunk scan on a side stream equal their "
-        "default-stream results bit for bit")
+    check(all(same), f"a side stream's norm / scan y / scan state / attn "
+          f"stacked / attn grouped differ from the default stream's: equal "
+          f"{same}")
+    log("[2] the norm, the chunk scan and the attention LSTM (per-target and "
+        "row-blocked) on a side stream equal their default-stream results "
+        "bit for bit")
 
 
 # --------------------------------------------------------------- phase 3 --
@@ -1584,6 +1746,7 @@ def closed_loop(device, minutes=30, epochs=60, arch="lstm", tag="[3]"):
     sim.run(tasks, ctrl, T, initial_replicas=2)
     t_loop = time.perf_counter() - t0
     launches = launch_counts()
+    paths = path_launches()["attn_lstm_seq"]
     check(ctrl.updater.n_updates == 0, "the closed loop refit unexpectedly")
     # one shared-weight forward an epoch of each fit, one stacked forecast
     # a forecasting tick, no refit, nothing of the other architecture
@@ -1591,6 +1754,11 @@ def closed_loop(device, minutes=30, epochs=60, arch="lstm", tag="[3]"):
     expect = dict.fromkeys(launches, 0)
     expect.update({shared: len(ZONES) * epochs,
                    stacked: forecast_ticks(ctrl)})
+    # attn: the fits (N=111 windows) row-blocked, the forecasts per target
+    expect_paths = dict.fromkeys(paths, 0)
+    if arch == "attn":
+        expect_paths.update(row_blocked=len(ZONES) * epochs,
+                            per_target=forecast_ticks(ctrl))
     log(f"{tag} {arch}: collection {t_collect:.2f} s ({len(pre['cloud'])} samples/zone)"
         f", 7 fits x {epochs} epochs {t_fit:.2f} s (edge-0 loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}), closed loop {t_loop:.2f} s "
@@ -1636,7 +1804,8 @@ def closed_loop(device, minutes=30, epochs=60, arch="lstm", tag="[3]"):
             "rir_cloud": sim.rir_stats(["cloud"])[0],
             "proactive_ticks": n_pred, "fit_batch": len(pre["cloud"]) - window,
             "fits_s": t_fit, "base_model": specs[0].model,
-            "launches": launches, "expect": expect}
+            "launches": launches, "expect": expect, "paths": paths,
+            "expect_paths": expect_paths}
 
 
 # --------------------------------------------------------------- phase 4 --
@@ -1716,6 +1885,7 @@ def plane_tick(device, base, Z=PLANE_Z, ticks=22, update_s=300.0,
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     launches = launch_counts()
+    paths = path_launches()["attn_lstm_seq"]
     check(refit_s is not None and updater.n_updates == Z,
           f"batched refit did not run for all {Z} targets")
     check(post_refit_k is not None and post_refit_k <= ticks
@@ -1730,6 +1900,11 @@ def plane_tick(device, base, Z=PLANE_Z, ticks=22, update_s=300.0,
     _, stacked_k, grouped_k = (k.__name__ for k in ARCH_KERNELS[arch])
     expect = dict.fromkeys(launches, 0)
     expect.update({stacked_k: n_fc, grouped_k: base.finetune_epochs})
+    # attn: the forecasts per target, the refit's N windows row-blocked
+    expect_paths = dict.fromkeys(paths, 0)
+    if arch == "attn":
+        expect_paths.update(per_target=n_fc,
+                            row_blocked=base.finetune_epochs)
     n_pred = sum(1 for n in names for d in ctrl.decisions(n) if d.predicted)
     check(n_pred > 0, "plane: no proactive decision")
     # the stacked forecast on the card against the plain version on the
@@ -1778,7 +1953,8 @@ def plane_tick(device, base, Z=PLANE_Z, ticks=22, update_s=300.0,
             "max_memory_allocated": mem,
             "profiled_busy_share": busy["busy_share"],
             "lane_inputs": (stacked, zs),
-            "launches": launches, "expect": expect}
+            "launches": launches, "expect": expect, "paths": paths,
+            "expect_paths": expect_paths}
 
 
 def cell_lane(stacked, zs):
@@ -1833,7 +2009,7 @@ def lane_path(device, stacked, zs, tag="[4]"):
 
 
 # --------------------------------------------------------------- phase 7 --
-def harness(device, minutes=30, pretrain_s=600 * 15, tag="[7]"):
+def harness(device, minutes=30, pretrain_s=HARNESS_PRETRAIN_S, tag="[7]"):
     """The paper's §5 protocol on the card (tests/test_system.py): pretrain
     series from a static-provisioning run, then ``run_scenario`` with the
     scalar PPA (one attn forecaster a zone, one B=1 shared-weight forecast a
@@ -1862,6 +2038,7 @@ def harness(device, minutes=30, pretrain_s=600 * 15, tag="[7]"):
     hpa = run_scenario(tasks, T, scaler="hpa", min_replicas=2)
     t_hpa = time.perf_counter() - t0
     launches = launch_counts()
+    paths = path_launches()["attn_lstm_seq"]
     check(launches == after_ppa, "the HPA arm launched a kernel")
     models = [p.model for p in ppa.ppas.values()]
     check(all(m.arch == "attn" and m.device == device for m in models),
@@ -1871,6 +2048,11 @@ def harness(device, minutes=30, pretrain_s=600 * 15, tag="[7]"):
     # forecast of each zone's scalar PPA; no update comes due in the run
     expect = dict.fromkeys(launches, 0)
     expect["attn_lstm_seq"] = (sum(m.epochs for m in models) + n_pred)
+    # the fits (N windows of the pretraining series) row-blocked, the
+    # scalar PPA's B=1 forecasts per target
+    expect_paths = dict.fromkeys(paths, 0)
+    expect_paths.update(row_blocked=sum(m.epochs for m in models),
+                        per_target=n_pred)
     check(all(m._fit_count == 1 for m in models), "a PPA model refit")
     shares = {z: float(np.mean([d.predicted for d in p.decisions]))
               for z, p in ppa.ppas.items()}
@@ -1890,7 +2072,9 @@ def harness(device, minutes=30, pretrain_s=600 * 15, tag="[7]"):
     for arm, d in summ.items():
         log(f"{tag} {arm} summary {json.dumps(d)}")
     return {"summary": summ, "proactive_share": shares,
-            "ppa_s": t_ppa, "launches": launches, "expect": expect}
+            "ppa_s": t_ppa, "fit_batch": len(pre["cloud"]) - ATTN_WINDOW,
+            "launches": launches, "expect": expect, "paths": paths,
+            "expect_paths": expect_paths}
 
 
 # --------------------------------------------------------------- phase 8 --
@@ -2358,7 +2542,10 @@ def main() -> int:
     smi_line, mutants = device_facts()
     n_rows = len(np.arange(15.0, 1800.0, 15.0))
     fit_batch, attn_fit_batch = n_rows - WINDOW, n_rows - ATTN_WINDOW
-    records = kernels_vs_plain(fit_batch, attn_fit_batch)
+    harness_fit_batch = (len(np.arange(15.0, HARNESS_PRETRAIN_S, 15.0))
+                         - ATTN_WINDOW)
+    records = kernels_vs_plain(fit_batch, attn_fit_batch, harness_fit_batch,
+                               mutants["attn_lstm_seq"])
     records.update(llm_kernels_vs_plain(mutants))
     records.update(ssm_kernels_vs_plain(mutants["ssd_scan"]))
     side_stream_runs()
@@ -2377,6 +2564,8 @@ def main() -> int:
     check(attn_plane["refit_n"] == PLANE_FIT_ROWS - ATTN_WINDOW,
           "attn refit N differs from phase 2")
     paper = harness(device)
+    check(paper["fit_batch"] == harness_fit_batch,
+          "harness fit batch differs from phase 2")
     serve = serving(device)
     check(serve["params"] == 1_835_133_440,
           f"h2o-danube-1.8b has {serve['params']} parameters")
@@ -2394,6 +2583,12 @@ def main() -> int:
         got, want = phase.pop("launches"), phase.pop("expect")
         log(f"{tag} launches {got}, the path's count {want}")
         check(got == want, f"{tag} launches {got} != {want}")
+        if "paths" in phase:
+            paths, want_paths = phase.pop("paths"), phase.pop("expect_paths")
+            log(f"{tag} attn launches by path {paths}, the path's "
+                f"{want_paths}")
+            check(paths == want_paths,
+                  f"{tag} attn paths {paths} != {want_paths}")
         for name, n in got.items():
             launches[name] = launches.get(name, 0) + n
     for name, n in launches.items():

@@ -97,11 +97,21 @@ def test_cuda_lstm_seq_matches_plain(cuda_device, G, N, W, H, shared):
                                             (1, 111, 8, 50, True),
                                             (1, 1, 8, 50, True),
                                             (8, 17, 1, 37, False),
-                                            (5, 12, 8, 8, True)])
+                                            (5, 12, 8, 8, True),
+                                            (4096, 1, 8, 50, False),
+                                            (1, 591, 8, 50, True),
+                                            (300, 1, 8, 37, False),
+                                            (1, 33, 8, 37, True),
+                                            (4, 12, 8, 37, False),
+                                            (3, 17, 8, 50, False)])
 def test_cuda_attn_lstm_seq_matches_plain(cuda_device, G, N, W, H, shared):
-    """The Attention-Double-LSTM kernel against its plain version: float32
-    sums over up to 2H=100 terms in another order, through two recurrences
-    and a softmax, so 1e-4 absolute."""
+    """The Attention-Double-LSTM kernels against their plain version:
+    float32 sums over up to 2H=100 terms in another order, through two
+    recurrences and a softmax, so 1e-4 absolute.  The cases take every
+    path: per target (the register kernel, at Z=4096 a CTA walks 31
+    targets), the fits (register kernel, B=111 and B=591), the refit's
+    tiled kernel (N=12 one item, N=17 ragged), odd H (Wa and Wo by 4-byte
+    copies) on each, and the general kernel's W=1 edge."""
     rng = np.random.default_rng(G + N)
     p = _on(_attn_params(rng, (1 if shared else G,), 5, H, 5), cuda_device)
     xs = torch.tensor(rng.normal(0, 1, (G, N, W, 5)).astype(np.float32),
@@ -128,6 +138,126 @@ def test_cuda_attn_lstm_seq_gradients_match_plain(cuda_device):
         grads.append(torch.autograd.grad(loss, leaves))
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
+def _attn_case(rng, dev, G, N, W, H, shared):
+    p = _on(_attn_params(rng, (1 if shared else G,), 5, H, 5), dev)
+    xs = torch.tensor(rng.normal(0, 1, (G, N, W, 5)).astype(np.float32),
+                      device=dev)
+    return p, xs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,N,shared", [(4096, 1, False), (4096, 12, False),
+                                        (1, 111, True), (1, 591, True),
+                                        (1, 1, True)])
+def test_cuda_attn_lstm_seq_takes_its_planned_path(cuda_device, G, N,
+                                                   shared):
+    """At the paths' shapes one call launches once, on the path and kernel
+    ``launch_plan`` names, whose shared memory equals the library's own
+    figure."""
+    plan = tattn.launch_plan(N, 8, 5, 50, 5, shared)
+    lib = tattn._lib()
+    smem = {"reg": lambda: lib.attn_lstm_seq_reg_smem_bytes(5, 50, 8, 5),
+            "tiled": lambda: lib.attn_lstm_seq_tiled_smem_bytes(
+                5, 50, 8, 5, plan.rows),
+            "general": lambda: lib.attn_lstm_seq_general_smem_bytes(
+                5, 50, 8, 5, plan.rows)}[plan.kernel]()
+    assert smem == plan.smem
+    p, xs = _attn_case(np.random.default_rng(G + N), cuda_device, G, N, 8,
+                       50, shared)
+    tattn.reset_launch_counts()
+    with torch.no_grad():
+        tattn.attn_lstm_seq_grouped(*p, xs)
+    torch.cuda.synchronize()
+    assert tattn.PATH_LAUNCHES == {**dict.fromkeys(tattn.PATH_LAUNCHES, 0),
+                                   plan.path: 1}
+
+
+@pytest.mark.cuda
+def test_cuda_attn_lstm_seq_runs_on_a_side_stream(cuda_device):
+    """Under ``torch.cuda.stream(s)`` the attention kernels launch on s
+    (the raw stream through a private PyTorch call): their windows are
+    written on s behind long matrix products, so a launch on another
+    stream would read them unwritten; per target (register kernel) and
+    the refit (tiled kernel) equal the default stream's, bit for bit."""
+    rng = np.random.default_rng(4)
+    p, xs = _attn_case(rng, cuda_device, 512, 12, 8, 50, False)
+    x1 = xs[:, 0].contiguous()
+    with torch.no_grad():
+        base = [tattn.attn_lstm_seq_stacked(*p, x1),
+                tattn.attn_lstm_seq_grouped(*p, xs)]
+        torch.cuda.synchronize()
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            a = torch.randn((4096, 4096), device=cuda_device)
+            for _ in range(20):
+                a = a @ a * 1e-2
+            got = [tattn.attn_lstm_seq_stacked(*p, x1.clone()),
+                   tattn.attn_lstm_seq_grouped(*p, xs.clone())]
+        torch.cuda.synchronize()
+    assert all(torch.equal(g, b) for g, b in zip(got, base))
+
+
+@pytest.mark.cuda
+def test_cuda_attn_lstm_seq_takes_views_off_16_bytes(cuda_device):
+    """Weights whose bases sit off 16 bytes (views one float into larger
+    buffers) go by 4-byte copies in place of bulk copies, and give the same
+    result, bit for bit, as the same values in fresh tensors."""
+    rng = np.random.default_rng(6)
+    p, xs = _attn_case(rng, cuda_device, 300, 1, 8, 50, False)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, device=t.device)
+        v = flat[1:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    views = [shifted(t) for t in p]
+    assert tattn.bulk_mask([t.data_ptr() for t in views],
+                           tattn.leaf_sizes(5, 50, 5)) == 0
+    x1 = xs[:, 0].contiguous()
+    with torch.no_grad():
+        got = tattn.attn_lstm_seq_stacked(*views, x1)
+        want = tattn.attn_lstm_seq_stacked(*p, x1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_attn_lstm_seq_rejects_a_leaf_on_another_device(cuda_device):
+    """A leaf on the CPU beside CUDA windows fails the one-pass check (its
+    device index differs) and raises in ``_check``, launching nothing."""
+    rng = np.random.default_rng(7)
+    p, xs = _attn_case(rng, cuda_device, 4, 1, 8, 50, False)
+    tattn.reset_launch_counts()
+    with pytest.raises(ValueError, match="more than one device"):
+        tattn.attn_lstm_seq_stacked(*p[:8], p[8].cpu(),
+                                    xs[:, 0].contiguous())
+    assert set(tattn.LAUNCHES.values()) == {0}
+
+
+@pytest.mark.cuda
+def test_cuda_attn_lstm_seq_mutant_fails_the_check(cuda_device, tmp_path):
+    """``chip_smoke.MUTANTS["attn_lstm_seq"]``, the source copying stage 1
+    of the target it has just read (the weight set's index not advanced),
+    must fail the plane's check: every target after a CTA's first runs
+    LSTM-1 with the weights the buffer held before."""
+    from repro_torch.kernels import _build
+    edit = _literal(ROOT / "chip_smoke.py", "MUTANTS")["attn_lstm_seq"]
+    lib = tattn.bind(_build.build_variant("attn_lstm_seq", [edit], tmp_path))
+    p, xs = _attn_case(np.random.default_rng(8), cuda_device, 4096, 1, 8, 50,
+                       False)
+    plan = tattn.launch_plan(1, 8, 5, 50, 5, False)
+    out = torch.empty((4096, 1, 5), device=cuda_device)
+    rc = tattn.run(lib, plan, [t.data_ptr() for t in p] + [xs.data_ptr()],
+                   out.data_ptr(), 4096, 1, 8, 5, 50, 5,
+                   torch.cuda.current_device(),
+                   torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    want = tref.attn_lstm_seq_grouped(*p, xs)
+    torch.cuda.synchronize()
+    assert float((out - want).abs().max()) > 1e-4
 
 
 def _cell_args(rng, lead, rows, In, H):

@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
-"""One serving phase of ``chip_smoke.py`` from several checkouts, in turns.
+"""Phases of ``chip_smoke.py`` from several checkouts, in turns.
 
 Runs ``chip_smoke.serving`` (phase 9, mamba2-780m, by default; phase 8 with
-``--arch h2o-danube-1.8b``) once per checkout per round, each run in a
-process of its own, in the order A B B A A B ... for two checkouts.  Each
-run prints one JSON line: the checkout, the 6144-token prefill (one sample,
-the first prompt of its length in that engine), the prefill medians by
-prompt length and the decode-step p50, all in ms on the host clock.  The
-first line is the card's name and power limit.
+``--arch h2o-danube-1.8b``), or with ``--arch attn`` the attention
+forecaster's phases 5-7 (``closed_loop``, ``plane_tick`` on its model,
+``harness``), once per checkout per round, each run in a process of its
+own, in the order A B B A A B ... for two checkouts.  Each run prints one
+JSON line: the checkout and, for serving, the 6144-token prefill (one
+sample, the first prompt of its length in that engine), the prefill
+medians by prompt length and the decode-step p50, all in ms on the host
+clock; for attn, phase 5's fits (s), phase 6's tick p50 and max (ms) and
+its batched refit (s), phase 7's PPA scenario (s).  The first line is the
+card's name and power limit.
 
 Run on a machine with an H100 and the CUDA toolkit, from the repository
 root, giving the checkouts' roots (a ``git archive`` of each, unpacked):
@@ -26,6 +30,19 @@ def child(root, arch):
     sys.path.insert(0, root + "/src")
     import torch
     import chip_smoke as cs
+    if arch == "attn":
+        dev = torch.device("cuda", 0)                   # as main() has it
+        torch.backends.cuda.matmul.allow_tf32 = False   # as phase 1 sets
+        loop = cs.closed_loop(dev, arch="attn", tag="[5]")
+        plane = cs.plane_tick(dev, loop.pop("base_model"), tag="[6]")
+        paper = cs.harness(dev)
+        print(json.dumps({"root": root, "arch": arch,
+                          "fits_s": loop["fits_s"],
+                          "tick_ms_p50": plane["tick_ms_p50"],
+                          "tick_ms_max": plane["tick_ms_max"],
+                          "refit_s": plane["refit_s"],
+                          "ppa_s": paper["ppa_s"]}), flush=True)
+        return
     tag = "[9]" if arch == "mamba2-780m" else "[8]"
     r = cs.serving(torch.device("cuda"), arch=arch, tag=tag)
     print(json.dumps({"root": root, "arch": arch,
