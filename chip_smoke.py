@@ -4,18 +4,19 @@
 Drives the port's main paths -- the paper's per-target LSTM and
 Attention-Double-LSTM closed loops, its PPA-vs-HPA harness, and the LLM
 decode engine the PPA scales, on the dense decoder and on mamba2 -- on the
-card, through the seven hand-written CUDA kernels of ``kernels/csrc/``:
-``lstm_seq.cu``, ``attn_lstm_seq.cu``, ``lstm_cell.cu``, ``rmsnorm.cu``,
-``flash_attention.cu``, ``decode_attention.cu`` and ``ssd_scan.cu``:
+card, through the hand-written CUDA kernels of the six sources of
+``kernels/csrc/``: ``lstm_seq.cu`` (the LSTM sequence and the one-step
+cell), ``attn_lstm_seq.cu``, ``rmsnorm.cu``, ``flash_attention.cu``,
+``decode_attention.cu`` and ``ssd_scan.cu``:
 
 1. device facts (``nvidia-smi`` name and power limit), TF32 off for float32
-   products, the seven kernels built from the checkout's sources with
-   ``nvcc`` (one process per source, started together, beside four that
-   build the ``MUTANTS``: ``ssd_scan.cu`` with its chunk hand-off's carry
-   dropped,
+   products, the six sources built from the checkout with ``nvcc`` (one
+   process per source, started together, beside five that build the
+   ``MUTANTS``: ``ssd_scan.cu`` with its chunk hand-off's carry dropped,
    ``flash_attention.cu`` without its accumulator's rescale,
    ``decode_attention.cu`` merging every split with weight 1,
-   ``attn_lstm_seq.cu`` copying stage 1 of the target just read), each
+   ``attn_lstm_seq.cu`` copying stage 1 of the target just read,
+   ``lstm_seq.cu`` copying the weights of the target just read), each
    kernel's registers and spills from ptxas;
 2. every kernel wrapper against its plain PyTorch version at the main
    paths' shapes and at edge shapes (f32 and bf16 for the decoder's
@@ -25,17 +26,20 @@ card, through the seven hand-written CUDA kernels of ``kernels/csrc/``:
    ``F.rms_norm``, ``scaled_dot_product_attention``), and its bound on an
    H100; the norm's host cost piece by piece at R=16, and both serving
    shapes on its vector kernel (``PATH_LAUNCHES``), the edges on the
-   kernel ``vector_path`` picks; each attention-LSTM shape (the fits at
-   B=111 and B=591, the scalar PPA, the plane's forecast and refit, and
-   edges) on the path ``launch_plan`` names, with its shared memory held
-   against the library's, where the attention-LSTM mutant must fail the
-   plane's check; the chunk scan on inputs whose decay
+   kernel ``vector_path`` picks; each LSTM and attention-LSTM shape (the
+   fits, the scalar PPA, the plane's forecast and refit, the cell's lane
+   and shared forms, and edges) on the path its ``launch_plan`` names,
+   with its shared memory held against the library's, every forced plan
+   of the LSTM against the plain version, the fit's call timed with and
+   without a gradient and the cell's call in turns with
+   ``torch.lstm_cell``, where each LSTM mutant must fail the plane's
+   check; the chunk scan on inputs whose decay
    keeps the carried state alive, bf16 on its tensor-core path (each of
    its four kernels timed) and f32 on its CUDA-core kernel, where the scan
    without its carry must fail the same check; the bf16 serving shapes
    through flash's tensor-core kernel and decode's split kernel (its only
    kernel), where the flash and decode mutants must fail the bf16 bars;
-   the norm, the scan and the attention LSTM on a side stream;
+   the norm, the scan and both LSTMs on a side stream;
 3. the paper-scale closed loop of examples/multizone_control.py: a 1800 s
    collection run, 7 per-target LSTM(50) fits on the card, ``FleetController``
    + ``Updater(FINETUNE)`` over 30 simulated minutes of NASA + Random Access;
@@ -78,9 +82,9 @@ forecasting tick, a grouped forward a refit epoch, a shared forward a
 scalar PPA forecast, a cell launch a window step of the lane; 2 x 24 + 1
 norms and 24 attentions a prefill and a decode step of h2o-danube, 48 + 1
 norms a prefill and a decode step and 48 chunk scans a prefill of mamba2),
-and each kernel must have launched; phases 3 to 7 also hold the attention
-LSTM's launches by path to the path's.  Any failed check raises, so the
-script exits non-zero.
+and each kernel must have launched; phases 3 to 9 and the lane also hold
+both LSTMs' launches by path (``PATH_LAUNCHES``) to the path's.  Any
+failed check raises, so the script exits non-zero.
 The last three lines are the kernels' JSON record, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
 
@@ -148,7 +152,6 @@ KERNELS = {
     "rmsnorm": "src/repro_torch/kernels/csrc/rmsnorm.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
-    "lstm_cell": "src/repro_torch/kernels/csrc/lstm_cell.cu",
     "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
 # phase 2's mutants, each a one-statement edit of a source that must fail
@@ -160,8 +163,13 @@ KERNELS = {
 # attention LSTM's register kernel copying stage 1 of the target it has
 # just read, not of the next (the weight set's index not advanced), so
 # every target after a CTA's first runs LSTM-1 and its query with the
-# weights the buffer held before
+# weights the buffer held before; the LSTM's register kernel likewise
+# refilling a slot with the weights of the target it has just read, so
+# every target after a CTA's first `slots` runs on an earlier target's
 MUTANTS = {
+    "lstm_seq": (
+        "issue_stage(L, n, NL, it.weights(i + slots), st, bulk_mask,",
+        "issue_stage(L, n, NL, it.weights(i), st, bulk_mask,"),
     "attn_lstm_seq": (
         "issue_stage(L, n, 0, 4, it.weights(i + 1), sm, bulk_mask, bar_s1,",
         "issue_stage(L, n, 0, 4, it.weights(i), sm, bulk_mask, bar_s1,"),
@@ -174,8 +182,14 @@ MUTANTS = {
         "const float w = ms == -INFINITY ? 0.0f : 1.0f;"),
 }
 KERNEL_SYMBOL = {
-    "lstm_seq_grouped_kernel": ("lstm_seq", "lstm_seq_stacked",
-                                "lstm_seq_grouped"),
+    # the register, tiled and general kernels (lstm_seq_grouped_reg_kernel,
+    # lstm_seq_grouped_tiled_kernel<RT>, lstm_seq_grouped_general_kernel):
+    # one launch a call
+    "lstm_seq_grouped_": ("lstm_seq", "lstm_seq_stacked",
+                          "lstm_seq_grouped"),
+    # the cell on the same source's register kernel (one-step entry) or its
+    # general kernel
+    "lstm_cell_grouped_": ("lstm_cell",),
     # the register, tiled and general kernels (attn_lstm_seq_reg_kernel,
     # attn_lstm_seq_tiled_kernel<RT>, attn_lstm_seq_general_kernel): one
     # launch a call
@@ -187,7 +201,6 @@ KERNEL_SYMBOL = {
     # flash_attention_f32_kernel (CUDA cores); decode is one launch a call
     "flash_attention_": ("flash_attention",),
     "decode_attention_split_kernel": ("decode_attention",),
-    "lstm_cell_grouped_kernel": ("lstm_cell",),
     # the tensor-core path's four kernels (ssd_scan_cb_kernel,
     # ssd_scan_state_kernel, ssd_scan_pass_kernel, ssd_scan_out_kernel) and
     # the f32 path's ssd_scan_kernel: a call's time is their sum
@@ -215,6 +228,8 @@ def symbol_of(wrapper):
 
 
 def source_of(wrapper):
+    """The source of a wrapper's kernels: the LSTM's wrappers and the cell
+    share ``lstm_seq.cu``, the attention LSTM's ``attn_lstm_seq.cu``."""
     if wrapper in KERNELS:
         return KERNELS[wrapper]
     return KERNELS["attn_lstm_seq" if wrapper.startswith("attn")
@@ -243,16 +258,34 @@ def launch_counts():
 
 
 def path_launches():
-    """Launches by kernel of the wrappers with more than one: the attention
-    LSTM's per-target, row-blocked and general paths, flash attention's and
-    the chunk scan's bf16 tensor-core and f32 CUDA-core paths, the norm's
-    vector and general kernels."""
-    from repro_torch.kernels import attn_lstm_seq, flash_attention, rmsnorm
-    from repro_torch.kernels import ssd_scan
-    return {"attn_lstm_seq": dict(attn_lstm_seq.PATH_LAUNCHES),
+    """Launches by kernel of the wrappers with more than one: both LSTMs'
+    per-target, row-blocked and general paths (the LSTM's with the cell's),
+    flash attention's and the chunk scan's bf16 tensor-core and f32
+    CUDA-core paths, the norm's vector and general kernels."""
+    from repro_torch.kernels import attn_lstm_seq, flash_attention, lstm_seq
+    from repro_torch.kernels import rmsnorm, ssd_scan
+    return {"lstm_seq": dict(lstm_seq.PATH_LAUNCHES),
+            "attn_lstm_seq": dict(attn_lstm_seq.PATH_LAUNCHES),
             "flash_attention": dict(flash_attention.PATH_LAUNCHES),
             "rmsnorm": dict(rmsnorm.PATH_LAUNCHES),
             "ssd_scan": dict(ssd_scan.PATH_LAUNCHES)}
+
+
+def lstm_paths():
+    """Both LSTMs' launches by path: the LSTM's (with the cell's) and the
+    attention LSTM's."""
+    pl = path_launches()
+    return {k: pl[k] for k in ("lstm_seq", "attn_lstm_seq")}
+
+
+def expect_lstm_paths(**by_kernel):
+    """The launches by path a path must make: 0 everywhere but where
+    ``by_kernel`` gives counts (``lstm_seq=dict(per_target=4)``)."""
+    out = {k: {"per_target": 0, "row_blocked": 0, "general": 0}
+           for k in ("lstm_seq", "attn_lstm_seq")}
+    for k, v in by_kernel.items():
+        out[k].update(v)
+    return out
 
 
 def attn_row_err(got, want):
@@ -294,16 +327,23 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def kernel_split_ms(fn, symbol, iters=50):
+def kernel_split_ms(fn, symbol, iters=50, tries=3):
     """Device time per call of each kernel whose name holds ``symbol``,
     from the profiler's device events over ``iters`` calls (no host time
-    in it), by the kernel's name without its namespace and parameters."""
+    in it), by the kernel's name without its namespace and parameters.
+    A window in which the profiler delivered fewer than ``iters`` such
+    events (it drops some now and then, which would understate the time)
+    is taken again, up to ``tries`` times."""
     import torch
-    fn()
-    prof = profile_start(torch.device("cuda"))
-    for _ in range(iters):
+    for _ in range(tries):
         fn()
-    res = profile_stop(prof, torch.device("cuda"))
+        prof = profile_start(torch.device("cuda"))
+        for _ in range(iters):
+            fn()
+        res = profile_stop(prof, torch.device("cuda"))
+        if sum(c for n, c in res["count_by_name"].items()
+               if symbol in n) >= iters:
+            break
     split = {}
     for n, v in res["by_name"].items():
         if symbol in n:
@@ -383,10 +423,10 @@ def device_facts():
     log(f"[1] matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     from repro_torch.kernels import _build, attn_lstm_seq, decode_attention
-    from repro_torch.kernels import flash_attention, ssd_scan
+    from repro_torch.kernels import flash_attention, lstm_seq, ssd_scan
     binders = {"ssd_scan": ssd_scan.bind, "flash_attention":
                flash_attention.bind, "decode_attention": decode_attention.bind,
-               "attn_lstm_seq": attn_lstm_seq.bind}
+               "attn_lstm_seq": attn_lstm_seq.bind, "lstm_seq": lstm_seq.bind}
     t0 = time.perf_counter()
     # one nvcc a source and a mutant, all started together
     with ThreadPoolExecutor(len(KERNELS) + len(MUTANTS)) as pool:
@@ -469,11 +509,29 @@ def _params(gen, lead, M_, H, n_out, device, arch="lstm"):
             for s in shapes]
 
 
+def lstm_smem(lib, plan, W, M_, H, n_out):
+    """The shared memory the LSTM library gives a CTA of the kernel
+    ``plan`` names (the cell's: ``plan.cell``, M_ its In)."""
+    if plan.kernel == "general":
+        return (lib.lstm_cell_general_smem_bytes(M_, H, plan.rows)
+                if plan.cell else
+                lib.lstm_seq_general_smem_bytes(M_, H, n_out, plan.rows))
+    if plan.kernel == "reg":
+        return lib.lstm_seq_reg_smem_bytes(
+            M_, H, 1 if plan.cell else W, 0 if plan.cell else n_out,
+            plan.slots, int(plan.cell))
+    return lib.lstm_seq_tiled_smem_bytes(M_, H, W, n_out,
+                                         plan.rows * plan.groups, plan.slots)
+
+
 def kernels_vs_plain(fit_batch, attn_fit_batch, harness_fit_batch,
-                     attn_mutant):
+                     attn_mutant, lstm_mutant):
     """Each wrapper against its plain version at the main paths' shapes and
-    at edge shapes; times at the main paths' shapes; each attn shape on the
-    path its plan names, and ``attn_mutant`` failing the plane's check."""
+    at edge shapes; times at the main paths' shapes; each LSTM and attn
+    shape on the path its plan names, every forced plan of the LSTM
+    against the plain version, and ``lstm_mutant`` and ``attn_mutant``
+    failing the plane's check."""
+    import numpy as np
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import attn_lstm_seq as attn
@@ -483,6 +541,8 @@ def kernels_vs_plain(fit_batch, attn_fit_batch, harness_fit_batch,
     H, W, n_out = HIDDEN, WINDOW, M
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     lib = attn._lib()
+    slib = seq._lib()
+    stream = torch.cuda.current_stream().cuda_stream
 
     def xs_of(*shape):
         return torch.randn(shape, generator=gen).to(dev)
@@ -514,6 +574,22 @@ def kernels_vs_plain(fit_batch, attn_fit_batch, harness_fit_batch,
                     M, H_, W_, n_out, plan.rows)}[plan.kernel]()
         check(smem == plan.smem, f"{name}: the library's shared memory "
               f"{smem} B != the plan's {plan.smem} B")
+        return plan
+
+    def lstm_path_check(name, fn, N_, W_, M_, H_, shared):
+        """``attn_path_check`` for the LSTM: one call of ``fn`` launches
+        once, on the path its plan names, with the library's shared-memory
+        figure equal to the plan's.  Returns the plan."""
+        plan = seq.launch_plan(N_, W_, M_, H_, n_out, shared)
+        seq.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in seq.PATH_LAUNCHES.items() if v}
+        check(got == {plan.path: 1},
+              f"{name}: launches by path {got}, not one on {plan.path}")
+        check(lstm_smem(slib, plan, W_, M_, H_, n_out) == plan.smem,
+              f"{name}: the library's shared memory differs from the "
+              f"plan's {plan.smem} B")
         return plan
 
     records = {}
@@ -581,6 +657,103 @@ def kernels_vs_plain(fit_batch, attn_fit_batch, harness_fit_batch,
                 lambda: seq.lstm_seq_grouped(*sp, gxs),
                 lambda: ref.lstm_seq_grouped(*sp, gxs), None,
                 bound(PLANE_Z, PLANE_Z, n_fit, W, M, H, n_out), iters=50)
+        # a forecast of one window (the serving PPA's)
+        records["lstm_seq"]["forecast"] = timed(
+            "lstm_seq", f"B=1 W={W} M={M} H={H}",
+            lambda: seq.lstm_seq(*p, xs[:1]), lambda: ref.lstm_seq(*p, xs[:1]),
+            bound(1, 1, 1, W, M, H, n_out), iters=200)
+        # each LSTM shape's path (one call, counted), its plan, the
+        # library's shared-memory figure against the plan's, the kernel
+        # the profiler sees run, the registers and spills of that kernel;
+        # then every forced plan at the shape against the plain version
+        ptxas = [ln for name, _, rep in _build.build_log
+                 if name == "lstm_seq" for ln in ptxas_summary(rep)]
+        lstm_paths_ = {}
+        forced = {"reg": [dict(kernel="reg", slots=s_)
+                          for s_ in range(1, seq.MAX_SLOTS + 1)],
+                  "tiled": [dict(kernel="tiled", rows=r_)
+                            for r_ in seq.TILED_ROWS],
+                  "general": [dict(kernel="general")]}
+        for label, fn, G_, N_, ws_, x_ in [
+                (f"B={fit_batch}", lambda: seq.lstm_seq(*p, xs), 1,
+                 fit_batch, p, xs),
+                ("B=1", lambda: seq.lstm_seq(*p, xs[:1]), 1, 1, p, xs[:1]),
+                (f"Z={PLANE_Z}", lambda: seq.lstm_seq_stacked(*sp, zxs),
+                 PLANE_Z, 1, sp, zxs),
+                (f"G={PLANE_Z} N={n_fit}",
+                 lambda: seq.lstm_seq_grouped(*sp, gxs), PLANE_Z, n_fit, sp,
+                 gxs)]:
+            shared = len(ws_[1].shape) == 2
+            plan = lstm_path_check(label, fn, N_, W, M, H, shared)
+            lstm_paths_[label] = plan.path
+            kname = {"reg": "lstm_seq_grouped_reg_kernel",
+                     "tiled": f"lstm_seq_grouped_tiled_kernel<{plan.rows}>",
+                     "general": "lstm_seq_grouped_general_kernel"}[
+                         plan.kernel]
+            regs = next((ln for ln in ptxas if ln.startswith(kname + " ")),
+                        "(library built before this run)")
+            ran = set(kernel_split_ms(fn, symbol_of("lstm_seq"), 3))
+            check(ran == {kname}, f"lstm {label}: the profiler saw {ran}, "
+                  f"not the planned {kname}")
+            log(f"[2] lstm {label}: path {plan.path}, {plan.kernel} kernel, "
+                f"{plan.rows} x {plan.groups} row(s), {plan.slots} slot(s), "
+                f"{plan.threads} threads, {plan.smem} B of shared memory, "
+                f"{seq.launch_grid(plan, G_, N_, n_sm)} CTAs; ptxas: {regs}")
+            gws = [w[None] for w in ws_] if shared else list(ws_)
+            gx = x_.reshape(G_, N_, W, M)
+            want = ref.lstm_seq_grouped(*gws, gx)
+            errs = {}
+            for f in [x for xs_ in forced.values() for x in xs_]:
+                fp = seq.launch_plan(N_, W, M, H, n_out, shared, **f)
+                out = torch.empty((G_, N_, n_out), device=dev)
+                rc = seq.run(slib, fp, [t.data_ptr() for t in gws]
+                             + [gx.data_ptr()], out.data_ptr(), G_, N_, W, M,
+                             H, n_out, 0, stream)
+                check(rc == 0, f"lstm {label} {f}: launch failed ({rc})")
+                tag = ",".join(f"{k}={v}" for k, v in f.items())
+                errs[tag] = compare(f"lstm {label} forced {tag}", out, want)
+            log(f"[2] lstm {label}: every forced plan against the plain "
+                f"version, max_abs_err {errs}")
+        records["lstm_seq"]["paths"] = lstm_paths_
+        # the fit's call with a gradient wanted: the autograd.Function
+        # around the same launch (the forward only), in turns with the
+        # lean call without one
+        pg = [t.clone().requires_grad_(True) for t in p]
+        with torch.enable_grad():
+            plan = lstm_path_check(f"B={fit_batch} with grad",
+                                   lambda: seq.lstm_seq(*pg, xs), fit_batch,
+                                   W, M, H, True)
+            lean, grad = [], []
+            for r_ in range(9):
+                pair = [(lean, lambda: seq.lstm_seq(*p, xs)),
+                        (grad, lambda: seq.lstm_seq(*pg, xs))]
+                for acc, fn in (pair if r_ % 2 == 0 else pair[::-1]):
+                    with torch.set_grad_enabled(acc is grad):
+                        acc.append(time_ms(fn, 200))
+        records["lstm_seq"]["call_ms_no_grad_rounds"] = lean
+        records["lstm_seq"]["call_ms_grad_rounds"] = grad
+        records["lstm_seq"]["host_us"] = lstm_host_costs(p, xs)
+        log(f"[2] lstm_seq B={fit_batch} call, medians of 9 rounds in turns: "
+            f"without grad {float(np.median(lean)):.4f} ms, with grad "
+            f"(forward) {float(np.median(grad)):.4f} ms; host us by piece "
+            f"(medians) {records['lstm_seq']['host_us']}")
+        # the mutant (the weights of the target just read) at the plane's
+        # shape
+        plan = seq.launch_plan(1, W, M, H, n_out, False)
+        mout = torch.empty((PLANE_Z, 1, n_out), device=dev)
+        rc = seq.run(lstm_mutant, plan,
+                     [t.data_ptr() for t in sp] + [zxs.data_ptr()],
+                     mout.data_ptr(), PLANE_Z, 1, W, M, H, n_out, 0, stream)
+        check(rc == 0, f"the lstm mutant did not launch ({rc})")
+        torch.cuda.synchronize()
+        mut_err = float((mout[:, 0] - ref.lstm_seq_stacked(
+            *sp, zxs)).abs().max())
+        check(mut_err > FWD_TOL, f"the lstm mutant passes the Z={PLANE_Z} "
+              f"check: max_abs_err {mut_err} <= {FWD_TOL}")
+        records["lstm_seq_stacked"]["mutant_max_abs_err"] = mut_err
+        log(f"[2] lstm mutant (the weights of the target just read) at "
+            f"Z={PLANE_Z}: max_abs_err {mut_err:.3g} > {FWD_TOL}: fails, as "
+            f"it must")
 
         # --- the attention kernel at its paths' shapes: the fit batch of a
         # 1800 s collection run at window 8 (phase 5) and of the harness's
@@ -716,6 +889,40 @@ def kernels_vs_plain(fit_batch, attn_fit_batch, harness_fit_batch,
             check(mod.LAUNCHES[shared.__name__] > 0,
                   f"{shared.__name__} never launched")
 
+        # --- LSTM edges of the new kernels, each on the path its plan
+        # names: a ragged row block at odd H, several targets a CTA, H=1,
+        # one row of one group, H=52 (the widest the new kernels take, M=4
+        # for the register kernel), H=64 (the general kernel), weights and
+        # windows one float off 16 bytes (every leaf by 4-byte copies)
+        for kind, G_, N_, M_, H_, off in [
+                ("grouped", 4, 33, M, 37, False),
+                ("grouped", 600, n_fit, M, 50, False),
+                ("stacked", 700, 1, M, 1, False),
+                ("shared", 1, 1, M, 50, False),
+                ("stacked", 300, 1, 4, 52, False),
+                ("grouped", 3, 7, M, 52, False),
+                ("shared", 1, 9, M, 64, False),
+                ("stacked", 300, 1, M, 50, True),
+                ("grouped", 50, n_fit, M, 50, True),
+                ("shared", 1, 17, M, 50, True)]:
+            q = _params(gen, () if kind == "shared" else (G_,), M_, H_,
+                        n_out, dev)
+            x = xs_of(*((N_,) if kind == "shared" else (G_, N_)
+                        if kind == "grouped" else (G_,)), W, M_)
+            if off:
+                q, x = [off_by_one(t) for t in q], off_by_one(x)
+            fn = {"shared": seq.lstm_seq, "stacked": seq.lstm_seq_stacked,
+                  "grouped": seq.lstm_seq_grouped}[kind]
+            pl = {"shared": ref.lstm_seq, "stacked": ref.lstm_seq_stacked,
+                  "grouped": ref.lstm_seq_grouped}[kind]
+            name = (f"lstm {kind} G={G_} N={N_} M={M_} H={H_}"
+                    + (" off 16 B" if off else ""))
+            plan = lstm_path_check(name, lambda: fn(*q, x),
+                                   1 if kind == "stacked" else N_, W, M_, H_,
+                                   kind == "shared")
+            compare(f"{name} ({plan.kernel})", fn(*q, x), pl(*q, x))
+            edges += 1
+
         # --- attn edges of the new kernels, each on the path its plan
         # names: distinct weights a target on grids where each CTA walks
         # several, at odd H (Wa and Wo by 4-byte copies) and at small H
@@ -774,7 +981,8 @@ def kernels_vs_plain(fit_batch, attn_fit_batch, harness_fit_batch,
         f"(tol {FWD_TOL}); gradients within {GRAD_TOL}")
     for name, r in records.items():
         for tag, rr in [("", r)] + [(f" ({k.replace('_', ' ')})", r[k])
-                                    for k in ("harness_fit", "scalar_ppa")
+                                    for k in ("harness_fit", "scalar_ppa",
+                                              "forecast")
                                     if k in r]:
             log(f"[2] {name}{tag} {rr['shape']}: kernel {rr['call_ms']:.4f} "
                 f"ms a call ({rr['kernel_ms']:.4f} ms on the device), plain "
@@ -872,6 +1080,55 @@ def rmsnorm_host_costs(x, w, n=HOST_COST_CALLS, eps=1e-6):
         for name in (order if b % 2 == 0 else order[::-1]):
             sample(calls[name], n // 10, samples[name])
     for name, ts in samples.items():
+        costs[name] = round(statistics.median(ts) / 1e3, 3)
+    return costs
+
+
+def lstm_host_costs(ws, xs, n=HOST_COST_CALLS):
+    """Median host time (us) of each piece of the lean ``lstm_seq`` call
+    on these CUDA inputs (shared weights ``ws``, windows xs (B, W, M)): the
+    one-pass check, the output's ``new_empty``, the plan lookup, the data
+    pointers, the private device and raw-stream lookups, ``run`` (the
+    bulk mask, the grid and the ctypes call with its launch), and the
+    whole call; each timed alone over ``n`` calls on the host clock, the
+    stream drained every 200 calls."""
+    import statistics
+    import torch
+    from repro_torch.kernels import lstm_seq as seq
+    B, W, M_ = xs.shape
+    H, n_out = ws[1].shape[0], ws[3].shape[1]
+    lib = seq.bound_lib()
+    plan = seq.plan_of(B, W, M_, H, n_out, True)
+    out = xs.new_empty((B, n_out))
+    ptrs = [t.data_ptr() for t in ws] + [xs.data_ptr()]
+    idx = xs.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    pieces = {
+        "one-pass check": lambda: seq._lean(ws, xs, 0),
+        "new_empty": lambda: xs.new_empty((B, n_out)),
+        "plan lookup": lambda: seq.plan_of(B, W, M_, H, n_out, True),
+        "data pointers": lambda: [t.data_ptr() for t in ws]
+        + [xs.data_ptr()],
+        "device and raw stream": lambda: torch._C._cuda_getCurrentRawStream(
+            torch._C._cuda_getDevice()),
+        "run: mask, grid, ctypes call + launch": lambda: seq.run(
+            lib, plan, ptrs, out.data_ptr(), 1, B, W, M_, H, n_out, idx,
+            stream),
+        "whole call": lambda: seq.lstm_seq(*ws, xs),
+    }
+    costs = {}
+    for name, fn in pieces.items():
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        ts = []
+        for i in range(n):
+            t0 = time.perf_counter_ns()
+            fn()
+            ts.append(time.perf_counter_ns() - t0)
+            if i % 200 == 199:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
         costs[name] = round(statistics.median(ts) / 1e3, 3)
     return costs
 
@@ -1412,11 +1669,13 @@ def ssm_kernels_vs_plain(mutant):
     tokens) and at edge shapes, with the carry kept alive; the kernel
     without its carry (``mutant``) on the 512-token inputs, which must fail
     the same check; the LSTM cell at the Pallas test shapes (shared
-    weights, beside ``torch.lstm_cell``) and at the lane's G=4096 targets,
-    one row each.  Times at the paths' shapes beside bounds, plain versions
+    weights, its call in turns with ``torch.lstm_cell``) and at the lane's
+    G=4096 targets, one row each, and at edge shapes, each on the path its
+    plan names.  Times at the paths' shapes beside bounds, plain versions
     and library calls."""
+    import numpy as np
     import torch
-    from repro_torch.kernels import lstm_cell as ck
+    from repro_torch.kernels import lstm_cell as ck, lstm_seq as seq
     from repro_torch.kernels import ref, ssd_scan as sk
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(14)
@@ -1533,7 +1792,36 @@ def ssm_kernels_vs_plain(mutant):
                 [torch.randn(rows + (n,), generator=gen).to(dev)
                  for n in (H_, H_, In)]
 
+        slib = seq._lib()
+
+        def cell_path(name, args, N_, In, H_, shared):
+            """One cell call with the counts at 0 launches once, on the
+            path its plan names, with the library's shared-memory figure
+            equal to the plan's, and the profiler sees the plan's kernel
+            run; returns the plan."""
+            plan = seq.launch_plan(N_, 1, In, H_, 0, shared, cell=True)
+            seq.reset_launch_counts()
+            ck.reset_launch_counts()
+            ck.lstm_cell(*args)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in seq.PATH_LAUNCHES.items() if v}
+            check(got == {plan.path: 1} and ck.LAUNCHES["lstm_cell"] == 1,
+                  f"{name}: launches by path {got}, not one on {plan.path}")
+            check(lstm_smem(slib, plan, 1, In, H_, 0) == plan.smem,
+                  f"{name}: the library's shared memory differs from the "
+                  f"plan's {plan.smem} B")
+            kname = f"lstm_cell_grouped_{plan.kernel}_kernel"
+            ran = set(kernel_split_ms(lambda: ck.lstm_cell(*args),
+                                      symbol_of("lstm_cell"), 3))
+            check(ran == {kname}, f"{name}: the profiler saw {ran}, not "
+                  f"the planned {kname}")
+            return plan
+
         def cell_record(name, shape, args, plain, library, bnd, iters):
+            """The cell against its plain version, then its call and device
+            times, the plain version's, and the library call's: with
+            ``library`` the two calls in 9 rounds taken in turns (cell,
+            library, library, cell, ...), each the median of its rounds."""
             got, want = ck.lstm_cell(*args), plain(*args)
             torch.cuda.synchronize()
             err = max(float((a - b).abs().max()) for a, b in zip(got, want))
@@ -1551,7 +1839,14 @@ def ssm_kernels_vs_plain(mutant):
                     float((a - b).abs().max()) for a, b in zip(lib_out, want))
                 check(rec["library_max_abs_err"] <= FWD_TOL,
                       f"{name}: torch.lstm_cell differs")
-                rec["library_ms"] = time_ms(lambda: library(*args), iters)
+                ks, ls = [], []
+                for r in range(9):
+                    pair = [(ks, kernel), (ls, lambda: library(*args))]
+                    for out, fn in (pair if r % 2 == 0 else pair[::-1]):
+                        out.append(time_ms(fn, iters))
+                rec["call_ms"] = rec["ms"] = float(np.median(ks))
+                rec["library_ms"] = float(np.median(ls))
+                rec["call_ms_rounds"], rec["library_ms_rounds"] = ks, ls
             rec.update(bnd)
             return rec
 
@@ -1559,24 +1854,38 @@ def ssm_kernels_vs_plain(mutant):
             return torch.lstm_cell(x, (h, c), Wx.T, Wh.T, b,
                                    torch.zeros_like(b))
 
-        shared = {}
+        shared, cell_paths = {}, {}
         for B, In, H_ in [(5, 5, 50), (130, 8, 32)]:
+            args = cell_args((), (B,), In, H_)
+            cell_paths[f"B={B}"] = cell_path(f"cell B={B}", args, B, In, H_,
+                                             True).path
             shared[f"B={B} In={In} H={H_}"] = cell_record(
                 "lstm_cell", f"shared weights B={B} In={In} H={H_}",
-                cell_args((), (B,), In, H_), ref.lstm_cell, torch_cell,
+                args, ref.lstm_cell, torch_cell,
                 cell_bound(1, 1, B, In, H_), iters=200)
+        args = cell_args((PLANE_Z,), (PLANE_Z, 1), M, HIDDEN)
+        cell_paths[f"G={PLANE_Z}"] = cell_path(
+            f"cell G={PLANE_Z}", args, 1, M, HIDDEN, False).path
         records["lstm_cell"] = cell_record(
             "lstm_cell", f"G={PLANE_Z} N=1 In={M} H={HIDDEN}, per-target "
-                         f"weights (the lane's step)",
-            cell_args((PLANE_Z,), (PLANE_Z, 1), M, HIDDEN),
+                         f"weights (the lane's step)", args,
             ref.lstm_cell_grouped, None,
             cell_bound(PLANE_Z, PLANE_Z, 1, M, HIDDEN), iters=50)
         records["lstm_cell"].update(shared)
+        records["lstm_cell"]["paths"] = cell_paths
+        log(f"[2] lstm_cell paths {cell_paths}; the call at B=5 against "
+            f"torch.lstm_cell's, 9 rounds in turns: "
+            f"{shared['B=5 In=5 H=50']['call_ms_rounds']} against "
+            f"{shared['B=5 In=5 H=50']['library_ms_rounds']} ms")
         log("[2] library yardstick for lstm_cell at G=4096: none -- no single "
             "PyTorch call computes 4096 independently weighted cells")
         for G, N, In, H_, Gw in [(3, 17, 5, 37, 3), (4, 33, 5, 50, 1),
-                                 (2, 0, 5, 50, 2), (1, 3, 8, 64, 1)]:
+                                 (2, 0, 5, 50, 2), (1, 3, 8, 64, 1),
+                                 (9, 1, 5, 1, 9), (5, 2, 4, 52, 5)]:
             args = cell_args((Gw,), (G, N), In, H_)
+            if N:
+                cell_path(f"cell G={G} N={N} H={H_}", args, N, In, H_,
+                          Gw == 1)
             got, want = ck.lstm_cell(*args), ref.lstm_cell_grouped(*args)
             torch.cuda.synchronize()
             err = max(float((a - b).abs().max()) if a.numel() else 0.0
@@ -1616,15 +1925,15 @@ def ssm_kernels_vs_plain(mutant):
 
 
 def side_stream_runs():
-    """The norm, the chunk scan and the attention LSTM (the register kernel
-    at the plane's per-target shape, the tiled one at the refit's) under
+    """The norm, the chunk scan and both LSTMs (the register kernels at the
+    plane's per-target shape, the tiled ones at the refit's) under
     ``torch.cuda.stream(side)``: their inputs are copied on the side stream
     behind long matrix products, so a launch on any other stream would read
     them unwritten; the outputs must equal the same calls on the default
     stream (the norm and the attention LSTM find their stream through a
     private PyTorch call)."""
     import torch
-    from repro_torch.kernels import attn_lstm_seq as ak
+    from repro_torch.kernels import attn_lstm_seq as ak, lstm_seq as lk
     from repro_torch.kernels import rmsnorm as rk, ssd_scan as sk
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(16)
@@ -1637,14 +1946,19 @@ def side_stream_runs():
     axs = torch.randn((PLANE_Z, ATTN_WINDOW, M), generator=gen).to(dev)
     agxs = torch.randn((PLANE_Z, PLANE_FIT_ROWS - ATTN_WINDOW, ATTN_WINDOW,
                         M), generator=gen).to(dev)
+    lp = _params(gen, (PLANE_Z,), M, HIDDEN, M, dev)
+    lxs = torch.randn((PLANE_Z, PLANE_FIT_ROWS - WINDOW, WINDOW, M),
+                      generator=gen).to(dev)
 
-    def calls(x, ins, axs, agxs):
+    def calls(x, ins, axs, agxs, lxs):
         return [rk.rmsnorm(x, w), *sk.ssd_scan(*ins, chunk=SSM_CHUNK),
                 ak.attn_lstm_seq_stacked(*ap, axs),
-                ak.attn_lstm_seq_grouped(*ap, agxs)]
+                ak.attn_lstm_seq_grouped(*ap, agxs),
+                lk.lstm_seq_stacked(*lp, lxs[:, 0].contiguous()),
+                lk.lstm_seq_grouped(*lp, lxs)]
 
     with torch.no_grad():
-        base = calls(x, ins, axs, agxs)
+        base = calls(x, ins, axs, agxs, lxs)
         torch.cuda.synchronize()
         side = torch.cuda.Stream()
         with torch.cuda.stream(side):
@@ -1652,13 +1966,13 @@ def side_stream_runs():
             for _ in range(20):
                 a = a @ a * 1e-2
             got = calls(x.clone(), [t.clone() for t in ins], axs.clone(),
-                        agxs.clone())
+                        agxs.clone(), lxs.clone())
         torch.cuda.synchronize()
     same = [bool(torch.equal(g, b)) for g, b in zip(got, base)]
     check(all(same), f"a side stream's norm / scan y / scan state / attn "
-          f"stacked / attn grouped differ from the default stream's: equal "
-          f"{same}")
-    log("[2] the norm, the chunk scan and the attention LSTM (per-target and "
+          f"stacked / attn grouped / lstm stacked / lstm grouped differ from "
+          f"the default stream's: equal {same}")
+    log("[2] the norm, the chunk scan and both LSTMs (per-target and "
         "row-blocked) on a side stream equal their default-stream results "
         "bit for bit")
 
@@ -1746,7 +2060,7 @@ def closed_loop(device, minutes=30, epochs=60, arch="lstm", tag="[3]"):
     sim.run(tasks, ctrl, T, initial_replicas=2)
     t_loop = time.perf_counter() - t0
     launches = launch_counts()
-    paths = path_launches()["attn_lstm_seq"]
+    paths = lstm_paths()
     check(ctrl.updater.n_updates == 0, "the closed loop refit unexpectedly")
     # one shared-weight forward an epoch of each fit, one stacked forecast
     # a forecasting tick, no refit, nothing of the other architecture
@@ -1754,11 +2068,9 @@ def closed_loop(device, minutes=30, epochs=60, arch="lstm", tag="[3]"):
     expect = dict.fromkeys(launches, 0)
     expect.update({shared: len(ZONES) * epochs,
                    stacked: forecast_ticks(ctrl)})
-    # attn: the fits (N=111 windows) row-blocked, the forecasts per target
-    expect_paths = dict.fromkeys(paths, 0)
-    if arch == "attn":
-        expect_paths.update(row_blocked=len(ZONES) * epochs,
-                            per_target=forecast_ticks(ctrl))
+    # the fits (N=115 or 111 windows) row-blocked, the forecasts per target
+    expect_paths = expect_lstm_paths(**{shared: dict(
+        row_blocked=len(ZONES) * epochs, per_target=forecast_ticks(ctrl))})
     log(f"{tag} {arch}: collection {t_collect:.2f} s ({len(pre['cloud'])} samples/zone)"
         f", 7 fits x {epochs} epochs {t_fit:.2f} s (edge-0 loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}), closed loop {t_loop:.2f} s "
@@ -1885,7 +2197,7 @@ def plane_tick(device, base, Z=PLANE_Z, ticks=22, update_s=300.0,
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     launches = launch_counts()
-    paths = path_launches()["attn_lstm_seq"]
+    paths = lstm_paths()
     check(refit_s is not None and updater.n_updates == Z,
           f"batched refit did not run for all {Z} targets")
     check(post_refit_k is not None and post_refit_k <= ticks
@@ -1897,14 +2209,13 @@ def plane_tick(device, base, Z=PLANE_Z, ticks=22, update_s=300.0,
           f"not {ticks - window}")
     # one stacked forecast a forecasting tick, one grouped forward an
     # epoch of the one batched refit
-    _, stacked_k, grouped_k = (k.__name__ for k in ARCH_KERNELS[arch])
+    shared_k, stacked_k, grouped_k = (k.__name__
+                                      for k in ARCH_KERNELS[arch])
     expect = dict.fromkeys(launches, 0)
     expect.update({stacked_k: n_fc, grouped_k: base.finetune_epochs})
-    # attn: the forecasts per target, the refit's N windows row-blocked
-    expect_paths = dict.fromkeys(paths, 0)
-    if arch == "attn":
-        expect_paths.update(per_target=n_fc,
-                            row_blocked=base.finetune_epochs)
+    # the forecasts per target, the refit's N windows row-blocked
+    expect_paths = expect_lstm_paths(**{shared_k: dict(
+        per_target=n_fc, row_blocked=base.finetune_epochs)})
     n_pred = sum(1 for n in names for d in ctrl.decisions(n) if d.predicted)
     check(n_pred > 0, "plane: no proactive decision")
     # the stacked forecast on the card against the plain version on the
@@ -1989,6 +2300,7 @@ def lane_path(device, stacked, zs, tag="[4]"):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         launches = launch_counts()
+        paths = lstm_paths()
         want = stacked_forward(stacked, zs, "lstm")
         rel = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
         check(bool(torch.isfinite(got).all()) and rel <= LANE_REL,
@@ -2001,11 +2313,14 @@ def lane_path(device, stacked, zs, tag="[4]"):
     Z, W, _ = zs.shape
     expect = dict.fromkeys(launches, 0)
     expect["lstm_cell"] = W
+    # one row a target: each step per target, on the register kernel
+    expect_paths = expect_lstm_paths(lstm_seq=dict(per_target=W))
     log(f"{tag} lstm_cell lane: Z={Z} W={W}, {W} cell launches + the head "
         f"{lane_ms} ms a forecast against lstm_seq_stacked's one launch "
         f"{seq_ms} ms; forecast rel err {rel:.3g} (tol {LANE_REL})")
     return {"lane_ms": lane_ms, "stacked_ms": seq_ms, "rel_err": rel,
-            "launches": launches, "expect": expect}
+            "launches": launches, "expect": expect, "paths": paths,
+            "expect_paths": expect_paths}
 
 
 # --------------------------------------------------------------- phase 7 --
@@ -2038,7 +2353,7 @@ def harness(device, minutes=30, pretrain_s=HARNESS_PRETRAIN_S, tag="[7]"):
     hpa = run_scenario(tasks, T, scaler="hpa", min_replicas=2)
     t_hpa = time.perf_counter() - t0
     launches = launch_counts()
-    paths = path_launches()["attn_lstm_seq"]
+    paths = lstm_paths()
     check(launches == after_ppa, "the HPA arm launched a kernel")
     models = [p.model for p in ppa.ppas.values()]
     check(all(m.arch == "attn" and m.device == device for m in models),
@@ -2050,9 +2365,8 @@ def harness(device, minutes=30, pretrain_s=HARNESS_PRETRAIN_S, tag="[7]"):
     expect["attn_lstm_seq"] = (sum(m.epochs for m in models) + n_pred)
     # the fits (N windows of the pretraining series) row-blocked, the
     # scalar PPA's B=1 forecasts per target
-    expect_paths = dict.fromkeys(paths, 0)
-    expect_paths.update(row_blocked=sum(m.epochs for m in models),
-                        per_target=n_pred)
+    expect_paths = expect_lstm_paths(attn_lstm_seq=dict(
+        row_blocked=sum(m.epochs for m in models), per_target=n_pred))
     check(all(m._fit_count == 1 for m in models), "a PPA model refit")
     shares = {z: float(np.mean([d.predicted for d in p.decisions]))
               for z, p in ppa.ppas.items()}
@@ -2344,6 +2658,10 @@ def serving(device, arch="h2o-danube-1.8b", cfg=None, slots=SLOTS,
                     if ppa.updater.n_updates else 0)
     expect = dict.fromkeys(launches, 0)
     expect["lstm_seq"] = n_fit_epochs + len(ppa.predictions)
+    # the PPA's fits (at least 8 windows) row-blocked, its B=1 forecasts
+    # per target
+    expect_paths = expect_lstm_paths(lstm_seq=dict(
+        row_blocked=n_fit_epochs, per_target=len(ppa.predictions)))
     if cfg.family == "ssm":
         # a gated norm a layer and the final norm, a prefill and a decode
         # step; a chunk scan a layer and prefill (a decode step updates the
@@ -2483,7 +2801,9 @@ def serving(device, arch="h2o-danube-1.8b", cfg=None, slots=SLOTS,
             "profiled_busy_share": busy["busy_share"],
             "profiled_kernels_per_step": busy["n_kernels"] / 5,
             "profiled_device_ms_per_step": busy["device_ms"] / 5,
-            "path_launches": paths, "launches": launches, "expect": expect}
+            "path_launches": paths, "launches": launches, "expect": expect,
+            "paths": {k: paths[k] for k in expect_paths},
+            "expect_paths": expect_paths}
 
 
 def profile_start(device):
@@ -2509,11 +2829,12 @@ def profile_stop(prof, device):
         torch.cuda.synchronize(device)
     wall_ms = (time.perf_counter() - prof.t0) * 1e3
     prof.__exit__(None, None, None)
-    by_name, n_kernels = {}, 0
+    by_name, count_by_name, n_kernels = {}, {}, 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3)
+            count_by_name[e.name] = count_by_name.get(e.name, 0) + 1
             n_kernels += 1
     device_ms = sum(by_name.values())
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
@@ -2521,7 +2842,8 @@ def profile_stop(prof, device):
                 for e in host[:6]}
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms, "by_name": by_name,
-            "n_kernels": n_kernels, "host_top": host_top}
+            "count_by_name": count_by_name, "n_kernels": n_kernels,
+            "host_top": host_top}
 
 
 def top_names(by_name, k=6):
@@ -2545,7 +2867,7 @@ def main() -> int:
     harness_fit_batch = (len(np.arange(15.0, HARNESS_PRETRAIN_S, 15.0))
                          - ATTN_WINDOW)
     records = kernels_vs_plain(fit_batch, attn_fit_batch, harness_fit_batch,
-                               mutants["attn_lstm_seq"])
+                               mutants["attn_lstm_seq"], mutants["lstm_seq"])
     records.update(llm_kernels_vs_plain(mutants))
     records.update(ssm_kernels_vs_plain(mutants["ssd_scan"]))
     side_stream_runs()
@@ -2585,10 +2907,10 @@ def main() -> int:
         check(got == want, f"{tag} launches {got} != {want}")
         if "paths" in phase:
             paths, want_paths = phase.pop("paths"), phase.pop("expect_paths")
-            log(f"{tag} attn launches by path {paths}, the path's "
+            log(f"{tag} LSTM launches by path {paths}, the path's "
                 f"{want_paths}")
             check(paths == want_paths,
-                  f"{tag} attn paths {paths} != {want_paths}")
+                  f"{tag} LSTM paths {paths} != {want_paths}")
         for name, n in got.items():
             launches[name] = launches.get(name, 0) + n
     for name, n in launches.items():

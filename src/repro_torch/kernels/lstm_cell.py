@@ -7,24 +7,30 @@ grouped form as well: x (G, N, In), h and c (G, N, H), weights with a
 leading axis Gw in {1, G} (one set read by every group, or one a group) ->
 (h', c') of (G, N, H).  The benchmark's legacy per-step lane, whose JAX
 version vmaps the cell over Z targets, is one grouped launch a step at G=Z,
-N=1.  The CUDA kernel ``csrc/lstm_cell.cu`` runs for CUDA tensors and the
-plain version (``kernels/ref.py``) for CPU tensors; any other device
-raises.  Float32 only.  ``LAUNCHES`` counts the kernel's launches.  No
-path trains through the cell, so there is no backward.
+N=1.
+
+The kernel is the register kernel of ``csrc/lstm_seq.cu`` at W=1, with h
+and c read from memory and written back and no head (its one-step entry,
+``lstm_cell_grouped_f32``): one row an item, persistent CTAs, each group's
+weights streamed into stage slots by bulk copies.  ``lstm_seq.launch_plan``
+plans it (``cell=True``); shapes it does not take (H > 52 or In + H > 56)
+run the first port's cell kernel, kept in the same source.  It runs for
+CUDA tensors, the plain version (``kernels/ref.py``) for CPU tensors; any
+other device raises.  Float32 only.  ``LAUNCHES`` counts the kernel's
+launches, ``lstm_seq.PATH_LAUNCHES`` counts them by path.  The call path is
+``lstm_seq``'s lean one: one check pass, a plan cached per shape, private
+device and raw-stream lookups.  No path trains through the cell, so there
+is no backward.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from repro_torch.kernels import _build, ref
-from repro_torch.kernels.lstm_seq import launch_config
+from repro_torch.kernels import lstm_seq as seq, ref
 
 LAUNCHES = {"lstm_cell": 0}
 
-_MAX_SMEM = 232_448            # dynamic shared memory a Hopper CTA may use
-_MAX_GRID_Y = 65_535
+_F32 = torch.float32
 
 
 def reset_launch_counts():
@@ -33,17 +39,7 @@ def reset_launch_counts():
 
 
 def _lib():
-    lib = _build.load("lstm_cell")
-    if not getattr(lib, "_argtypes_set", False):
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.lstm_cell_grouped_f32.argtypes = [vp] * 8 + [i] * 7 + [vp]
-        lib.lstm_cell_grouped_f32.restype = i
-        lib.lstm_cell_smem_bytes.argtypes = [i, i, i]
-        lib.lstm_cell_smem_bytes.restype = ctypes.c_longlong
-        lib.lstm_cell_error_string.argtypes = [i]
-        lib.lstm_cell_error_string.restype = ctypes.c_char_p
-        lib._argtypes_set = True
-    return lib
+    return seq._lib()
 
 
 def _check(Wx, Wh, b, h, c, x):
@@ -75,30 +71,72 @@ def _check(Wx, Wh, b, h, c, x):
         raise ValueError(f"weights carry {Gw} groups, x {G}")
 
 
-def _launch(Wx, Wh, b, h, c, x):
-    G, N, In = x.shape
-    H = Wh.shape[1]
+def _launch_shape(Wx, Wh, b, h, c, x):
+    """One pass over the inputs: (G, N, In, H, shared, device index) when
+    all six are contiguous float32 tensors on one device, of the shapes the
+    kernel takes -- x (B, In) with unbatched weights (G=1, N=B), or the
+    grouped form -- else None (``lstm_cell`` then runs ``_check``, which
+    raises, or the plain version).  The index is -1 on the CPU."""
+    try:
+        if x.dim() == 3:
+            G, N, In = x.shape
+            lead = (Wx.shape[0],)
+            Gw = lead[0]
+        else:
+            (N, In), G, lead, Gw = x.shape, 1, (), 1
+        H = Wh.shape[-2]
+        H4 = 4 * H
+        rows = x.shape[:-1]
+        idx = x.get_device()
+        if (Gw != 1 and Gw != G or x.dtype is not _F32
+                or not x.is_contiguous()):
+            return None
+        for t, s in ((Wx, lead + (In, H4)), (Wh, lead + (H, H4)),
+                     (b, lead + (H4,)), (h, rows + (H,)), (c, rows + (H,))):
+            if (t.shape != s or t.dtype is not _F32 or not t.is_contiguous()
+                    or t.get_device() != idx):
+                return None
+    except (AttributeError, IndexError, TypeError, ValueError):
+        return None
+    return G, N, In, H, Gw == 1, idx
+
+
+def run(lib, plan, ptrs, G, N, In, H, idx, stream):
+    """One launch of ``lib``'s cell kernel that ``plan`` (``launch_plan``
+    with ``cell=True``) names on device ``idx`` (the current device) and
+    ``stream``: ``ptrs`` the data pointers of Wx, Wh, b, h, c, x, h' and
+    c'.  No check and no count; returns the CUDA error code (0 =
+    launched)."""
+    rc = seq.prepare(lib, idx)
+    if rc:
+        return rc
+    shared = int(plan.shared)
+    if plan.kernel == "general":
+        return lib.lstm_cell_general_f32(*ptrs, G, N, In, H, shared,
+                                         plan.threads, plan.rows, stream)
+    grid = seq.launch_grid(plan, G, N, seq.n_sm_of(idx))
+    return lib.lstm_cell_grouped_f32(
+        *ptrs, G, N, In, H, shared, plan.slots,
+        seq.bulk_mask(ptrs, plan.sizes), grid, stream)
+
+
+def _forward(Wx, Wh, b, h, c, x, shape):
+    """The kernel on checked CUDA inputs of ``shape`` (``_launch_shape``);
+    counts the launch."""
+    G, N, In, H, shared, idx = shape
     h2, c2 = torch.empty_like(h), torch.empty_like(c)
     if G == 0 or N == 0:
         return h2, c2
-    threads_x, rows = launch_config(N, H)
-    lib = _lib()
-    smem = lib.lstm_cell_smem_bytes(In, H, rows)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"lstm_cell needs {smem} B of shared memory per CTA "
-                         f"(H={H}, In={In}); a Hopper CTA has {_MAX_SMEM}")
-    if -(-N // rows) > _MAX_GRID_Y:
-        raise ValueError(f"{N} rows per group exceed the kernel's grid")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.lstm_cell_grouped_f32(
-            Wx.data_ptr(), Wh.data_ptr(), b.data_ptr(), h.data_ptr(),
-            c.data_ptr(), x.data_ptr(), h2.data_ptr(), c2.data_ptr(), G, N,
-            In, H, int(Wh.shape[0] == 1), threads_x, rows, stream)
+    plan = seq.plan_of(N, 1, In, H, 0, shared, cell=True)
+    lib = seq.bound_lib()
+    ptrs = [t.data_ptr() for t in (Wx, Wh, b, h, c, x, h2, c2)]
+    rc = seq.on_device(idx, lambda stream: run(lib, plan, ptrs, G, N, In, H,
+                                               idx, stream))
     if rc != 0:
         raise RuntimeError(f"lstm_cell kernel launch failed: "
-                           f"{lib.lstm_cell_error_string(rc).decode()}")
+                           f"{lib.lstm_seq_error_string(rc).decode()}")
     LAUNCHES["lstm_cell"] += 1
+    seq.PATH_LAUNCHES[plan.path] += 1
     return h2, c2
 
 
@@ -106,6 +144,9 @@ def lstm_cell(Wx, Wh, b, h, c, x):
     """x (B, In) with weights Wx (In, 4H), Wh (H, 4H), b (4H,): the Pallas
     contract; or x (G, N, In) with weights (Gw, In, 4H), (Gw, H, 4H),
     (Gw, 4H): the grouped form.  h, c match x's rows -> (h', c')."""
+    shape = _launch_shape(Wx, Wh, b, h, c, x)
+    if shape is not None and shape[-1] >= 0:
+        return _forward(Wx, Wh, b, h, c, x, shape)
     if not isinstance(x, torch.Tensor) or x.dim() not in (2, 3):
         raise ValueError("x must be (B, In) or (G, N, In)")
     if x.dim() == 2:                        # the grouped form at G=1
@@ -115,6 +156,4 @@ def lstm_cell(Wx, Wh, b, h, c, x):
     _check(Wx, Wh, b, h, c, x)
     if x.device.type == "cpu":
         return ref.lstm_cell_grouped(Wx, Wh, b, h, c, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"lstm_cell runs on CUDA or CPU, not {x.device}")
-    return _launch(Wx, Wh, b, h, c, x)
+    raise ValueError(f"lstm_cell runs on CUDA or CPU, not {x.device}")

@@ -92,6 +92,203 @@ def test_cuda_lstm_seq_matches_plain(cuda_device, G, N, W, H, shared):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
 
 
+# the LSTM's shapes: the paths' (W=4, M=5, H=50) and edges -- ragged N,
+# N=1, G=1, H=1, H=52 (M=4: the register kernel's widest; M=5: the tiled
+# kernel's), H=64 (the general kernel's)
+LSTM_CASES = [(4096, 1, 4, 5, 50, False), (4096, 16, 4, 5, 50, False),
+              (1, 115, 4, 5, 50, True), (1, 1, 4, 5, 50, True),
+              (4, 33, 4, 5, 37, False), (3, 17, 4, 5, 50, True),
+              (5, 9, 4, 5, 1, False), (300, 1, 4, 4, 52, False),
+              (3, 7, 4, 5, 52, True), (3, 7, 4, 5, 64, True),
+              (700, 1, 1, 5, 50, False)]
+
+
+def _lstm_forced(H):
+    """Every plan a shape of hidden width H may be forced onto."""
+    plans = [dict(kernel="general")]
+    if H <= tseq.MAX_H:
+        plans += [dict(kernel="reg", slots=s) for s in (1, 2, 3)]
+        plans += [dict(kernel="tiled", rows=r) for r in tseq.TILED_ROWS]
+    return plans
+
+
+def _offset(t, floats):
+    """t's values in a view ``floats`` floats into a larger buffer."""
+    flat = torch.empty(t.numel() + floats, device=t.device)
+    v = flat[floats:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,N,W,M,H,shared", LSTM_CASES)
+def test_cuda_lstm_seq_plans_match_plain(cuda_device, G, N, W, M, H, shared):
+    """Every plan the shape may take -- the register kernel with 1 to 3
+    stage slots, the tiled kernel at each rows a thread, the general
+    kernel -- launched through ``lstm_seq.run`` against the plain version,
+    with the weights 16-byte aligned (bulk copies) and one float off (4-byte
+    copies): float32 sums over M+H terms in another order, through W
+    recurrent steps, so 1e-4 absolute."""
+    rng = np.random.default_rng(G * 7 + N + H)
+    p = _on(_lstm_params(rng, (1 if shared else G,), M, H, 5), cuda_device)
+    xs = torch.tensor(rng.normal(0, 1, (G, N, W, M)).astype(np.float32),
+                      device=cuda_device)
+    want = tref.lstm_seq_grouped(*p, xs)
+    lib = tseq._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    for ws in (p, [_offset(t, 1) for t in p]):
+        for force in _lstm_forced(H):
+            if force["kernel"] == "reg" and not tseq.reg_fits(M, H):
+                continue
+            plan = tseq.launch_plan(N, W, M, H, 5, shared, **force)
+            out = torch.empty((G, N, 5), device=cuda_device)
+            rc = tseq.run(lib, plan, [t.data_ptr() for t in ws]
+                          + [xs.data_ptr()], out.data_ptr(), G, N, W, M, H,
+                          5, torch.cuda.current_device(), stream)
+            assert rc == 0, force
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out, want, rtol=0, atol=1e-4,
+                                       msg=str(force))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,N,W,M,H,shared", LSTM_CASES)
+def test_cuda_lstm_seq_takes_its_planned_path(cuda_device, G, N, W, M, H,
+                                              shared):
+    """One call of the public wrapper launches once, on the path and
+    kernel ``launch_plan`` names, whose shared memory equals the library's
+    own figure, and equals the plain version within 1e-4."""
+    plan = tseq.launch_plan(N, W, M, H, 5, shared)
+    lib = tseq._lib()
+    smem = {"reg": lambda: lib.lstm_seq_reg_smem_bytes(M, H, W, 5,
+                                                       plan.slots, 0),
+            "tiled": lambda: lib.lstm_seq_tiled_smem_bytes(
+                M, H, W, 5, plan.rows * plan.groups, plan.slots),
+            "general": lambda: lib.lstm_seq_general_smem_bytes(
+                M, H, 5, plan.rows)}[plan.kernel]()
+    assert smem == plan.smem
+    rng = np.random.default_rng(G + N + H)
+    p = _on(_lstm_params(rng, (1 if shared else G,), M, H, 5), cuda_device)
+    xs = torch.tensor(rng.normal(0, 1, (G, N, W, M)).astype(np.float32),
+                      device=cuda_device)
+    tseq.reset_launch_counts()
+    with torch.no_grad():
+        got = tseq.lstm_seq_grouped(*p, xs)
+    torch.cuda.synchronize()
+    assert tseq.PATH_LAUNCHES == {**dict.fromkeys(tseq.PATH_LAUNCHES, 0),
+                                  plan.path: 1}
+    torch.testing.assert_close(got, tref.lstm_seq_grouped(*p, xs), rtol=0,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["shared", "grouped"])
+def test_cuda_lstm_seq_gradients_match_plain(cuda_device, form):
+    """Gradients through ``_GroupedSeq`` (the lean launch forward, the
+    plain version's autograd backward) against autograd through the plain
+    version, for the fits' ``lstm_seq`` (B=115) and the refit's grouped
+    form: 1e-4 absolute (the forward's tolerance, carried into the
+    loss)."""
+    rng = np.random.default_rng(11)
+    if form == "shared":
+        p = _lstm_params(rng, (), 5, 50, 5)
+        xs = rng.normal(0, 1, (115, 4, 5)).astype(np.float32)
+        fns = (tseq.lstm_seq, tref.lstm_seq)
+    else:
+        p = _lstm_params(rng, (64,), 5, 50, 5)
+        xs = rng.normal(0, 1, (64, 16, 4, 5)).astype(np.float32)
+        fns = (tseq.lstm_seq_grouped, tref.lstm_seq_grouped)
+    xs = torch.tensor(xs, device=cuda_device)
+    grads = []
+    tseq.reset_launch_counts()
+    for fn in fns:
+        leaves = [t.requires_grad_(True) for t in _on(p, cuda_device)]
+        loss = torch.mean(fn(*leaves, xs) ** 2)
+        grads.append(torch.autograd.grad(loss, leaves))
+    assert sum(tseq.LAUNCHES.values()) == 1
+    assert tseq.PATH_LAUNCHES["row_blocked"] == 1
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_seq_runs_on_a_side_stream(cuda_device):
+    """Under ``torch.cuda.stream(s)`` the LSTM kernels launch on s (the raw
+    stream through a private PyTorch call): their windows are written on s
+    behind long matrix products, so a launch on another stream would read
+    them unwritten; per target (register kernel), the refit (tiled kernel)
+    and the cell equal the default stream's, bit for bit."""
+    rng = np.random.default_rng(4)
+    p = _on(_lstm_params(rng, (512,), 5, 50, 5), cuda_device)
+    xs = torch.tensor(rng.normal(0, 1, (512, 16, 4, 5)).astype(np.float32),
+                      device=cuda_device)
+    c_in = _on(_cell_args(rng, (512,), (512, 1), 5, 50)[3:5], cuda_device)
+
+    def calls(xs, h, c):
+        return [tseq.lstm_seq_stacked(*p, xs[:, 0].contiguous()),
+                tseq.lstm_seq_grouped(*p, xs),
+                *tcell.lstm_cell(*p[:3], h, c, xs[:, :1, 0].contiguous())]
+
+    with torch.no_grad():
+        base = calls(xs, *c_in)
+        torch.cuda.synchronize()
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            a = torch.randn((4096, 4096), device=cuda_device)
+            for _ in range(20):
+                a = a @ a * 1e-2
+            got = calls(xs.clone(), *[t.clone() for t in c_in])
+        torch.cuda.synchronize()
+    assert all(torch.equal(g, b) for g, b in zip(got, base))
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_seq_rejects_a_leaf_on_another_device(cuda_device):
+    """A leaf on the CPU beside CUDA windows fails the one-pass check (its
+    device index differs) and raises in ``_check``, launching nothing; so
+    does the cell's."""
+    rng = np.random.default_rng(7)
+    p = _on(_lstm_params(rng, (4,), 5, 50, 5), cuda_device)
+    xs = torch.tensor(rng.normal(0, 1, (4, 4, 5)).astype(np.float32),
+                      device=cuda_device)
+    tseq.reset_launch_counts()
+    tcell.reset_launch_counts()
+    with pytest.raises(ValueError, match="more than one device"):
+        tseq.lstm_seq_stacked(*p[:4], p[4].cpu(), xs)
+    h, c = _on(_cell_args(rng, (4,), (4, 1), 5, 50)[3:5], cuda_device)
+    with pytest.raises(ValueError, match="more than one device"):
+        tcell.lstm_cell(p[0], p[1], p[2].cpu(), h, c,
+                        xs[:, :1].contiguous())
+    assert set(tseq.LAUNCHES.values()) == {0}
+    assert tcell.LAUNCHES == {"lstm_cell": 0}
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_seq_mutant_fails_the_check(cuda_device, tmp_path):
+    """``chip_smoke.MUTANTS["lstm_seq"]``, the source refilling a stage
+    slot with the weights of the target it has just read (not of the
+    target ``slots`` further on), must fail the plane's stacked check:
+    every target after a CTA's first ``slots`` runs on an earlier
+    target's weights."""
+    from repro_torch.kernels import _build
+    edit = _literal(ROOT / "chip_smoke.py", "MUTANTS")["lstm_seq"]
+    lib = tseq.bind(_build.build_variant("lstm_seq", [edit], tmp_path))
+    rng = np.random.default_rng(8)
+    p = _on(_lstm_params(rng, (4096,), 5, 50, 5), cuda_device)
+    xs = torch.tensor(rng.normal(0, 1, (4096, 1, 4, 5)).astype(np.float32),
+                      device=cuda_device)
+    plan = tseq.launch_plan(1, 4, 5, 50, 5, False)
+    out = torch.empty((4096, 1, 5), device=cuda_device)
+    rc = tseq.run(lib, plan, [t.data_ptr() for t in p] + [xs.data_ptr()],
+                  out.data_ptr(), 4096, 1, 4, 5, 50, 5,
+                  torch.cuda.current_device(),
+                  torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    want = tref.lstm_seq_grouped(*p, xs)
+    torch.cuda.synchronize()
+    assert float((out - want).abs().max()) > 1e-4
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("G,N,W,H,shared", [(64, 1, 8, 50, False),
                                             (1, 111, 8, 50, True),
@@ -271,19 +468,61 @@ def _cell_args(rng, lead, rows, In, H):
 @pytest.mark.parametrize("lead,rows,In,H", [((), (5,), 5, 50),
                                             ((), (130,), 8, 32),
                                             ((64,), (64, 1), 5, 50),
-                                            ((1,), (3, 17), 5, 37)])
+                                            ((1,), (3, 17), 5, 37),
+                                            ((4096,), (4096, 1), 5, 50),
+                                            ((9,), (9, 1), 5, 1),
+                                            ((5,), (5, 2), 4, 52),
+                                            ((1,), (1, 3), 8, 64)])
 def test_cuda_lstm_cell_matches_plain(cuda_device, lead, rows, In, H):
-    """Sums over In + H terms in another order: 1e-5 absolute."""
+    """The cell's shared forms (the Pallas test shapes), the lane's (G
+    targets of one row) and edges (H=1, H=52, and H=64 on the general
+    kernel) against the plain version, on the path ``launch_plan`` names:
+    sums over In + H terms in another order, 1e-5 absolute."""
     rng = np.random.default_rng(H + len(rows))
     args = _on(_cell_args(rng, lead, rows, In, H), cuda_device)
+    plan = tseq.launch_plan(rows[-1], 1, In, H, 0, not lead or lead[0] == 1,
+                            cell=True)
     tcell.reset_launch_counts()
+    tseq.reset_launch_counts()
     got = tcell.lstm_cell(*args)
     want = (tref.lstm_cell if len(rows) == 1 else tref.lstm_cell_grouped)(
         *args)
     torch.cuda.synchronize()
     assert tcell.LAUNCHES == {"lstm_cell": 1}
+    assert tseq.PATH_LAUNCHES == {**dict.fromkeys(tseq.PATH_LAUNCHES, 0),
+                                  plan.path: 1}
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,N,In,H,shared", [(4096, 1, 5, 50, False),
+                                             (1, 5, 5, 50, True),
+                                             (3, 17, 5, 37, False)])
+def test_cuda_lstm_cell_plans_match_plain(cuda_device, G, N, In, H, shared):
+    """The cell forced onto the register kernel with 1 to 3 stage slots
+    and onto the general kernel, through ``lstm_cell.run``, with the
+    weights 16-byte aligned and one float off: 1e-5 absolute."""
+    rng = np.random.default_rng(G + N)
+    args = _on(_cell_args(rng, (1 if shared else G,), (G, N), In, H),
+               cuda_device)
+    want = tref.lstm_cell_grouped(*args)
+    lib = tcell._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    for ws in (args[:3], [_offset(t, 1) for t in args[:3]]):
+        for force in [dict(kernel="general")] + [
+                dict(kernel="reg", slots=s) for s in (1, 2, 3)]:
+            plan = tseq.launch_plan(N, 1, In, H, 0, shared, cell=True,
+                                    **force)
+            outs = [torch.empty_like(args[3]), torch.empty_like(args[4])]
+            rc = tcell.run(lib, plan, [t.data_ptr() for t in
+                                       list(ws) + args[3:] + outs],
+                           G, N, In, H, torch.cuda.current_device(), stream)
+            assert rc == 0, force
+            torch.cuda.synchronize()
+            for a, b in zip(outs, want):
+                torch.testing.assert_close(a, b, rtol=0, atol=1e-5,
+                                           msg=str(force))
 
 
 # ---------------------------------------------------- the decoder's kernels --

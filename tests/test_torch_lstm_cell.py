@@ -23,6 +23,7 @@ import torch
 
 from repro.kernels import ops, ref as jref
 from repro_torch.kernels import lstm_cell as tcell
+from repro_torch.kernels import lstm_seq as tseq
 from repro_torch.kernels import ref as tref
 
 torch.set_num_threads(1)
@@ -109,3 +110,56 @@ def test_lstm_cell_wrapper_rejects():
         tcell.lstm_cell(*args[:5], args[5][None])
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tcell.lstm_cell(*[a.to("meta") for a in args])
+
+
+def test_lean_check_sends_every_bad_input_to_check():
+    """The cell's one-pass check (``_launch_shape``) refuses everything
+    ``test_lstm_cell_wrapper_rejects`` covers, so on the card those inputs
+    reach ``_check`` and raise as before; it takes the good inputs of both
+    forms (device index -1 on the CPU); the wrapper still raises, and
+    launches nothing, counting no path."""
+    tcell.reset_launch_counts()
+    tseq.reset_launch_counts()
+    rng = np.random.default_rng(1)
+    args = [torch.tensor(a) for a in _cell_args(rng, (2,), (2, 3), 5, 8)]
+    one = [torch.tensor(a) for a in _cell_args(rng, (), (4,), 5, 8)]
+    bad = [args[:5] + [args[5].double()],
+           args[:3] + [torch.cat([a, a]) for a in args[3:]],
+           args[:3] + [args[3][:, :2].contiguous()] + args[4:],
+           args[:5] + [args[5].transpose(0, 1).contiguous().transpose(0, 1)],
+           args[:5] + [args[5][None]], one[:3] + args[3:],
+           args[:3] + one[3:], [args[0][:, :4]] + args[1:],
+           [a.numpy() for a in args]]
+    for a in bad:
+        assert tcell._launch_shape(*a) is None
+    assert tcell._launch_shape(*args) == (2, 3, 5, 8, False, -1)
+    assert tcell._launch_shape(*[a[:1] for a in args[:3]], *args[3:]) == (
+        2, 3, 5, 8, True, -1)
+    assert tcell._launch_shape(*one) == (1, 4, 5, 8, True, -1)
+    for a in bad[:5]:
+        with pytest.raises((TypeError, ValueError)):
+            tcell.lstm_cell(*a)
+    assert tcell.LAUNCHES == {"lstm_cell": 0}
+    assert set(tseq.PATH_LAUNCHES.values()) == {0}
+
+
+@pytest.mark.parametrize("G,N,In,H,shared,kernel,path", [
+    (4096, 1, 5, 50, False, "reg", "per_target"),   # the lane's step
+    (1, 5, 5, 50, True, "reg", "row_blocked"),      # the Pallas test shapes
+    (1, 130, 8, 32, True, "reg", "row_blocked"),
+    (1, 3, 8, 64, True, "general", "general")])     # wider than 52
+def test_cell_plan_is_the_register_kernels_one_step_entry(G, N, In, H,
+                                                          shared, kernel,
+                                                          path):
+    """The cell plans as the sequence's register kernel at W=1 with no
+    head: its stage holds Wx, Wh and b alone, one row an item; past H=52
+    the first port's cell kernel takes it."""
+    plan = tseq.launch_plan(N, 1, In, H, 0, shared, cell=True)
+    assert (plan.kernel, plan.path, plan.cell) == (kernel, path, True)
+    assert plan.sizes == (In * 4 * H, H * 4 * H, 4 * H)
+    if kernel == "reg":
+        assert plan.rows == 1 and plan.threads == 32 * -(-H // 4)
+        assert plan.smem == tseq.reg_smem_bytes(In, H, 1, 0, plan.slots,
+                                                True)
+        assert 1 <= tseq.launch_grid(plan, G, N) <= min(
+            G * N if shared else G, 132 * plan.ctas_per_sm)

@@ -16,6 +16,11 @@ card's name and power limit.
 Run on a machine with an H100 and the CUDA toolkit, from the repository
 root, giving the checkouts' roots (a ``git archive`` of each, unpacked):
 ``python3 tools/serving_ab.py [--arch A] [--rounds N] ROOT_A ROOT_B``
+
+``--arch lstm`` runs the LSTM forecaster's phases 3 and 4 and the lane
+instead: phase 3's fits (s), sort p95 (s), edge RIR and proactive ticks
+(its decisions), phase 4's tick p50 and max (ms) and batched refit (s),
+and the lane's forecast (ms, CUDA events).
 """
 from __future__ import annotations
 
@@ -30,6 +35,22 @@ def child(root, arch):
     sys.path.insert(0, root + "/src")
     import torch
     import chip_smoke as cs
+    if arch == "lstm":
+        dev = torch.device("cuda", 0)                   # as main() has it
+        torch.backends.cuda.matmul.allow_tf32 = False   # as phase 1 sets
+        loop = cs.closed_loop(dev)
+        plane = cs.plane_tick(dev, loop.pop("base_model"))
+        lane = cs.lane_path(dev, *plane.pop("lane_inputs"))
+        print(json.dumps({"root": root, "arch": arch,
+                          "fits_s": loop["fits_s"],
+                          "p95_sort_s": loop["p95_sort_s"],
+                          "rir_edge": loop["rir_edge"],
+                          "proactive_ticks": loop["proactive_ticks"],
+                          "tick_ms_p50": plane["tick_ms_p50"],
+                          "tick_ms_max": plane["tick_ms_max"],
+                          "refit_s": plane["refit_s"],
+                          "lane_ms": lane["lane_ms"]}), flush=True)
+        return
     if arch == "attn":
         dev = torch.device("cuda", 0)                   # as main() has it
         torch.backends.cuda.matmul.allow_tf32 = False   # as phase 1 sets
