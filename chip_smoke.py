@@ -72,17 +72,29 @@ cell), ``attn_lstm_seq.cu``, ``rmsnorm.cu``, ``flash_attention.cu``,
    decode step the SSM update in plain PyTorch; no KV cache, a conv and SSM
    state a slot and layer; the same 49 bursty requests and refitting PPA;
    every chunk scan on the tensor-core path, every norm on the vector
-   kernel.
+   kernel;
+10. the sharded control plane (``ShardedControlPlane``, S=8) on phase
+   4's and phase 6's Z=4096 targets and rows: (a) the host columnar plane
+   with one fused stacked launch a tick, sync; (b, LSTM) async ticks
+   driven staged, one FINETUNE refit submitted by ``maybe_update`` and
+   installed by ``poll_updates`` while ticks go on; (c) the
+   device-resident ``DevicePlaneEngine`` (``device_mesh=1``), gang and
+   per-block dispatch with a block assignment.  Each plane's replicas
+   equal the ``FleetController``'s tick by tick, every steady tick
+   forecasts all Z targets, the engine is within rtol 1e-4 / atol 1e-3
+   of the host plane and within 1e-4 of its own body through the plain
+   stacked version, and (c)'s two dispatch modes give equal digests.
 
-Phases 3 to 9 (and phase 4's lane) each set the launch counts to 0 before
+Phases 3 to 10 (and phase 4's lane) each set the launch counts to 0 before
 they drive their path and read them right after it, before the checks that
 launch kernels of their own; the counts of all eleven wrappers must equal
 what the path needs (a fit forward an epoch, a stacked forecast a
-forecasting tick, a grouped forward a refit epoch, a shared forward a
-scalar PPA forecast, a cell launch a window step of the lane; 2 x 24 + 1
+forecasting tick (a row block's in phase 10's per-block dispatch), a
+grouped forward a refit epoch, a shared forward a scalar PPA forecast, a
+cell launch a window step of the lane; 2 x 24 + 1
 norms and 24 attentions a prefill and a decode step of h2o-danube, 48 + 1
 norms a prefill and a decode step and 48 chunk scans a prefill of mamba2),
-and each kernel must have launched; phases 3 to 9 and the lane also hold
+and each kernel must have launched; phases 3 to 10 and the lane also hold
 both LSTMs' launches by path (``PATH_LAUNCHES``) to the path's.  Any
 failed check raises, so the script exits non-zero.
 The last three lines are the kernels' JSON record, the ``nvidia-smi``
@@ -2121,6 +2133,41 @@ def closed_loop(device, minutes=30, epochs=60, arch="lstm", tag="[3]"):
 
 
 # --------------------------------------------------------------- phase 4 --
+def plane_targets(base, Z=PLANE_Z):
+    """Z fabricated per-target models of the base model's class (its
+    params, own scaler stats each --
+    benchmarks/bench_control_plane.py::_fab_targets) and an endless
+    iterator of their seeded synthetic metric rows, one (Z, M) array a
+    tick: phases 4, 6 and 10 build the same targets and rows."""
+    import numpy as np
+    from repro_torch.core import TargetSpec, ThresholdPolicy
+    from repro_torch.core.forecaster import Scaler
+    from repro_torch.core.metrics import N_METRICS
+    cls = type(base)
+    rng = np.random.default_rng(0)
+    means = rng.uniform(50.0, 400.0, (Z, N_METRICS))
+    stds = 0.1 * means + 1.0
+    specs = []
+    for i in range(Z):
+        m = cls.__new__(cls)
+        m.__dict__.update(base.__dict__)
+        sc = Scaler()
+        sc.mean, sc.std, sc.fitted = means[i], stds[i], True
+        m.scaler = sc
+        m._fitted, m._fit_count = True, 1
+        m._valid_cache = (1, True)
+        specs.append(TargetSpec(f"z{i}", ThresholdPolicy(100.0, 1), model=m))
+
+    def rows():
+        level = means.copy()
+        while True:
+            level = np.abs(level + rng.normal(0.0, 0.05, level.shape)
+                           * means)
+            yield level
+
+    return specs, rows()
+
+
 def plane_tick(device, base, Z=PLANE_Z, ticks=22, update_s=300.0,
                tag="[4]"):
     """Phase 4 (an LSTM base model) and phase 6 (an attn one).  Z fabricated
@@ -2135,26 +2182,13 @@ def plane_tick(device, base, Z=PLANE_Z, ticks=22, update_s=300.0,
     import numpy as np
     import torch
     from repro_torch.core import (FleetController, PPAConfig, Snapshot,
-                                  TargetSpec, ThresholdPolicy, Updater,
-                                  UpdatePolicy)
+                                  Updater, UpdatePolicy)
     from repro_torch.core.forecaster import (ARCH_KERNELS, ARCH_PARAM_LEAVES,
-                                             Scaler, stacked_forward)
+                                             stacked_forward)
     from repro_torch.core.metrics import N_METRICS
     from repro_torch.kernels import ref
-    arch, window, cls = base.arch, base.window, type(base)
-    rng = np.random.default_rng(0)
-    means = rng.uniform(50.0, 400.0, (Z, N_METRICS))
-    stds = 0.1 * means + 1.0
-    specs = []
-    for i in range(Z):
-        m = cls.__new__(cls)
-        m.__dict__.update(base.__dict__)
-        sc = Scaler()
-        sc.mean, sc.std, sc.fitted = means[i], stds[i], True
-        m.scaler = sc
-        m._fitted, m._fit_count = True, 1
-        m._valid_cache = (1, True)
-        specs.append(TargetSpec(f"z{i}", ThresholdPolicy(100.0, 1), model=m))
+    arch, window = base.arch, base.window
+    specs, row_feed = plane_targets(base, Z)
     cfg = PPAConfig(threshold=100.0, stabilization_s=60.0,
                     update_interval_s=update_s)
     updater = Updater(UpdatePolicy.FINETUNE)
@@ -2164,7 +2198,7 @@ def plane_tick(device, base, Z=PLANE_Z, ticks=22, update_s=300.0,
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     tick_ms, refit_s = {}, None        # unprofiled ticks only
-    level = means.copy()
+    replicas = []                      # the decisions, tick by tick
     # profiled window: the first five forecasting ticks, before the refit
     prof_ticks = range(window + 1, window + 6)
     post_refit_k = None                # the first tick after the refit
@@ -2172,7 +2206,7 @@ def plane_tick(device, base, Z=PLANE_Z, ticks=22, update_s=300.0,
     reset_launch_counts()
     for k in range(1, ticks + 1):
         t = 15.0 * k
-        level = np.abs(level + rng.normal(0.0, 0.05, level.shape) * means)
+        level = next(row_feed)
         for i, n in enumerate(names):
             ctrl.observe(n, Snapshot(t, level[i]))
         if k == prof_ticks.start:
@@ -2184,6 +2218,7 @@ def plane_tick(device, base, Z=PLANE_Z, ticks=22, update_s=300.0,
         if k == prof_ticks.stop - 1:
             busy = profile_stop(prof, device)
         cur = {n: max(1, min(64, r.replicas)) for n, r in res.items()}
+        replicas.append(np.array([res[n].replicas for n in names]))
         t0 = time.perf_counter()
         before = updater.n_updates
         rows = len(ctrl.targets[names[0]].history)
@@ -2260,10 +2295,11 @@ def plane_tick(device, base, Z=PLANE_Z, ticks=22, update_s=300.0,
     return {"tick_ms_p50": float(np.percentile(tk, 50)),
             "tick_ms_max": float(tk.max()),
             "tick_ms_post_refit": tick_ms[post_refit_k], "refit_s": refit_s,
+            "post_refit_k": post_refit_k,
             "refit_n": refit_n,
             "max_memory_allocated": mem,
             "profiled_busy_share": busy["busy_share"],
-            "lane_inputs": (stacked, zs),
+            "lane_inputs": (stacked, zs), "replicas": replicas,
             "launches": launches, "expect": expect, "paths": paths,
             "expect_paths": expect_paths}
 
@@ -2321,6 +2357,385 @@ def lane_path(device, stacked, zs, tag="[4]"):
     return {"lane_ms": lane_ms, "stacked_ms": seq_ms, "rel_err": rel,
             "launches": launches, "expect": expect, "paths": paths,
             "expect_paths": expect_paths}
+
+
+# -------------------------------------------------------------- phase 10 --
+PLANE_SHARDS = 8
+# the engine (f32 end to end) against the host plane (f64 transforms): the
+# JAX package's bar for the same pair (tests/test_device_plane.py:81)
+ENGINE_RTOL, ENGINE_ATOL = 1e-4, 1e-3
+# the engine against its own body through the plain stacked version, on the
+# same snapshot, weights and stats: |a - b| / max(|b|, 1)
+ENGINE_PLAIN_REL = 1e-4
+
+
+def plane_arrays(plane, res):
+    """A tick's (replicas (Z,), key metrics (Z,), forecasts (Z, M) with NaN
+    rows where a target had none, targets with a forecast) in plane target
+    order, read from the shards' columnar records (the ``TickResult``'s
+    per-shard map: no per-target ``EvalResult``)."""
+    import numpy as np
+    from repro_torch.core.metrics import N_METRICS
+    Z = len(plane.target_names)
+    key = np.empty(Z)
+    means = np.full((Z, N_METRICS), np.nan)
+    n_fc = 0
+    for shard, idx in plane._shard_rows:
+        rec = res._by_shard[id(shard)]
+        key[idx] = rec[2]
+        cand = rec[7]
+        n_fc += int(cand.sum())
+        if rec[6] is not None:
+            means[idx[cand]] = rec[6][cand]
+    return res.replicas_array(), key, means, n_fc
+
+
+def engine_vs_plain(eng):
+    """The engine's forecasts for its current snapshot against the same
+    body through the plain stacked version on the CPU (its weights, stats
+    and ring copied there); no ``try`` around either, so a kernel that
+    fails to launch raises here.  Returns the relative error."""
+    import numpy as np
+    from repro_torch.core.device_plane import forward_rows
+    from repro_torch.core.forecaster import ARCH_PARAM_LEAVES
+    from repro_torch.kernels import ref
+    plain = {"lstm": ref.lstm_seq_stacked,
+             "attn": ref.attn_lstm_seq_stacked}[eng.arch]
+    leaves = ARCH_PARAM_LEAVES[eng.arch]
+    snap = eng.snapshot()
+    got = eng.forward(snap)
+    want = np.concatenate([forward_rows(
+        {k: v.cpu() for k, v in eng.stacked[b].items()}, eng.mean[b].cpu(),
+        eng.std[b].cpu(), ring.cpu(), eng.window, eng.residual, eng.arch,
+        stacked_fn=lambda p, z, a: plain(*[p[k] for k in leaves], z)).numpy()
+        for b, ring in enumerate(snap)])[:eng.Z]
+    check(got.shape == want.shape and bool(np.isfinite(got).all()),
+          f"engine forecast shape {got.shape} or not finite")
+    return float((np.abs(got - want) / np.maximum(np.abs(want), 1.0)).max())
+
+
+def drive_plane(device, base, label, *, ticks=22, update_s=300.0,
+                Z=PLANE_Z, staged=False, max_ticks=400, idle_s=0.02,
+                tag="[10]", **plane_kw):
+    """One ``ShardedControlPlane`` (S=8 shards, ``Updater(FINETUNE)``) on
+    phase 4's targets and rows: ``ticks`` ticks, or with ``staged`` async
+    ticks driven as a deployment drives them (``begin_tick``, the next
+    window's rows observed while the forecast is in flight,
+    ``finish_tick``) until the refit ``maybe_update`` submits at
+    ``update_s`` has been installed by ``poll_updates`` and two ticks have
+    run on its weights, with ``idle_s`` of host idle time after each tick
+    while the refit is in flight (a deployment ticks every 15 s: a loop
+    that never idles holds the GIL and starves the refit's worker
+    thread).  Launch counts are set to 0 before the first tick
+    and read after the last; five profiled ticks (window + 1 to window + 5)
+    stay out of the tick times.  Checks every steady tick's forecast count
+    (Z) and the exact launches; the engine's forecasts against the plain
+    version after the counts are read."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (PPAConfig, ShardedControlPlane, Updater,
+                                  UpdatePolicy)
+    from repro_torch.core.forecaster import ARCH_KERNELS
+    window = base.window
+    specs, rows = plane_targets(base, Z)
+    cfg = PPAConfig(threshold=100.0, stabilization_s=60.0,
+                    update_interval_s=update_s)
+    updater = Updater(UpdatePolicy.FINETUNE)
+    plane = ShardedControlPlane(cfg, specs, updater=updater,
+                                n_shards=PLANE_SHARDS, async_ticks=staged,
+                                **plane_kw)
+    eng = plane._engine
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    prof_ticks = range(window + 1, window + 6)
+    out = {"replicas": [], "key": [], "means": [], "n_fc": []}
+    tick_ms, moved = {}, {}
+    submit_k = install_k = refit_s = None
+    cur = np.full(Z, 2, np.int64)
+    level = next(rows)
+    reset_launch_counts()
+    k = 0
+    while True:
+        k += 1
+        t = 15.0 * k
+        if k == prof_ticks.start:
+            prof = profile_start(device)
+        moved0 = (eng.h2d_bytes, eng.d2h_bytes) if eng else None
+        if staged:
+            if k == 1:
+                plane.observe_batch(t, level)
+            t0 = time.perf_counter()
+            plane.begin_tick(t, 64, cur)
+            dt = time.perf_counter() - t0
+            level = next(rows)     # the next window, while this one forecasts
+            plane.observe_batch(t + 15.0, level)
+            t0 = time.perf_counter()
+            res = plane.finish_tick()
+            dt += time.perf_counter() - t0
+        else:
+            plane.observe_batch(t, level)
+            t0 = time.perf_counter()
+            res = plane.control_step(t, 64, cur)
+            dt = time.perf_counter() - t0
+            level = next(rows)
+        if eng:
+            moved[k] = (eng.h2d_bytes - moved0[0], eng.d2h_bytes - moved0[1])
+        if k not in prof_ticks:
+            tick_ms[k] = dt * 1e3
+        if k == prof_ticks.stop - 1:
+            busy = profile_stop(prof, device)
+        reps, key, means, n_fc = plane_arrays(plane, res)
+        for name, v in (("replicas", reps), ("key", key), ("means", means),
+                        ("n_fc", n_fc)):
+            out[name].append(v)
+        cur = np.clip(reps, 1, 64)
+        if not staged:
+            t0 = time.perf_counter()
+            plane.maybe_update(t)
+            if plane.refit_log and submit_k is None:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                refit_s = time.perf_counter() - t0
+                submit_k, install_k = k, k + 1
+        else:
+            # one refit: submitted by a tick's maybe_update, then installed
+            # by the poll in a later tick's finish_tick or poll_updates,
+            # after that tick's decisions
+            if submit_k is None:
+                plane.maybe_update(t)
+                if plane.refit_inflight:
+                    submit_k = k
+            elif install_k is None:
+                plane.poll_updates()
+            if install_k is None and plane.refit_log:
+                install_k = k + 1
+            if submit_k is not None and install_k is None:
+                time.sleep(idle_s)
+        done = (install_k is not None and k >= install_k + 1) if staged \
+            else k >= ticks
+        if done or k >= max_ticks:
+            break
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    launches = launch_counts()
+    paths = lstm_paths()
+    check(install_k is not None and updater.n_updates == Z,
+          f"{tag} {label}: the refit did not install for all {Z} targets")
+    entry = plane.refit_log[-1]
+    check(entry["batched"] and entry["async"] == staged,
+          f"{tag} {label}: refit {entry}")
+    if staged:
+        refit_s = entry["applied"] - entry["submitted"]
+    n_ticks = k
+    steady = range(window + 1, n_ticks + 1)
+    bad = [kk for kk in steady if out["n_fc"][kk - 1] != Z]
+    check(not bad, f"{tag} {label}: steady ticks with fewer than {Z} "
+          f"forecasts: {[(kk, out['n_fc'][kk - 1]) for kk in bad[:5]]}")
+    check(all(n == 0 for n in out["n_fc"][:window]),
+          f"{tag} {label}: a forecast before window + 1 rows")
+    shared_k, stacked_k, grouped_k = (f.__name__
+                                      for f in ARCH_KERNELS[base.arch])
+    per_tick = len(eng.blocks) if eng else 1
+    n_stacked = len(steady) * per_tick
+    # the stacked kernel's device events in the profiled window, against
+    # its launches there: fewer means the busy share is a lower bound
+    seen = sum(n for name, n in busy["count_by_name"].items()
+               if symbol_of(stacked_k) in name)
+    expect = dict.fromkeys(launches, 0)
+    expect.update({stacked_k: n_stacked, grouped_k: base.finetune_epochs})
+    expect_paths = expect_lstm_paths(**{shared_k: dict(
+        per_target=n_stacked, row_blocked=base.finetune_epochs)})
+    mem = (torch.cuda.max_memory_allocated(device)
+           if device.type == "cuda" else 0)
+    plain_rel = None
+    if eng:
+        plain_rel = engine_vs_plain(eng)
+        check(plain_rel <= ENGINE_PLAIN_REL,
+              f"{tag} {label}: engine vs plain stacked rel err {plain_rel}")
+    tk = np.asarray(list(tick_ms.values()))
+    during = [tick_ms[kk] for kk in range(submit_k + 1, install_k)
+              if kk in tick_ms] if staged else []
+    steady_moved = sorted({moved[kk] for kk in steady
+                           if kk in moved and kk != install_k})
+    plane.shutdown()
+    rec = {"label": label, "ticks": n_ticks, "submit_k": submit_k,
+           "install_k": install_k, "refit_s": refit_s,
+           "tick_ms_p50": float(np.percentile(tk, 50)),
+           "tick_ms_max": float(tk.max()),
+           "tick_ms_max_refit_inflight": max(during) if during else None,
+           "ticks_refit_inflight": len(during),
+           "profiled_busy_share": busy["busy_share"],
+           "profiled_device_ms": busy["device_ms"],
+           "profiled_wall_ms": busy["wall_ms"],
+           "profiled_stacked_events": [seen, len(prof_ticks) * per_tick],
+           "max_memory_allocated": mem, "engine_plain_rel": plain_rel,
+           "engine_bytes_a_tick": steady_moved,
+           "launches": launches, "expect": expect, "paths": paths,
+           "expect_paths": expect_paths, "log": out,
+           "busy_by_name": top_names(busy["by_name"]),
+           "host_top": busy["host_top"]}
+    log(f"{tag} {base.arch} {label}: Z={Z}, S={PLANE_SHARDS}, {n_ticks} "
+        f"ticks; over the {len(tk)} unprofiled, tick p50 "
+        f"{rec['tick_ms_p50']:.2f} ms, max {rec['tick_ms_max']:.2f} ms; "
+        f"refit ({base.finetune_epochs} epochs) submitted after tick "
+        f"{submit_k}, first used at tick {install_k}, {refit_s:.2f} s"
+        + (f" (submit to install); {len(during)} ticks while in flight, "
+           f"their max {rec['tick_ms_max_refit_inflight']:.2f} ms"
+           if staged else "")
+        + f"; max_memory_allocated {mem / 2**20:.0f} MiB"
+        + (f"; engine bytes a steady tick (H2D, D2H) {steady_moved}, "
+           f"engine vs plain stacked rel err {plain_rel:.3g} (tol "
+           f"{ENGINE_PLAIN_REL})" if eng else ""))
+    log(f"{tag} {base.arch} {label}: profiled ticks {prof_ticks.start}-"
+        f"{prof_ticks.stop - 1}: wall {busy['wall_ms']:.1f} ms, device busy "
+        f"{busy['device_ms']:.3f} ms ({busy['busy_share']:.4%}; {seen} of "
+        f"the {len(prof_ticks) * per_tick} stacked launches seen as device "
+        f"events); device time "
+        f"by name: {rec['busy_by_name']}; host ops by self time (calls, "
+        f"ms): {busy['host_top']}")
+    del plane, specs, eng
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def fleet_reference(device, base, n_ticks, submit_k, install_k,
+                    Z=PLANE_Z):
+    """``FleetController``'s replicas on phase 4's targets and rows with
+    the FINETUNE refit a staged plane ran off the critical path: its
+    histories snapshotted at the start of tick ``submit_k + 1`` (the staged
+    plane had observed that tick's rows by then), computed and committed
+    after tick ``install_k - 1``'s decisions."""
+    import numpy as np
+    from repro_torch.core import (FleetController, PPAConfig, Snapshot,
+                                  Updater, UpdatePolicy)
+    specs, rows = plane_targets(base, Z)
+    ctrl = FleetController(PPAConfig(threshold=100.0, stabilization_s=60.0),
+                           specs)
+    names = ctrl.target_names
+    updater = Updater(UpdatePolicy.FINETUNE)
+    cur = {n: 2 for n in names}
+    pending, replicas = None, []
+    for k in range(1, n_ticks + 1):
+        t = 15.0 * k
+        level = next(rows)
+        for i, n in enumerate(names):
+            ctrl.observe(n, Snapshot(t, level[i]))
+        if k == submit_k + 1:
+            pending = updater.begin_update_batch(
+                [ctrl.model_for(n) for n in names],
+                [ctrl.targets[n].history for n in names], t - 15.0,
+                targets=names)
+        res = ctrl.control_step(t, 64, cur)
+        replicas.append(np.array([res[n].replicas for n in names]))
+        cur = {n: max(1, min(64, r.replicas)) for n, r in res.items()}
+        if k == install_k - 1:
+            pending.compute()
+            pending.commit()
+    return replicas
+
+
+def _first_mismatch(got, want):
+    """(tick, targets that differ) of the first tick where two replica
+    logs differ, or None."""
+    import numpy as np
+    for k, (g, w) in enumerate(zip(got, want), 1):
+        if not np.array_equal(g, w):
+            return k, np.flatnonzero(g != w)[:8].tolist()
+    return None
+
+
+def digest(rec):
+    """sha256 of a plane's ticks: replicas, key metrics, forecasts."""
+    import hashlib
+    h = hashlib.sha256()
+    for reps, key, means in zip(rec["log"]["replicas"], rec["log"]["key"],
+                                rec["log"]["means"]):
+        h.update(reps.tobytes())
+        h.update(key.tobytes())
+        h.update(means.tobytes())
+    return h.hexdigest()
+
+
+def sharded_planes(device, base, ref, tag="[10]"):
+    """Phase 10: the sharded control plane at Z=4096 on phase 4's (LSTM) or
+    phase 6's (attn) targets and rows, S=8 shards: (a) the host columnar
+    plane with the fused gang, sync ticks; (b, LSTM) the same with async
+    ticks and updates, the refit installed while ticks go on; (c) the
+    device-resident engine (``device_mesh=1``) with gang dispatch, and with
+    per-block dispatch and an explicit block assignment.  Each plane's
+    replicas equal the ``FleetController``'s tick by tick (phase 4's or
+    phase 6's run; (b)'s own reference with the refit where (b) installed
+    it); the engine's forecasts are within rtol 1e-4 / atol 1e-3 of the
+    host plane's; (c)'s two dispatch modes give bitwise-equal digests."""
+    import numpy as np
+    want = ref["replicas"]
+    Z, ticks = len(want[0]), len(want)
+    kw = dict(Z=Z, ticks=ticks, tag=tag)
+    runs = {"a": drive_plane(device, base, "(a) host, fused gang, sync",
+                             **kw)}
+    if base.arch == "lstm":
+        runs["b"] = drive_plane(device, base, "(b) host, fused gang, async "
+                                "ticks and refit", staged=True, **kw)
+    block = {f"z{i}": i * PLANE_SHARDS // Z for i in range(Z)}
+    runs["c_gang"] = drive_plane(device, base, "(c) engine, gang",
+                                 device_mesh=1, coalesce_dispatch=True, **kw)
+    runs["c_blocks"] = drive_plane(device, base, "(c) engine, per block, "
+                                   "block assignment", device_mesh=1,
+                                   coalesce_dispatch=False, assignment=block,
+                                   **kw)
+    for name, rec in runs.items():
+        if name == "b":
+            continue
+        got = rec["log"]["replicas"]
+        check(len(got) == len(want), f"{tag} {name}: {len(got)} ticks")
+        miss = _first_mismatch(got, want)
+        if miss is not None:
+            k, z = miss
+            check(False, f"{tag} {name}: replicas differ from the "
+                  f"FleetController at tick {k}, targets {z}: plane "
+                  f"{got[k - 1][z]}, controller {want[k - 1][z]}, plane "
+                  f"forecast key {rec['log']['key'][k - 1][z]}")
+    if "b" in runs:
+        rb = runs["b"]
+        ref_b = fleet_reference(device, base, rb["ticks"], rb["submit_k"],
+                                rb["install_k"], Z=Z)
+        before = ref["post_refit_k"] - 1
+        check(_first_mismatch(rb["log"]["replicas"][:before],
+                              want[:before]) is None,
+              f"{tag} (b): replicas differ from phase 4's before the refit")
+        miss = _first_mismatch(rb["log"]["replicas"], ref_b)
+        check(miss is None, f"{tag} (b): replicas differ from the "
+              f"FleetController with the refit at tick {rb['install_k']}: "
+              f"{miss}")
+    host = runs["a"]["log"]["means"]
+    worst = 0.0
+    for name in ("c_gang", "c_blocks"):
+        for k, (h, d) in enumerate(zip(host, runs[name]["log"]["means"]), 1):
+            check(np.array_equal(np.isnan(h), np.isnan(d)),
+                  f"{tag} {name}: tick {k} forecasts other targets")
+            ok = np.isfinite(h)
+            if ok.any():
+                err = np.abs(d[ok] - h[ok])
+                check(bool((err <= ENGINE_ATOL
+                            + ENGINE_RTOL * np.abs(h[ok])).all()),
+                      f"{tag} {name}: tick {k} engine vs host forecast "
+                      f"max err {err.max()}")
+                worst = max(worst, float((err / np.maximum(
+                    np.abs(h[ok]), 1.0)).max()))
+    dg, db = digest(runs["c_gang"]), digest(runs["c_blocks"])
+    check(dg == db, f"{tag} (c): gang digest {dg} != per-block {db}")
+    log(f"{tag} {base.arch}: every plane's replicas equal the "
+        f"FleetController's tick by tick; engine vs host forecasts max rel "
+        f"err {worst:.3g} (rtol {ENGINE_RTOL}, atol {ENGINE_ATOL}); (c) "
+        f"digests equal ({dg[:16]}); FleetController in this run (phase "
+        f"{4 if base.arch == 'lstm' else 6}): tick p50 "
+        f"{ref['tick_ms_p50']:.1f} ms, max {ref['tick_ms_max']:.1f} ms")
+    for rec in runs.values():
+        rec.pop("log")
+    return runs
 
 
 # --------------------------------------------------------------- phase 7 --
@@ -2876,12 +3291,14 @@ def main() -> int:
     # them right after, before its own comparison checks
     loop = closed_loop(device)
     check(loop["fit_batch"] == fit_batch, "fit batch differs from phase 2")
-    plane = plane_tick(device, loop.pop("base_model"))
+    lstm_base = loop.pop("base_model")
+    plane = plane_tick(device, lstm_base)
     lane = lane_path(device, *plane.pop("lane_inputs"))
     attn_loop = closed_loop(device, arch="attn", tag="[5]")
     check(attn_loop["fit_batch"] == attn_fit_batch,
           "attn fit batch differs from phase 2")
-    attn_plane = plane_tick(device, attn_loop.pop("base_model"), tag="[6]")
+    attn_base = attn_loop.pop("base_model")
+    attn_plane = plane_tick(device, attn_base, tag="[6]")
     attn_plane.pop("lane_inputs")
     check(attn_plane["refit_n"] == PLANE_FIT_ROWS - ATTN_WINDOW,
           "attn refit N differs from phase 2")
@@ -2894,6 +3311,12 @@ def main() -> int:
     serve_ssm = serving(device, arch="mamba2-780m", tag="[9]")
     check(serve_ssm["params"] == 781_328_640,
           f"mamba2-780m has {serve_ssm['params']} parameters")
+    # phase 10 holds each sharded plane to phase 4's / phase 6's
+    # FleetController on the same targets and rows
+    planes = sharded_planes(device, lstm_base, plane)
+    attn_planes = sharded_planes(device, attn_base, attn_plane)
+    plane.pop("replicas")
+    attn_plane.pop("replicas")
     launches = {}
     for tag, phase in (("[3] closed loop", loop), ("[4] plane", plane),
                        ("[4] lstm_cell lane", lane),
@@ -2901,7 +3324,11 @@ def main() -> int:
                        ("[6] attn plane", attn_plane),
                        ("[7] PPA vs HPA harness", paper),
                        ("[8] serving", serve),
-                       ("[9] mamba2 serving", serve_ssm)):
+                       ("[9] mamba2 serving", serve_ssm),
+                       *((f"[10] {arch} {rec['label']}", rec)
+                         for arch, runs in (("lstm", planes),
+                                            ("attn", attn_planes))
+                         for rec in runs.values())):
         got, want = phase.pop("launches"), phase.pop("expect")
         log(f"{tag} launches {got}, the path's count {want}")
         check(got == want, f"{tag} launches {got} != {want}")
@@ -2917,7 +3344,8 @@ def main() -> int:
         check(n > 0, f"{name} was never launched on the main path")
     phases = {"loop": loop, "plane": plane, "lane": lane,
               "attn_loop": attn_loop, "attn_plane": attn_plane,
-              "harness": paper, "serving": serve, "serving_ssm": serve_ssm}
+              "harness": paper, "serving": serve, "serving_ssm": serve_ssm,
+              "sharded_planes": planes, "attn_sharded_planes": attn_planes}
     log(f"[summary] {json.dumps(phases)}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f} s")
 

@@ -1,7 +1,7 @@
 # The paper's primary contribution, ported: the Proactive Pod Autoscaler and
 # its substrate -- the LSTM and attention forecasters, Evaluator (Alg. 1),
-# static policies, Updater (3 update policies), the batched FleetController
-# and the reactive HPA baseline (Eq. 1).
+# static policies, Updater (3 update policies), the batched FleetController,
+# the sharded control plane and the reactive HPA baseline (Eq. 1).
 from repro_torch.core.metrics import (METRIC_NAMES, N_METRICS, KEY_CPU,
                                       KEY_CUSTOM, MetricsHistory, Snapshot)
 from repro_torch.core.forecaster import (Forecaster, LSTMForecaster,
@@ -15,7 +15,9 @@ from repro_torch.core.updater import Updater, UpdatePolicy
 from repro_torch.core.hpa import HPA
 from repro_torch.core.ppa import PPA, PPAConfig, ScaleDownStabilizer
 from repro_torch.core.controller import FleetController, TargetSpec
-from repro_torch.core.control_plane import (Tick, Guardrail, stage_collect,
+from repro_torch.core.control_plane import (ShardedControlPlane, Tick,
+                                            TickResult, Guardrail,
+                                            shard_assignment, stage_collect,
                                             stage_formulate, stage_forecast,
                                             stage_evaluate, stage_degrade,
                                             stage_guard, stage_actuate)

@@ -20,8 +20,8 @@ tests/test_torch_closed_loop.py holds this port to the same decisions).
 
 The tick itself is composed from the staged pipeline of
 ``core/control_plane.py`` (formulate -> batched forecast -> evaluate ->
-actuate).  The sharded plane that runs the same stages for Z >> 10^3 is a
-later slice of the port.
+actuate).  ``ShardedControlPlane`` (core/control_plane.py) runs the same
+stages on columnar shards for Z >> 10^3.
 """
 from __future__ import annotations
 

@@ -253,8 +253,11 @@ class LSTMForecaster(Forecaster):
                                      seed=seed, device=self.device)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        """float64 numpy -> float32 tensor on the model's device."""
-        return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+        """float64 numpy -> contiguous float32 tensor on the model's device
+        (a column-major series would otherwise give the kernels strided
+        windows, which they refuse)."""
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                               device=self.device)
 
     def _windows(self, series):
         z = self.scaler.transform(series)

@@ -813,3 +813,68 @@ def test_cuda_ssd_scan_takes_views_off_8_bytes(cuda_device):
     want = tssd.ssd_scan(*ins, chunk=64, h0=h0)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# ------------------------------------------------ the device-resident plane --
+class _FabModel:
+    """What ``DevicePlaneEngine.refresh`` reads of a forecaster: its own
+    params, its scaler stats, ``valid``."""
+
+    def __init__(self, params, mean, std):
+        self.params = params
+        self.scaler = type("Stats", (), {"mean": mean, "std": std})()
+
+    def valid(self):
+        return True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,W", [("lstm", 4), ("attn", 8)])
+def test_cuda_device_plane_engine_matches_plain(cuda_device, arch, W):
+    """The engine at the plane's width (Z=4096 targets, each with its own
+    weights, H=50): gang dispatch (one stacked launch) and four row blocks
+    on the card (four launches) give bitwise-equal forecasts, and the
+    gang's are within 1e-4 relative of the same body through the plain
+    stacked version on the CPU, on the engine's own weights, stats and
+    ring."""
+    from repro_torch.core.device_plane import DevicePlaneEngine, forward_rows
+    from repro_torch.core.forecaster import ARCH_PARAM_LEAVES
+    Z, H, M = 4096, 50, 5
+    rng = np.random.default_rng(19)
+    make = _lstm_params if arch == "lstm" else _attn_params
+    leaves = ARCH_PARAM_LEAVES[arch]
+    stacked = dict(zip(leaves, _on(make(rng, (Z,), M, H, M), cuda_device)))
+    mean = rng.uniform(50.0, 400.0, (Z, M))
+    std = 0.1 * mean + 1.0
+    models = [_FabModel({k: v[i] for k, v in stacked.items()}, mean[i],
+                        std[i]) for i in range(Z)]
+    rows = [np.abs(mean + rng.normal(0.0, 0.05, mean.shape) * mean)
+            for _ in range(W)]
+    outs, engines = {}, {}
+    for name, kw in (("gang", dict(coalesce_dispatch=True,
+                                   devices=[cuda_device])),
+                     ("blocks", dict(coalesce_dispatch=False,
+                                     devices=[cuda_device] * 4))):
+        eng = DevicePlaneEngine(Z, W, True, ring_rows=W, arch=arch, **kw)
+        eng.refresh(models, 0)
+        for r in rows:
+            eng.push_rows(r)
+        launches = dict(tseq.LAUNCHES, **tattn.LAUNCHES)
+        outs[name] = eng.forward(eng.snapshot())
+        engines[name] = eng
+        key = f"{'attn_' if arch == 'attn' else ''}lstm_seq_stacked"
+        assert dict(tseq.LAUNCHES, **tattn.LAUNCHES)[key] - launches[key] \
+            == len(eng.blocks)
+    np.testing.assert_array_equal(outs["blocks"], outs["gang"])
+    eng = engines["gang"]
+    plain = {"lstm": tref.lstm_seq_stacked,
+             "attn": tref.attn_lstm_seq_stacked}[arch]
+    want = forward_rows(
+        {k: v.cpu() for k, v in eng.stacked[0].items()}, eng.mean[0].cpu(),
+        eng.std[0].cpu(), eng.snapshot()[0].cpu(), W, True, arch,
+        stacked_fn=lambda p, z, a: plain(*[p[k] for k in leaves], z))
+    want = want.numpy()[:Z]
+    assert np.isfinite(outs["gang"]).all() and outs["gang"].shape == (Z, M)
+    rel = float((np.abs(outs["gang"] - want)
+                 / np.maximum(np.abs(want), 1.0)).max())
+    assert rel <= 1e-4, rel
