@@ -2,9 +2,10 @@
 """Chip smoke for the PyTorch / CUDA port (``src/repro_torch``) on one GPU.
 
 Drives the port's main paths -- the paper's per-target LSTM and
-Attention-Double-LSTM closed loops, its PPA-vs-HPA harness, and the LLM
-decode engine the PPA scales, on the dense decoder and on mamba2 -- on the
-card, through the hand-written CUDA kernels of the six sources of
+Attention-Double-LSTM closed loops, its PPA-vs-HPA harness, the LLM decode
+engine the PPA scales, on the dense decoder and on mamba2, the sharded
+control plane, and the rest of the forecaster zoo with the serving
+federation -- on the card, through the hand-written CUDA kernels of the six sources of
 ``kernels/csrc/``: ``lstm_seq.cu`` (the LSTM sequence and the one-step
 cell), ``attn_lstm_seq.cu``, ``rmsnorm.cu``, ``flash_attention.cu``,
 ``decode_attention.cu`` and ``ssd_scan.cu``:
@@ -28,9 +29,12 @@ cell), ``attn_lstm_seq.cu``, ``rmsnorm.cu``, ``flash_attention.cu``,
    shapes on its vector kernel (``PATH_LAUNCHES``), the edges on the
    kernel ``vector_path`` picks; each LSTM and attention-LSTM shape (the
    fits, the scalar PPA, the plane's forecast and refit, the cell's lane
-   and shared forms, and edges) on the path its ``launch_plan`` names,
-   with its shared memory held against the library's, every forced plan
-   of the LSTM against the plain version, the fit's call timed with and
+   and shared forms, the deep ensemble's G=4 x N=4096 forecast, and
+   edges) on the path its ``launch_plan`` names, with its shared memory
+   held against the library's, every forced plan of the LSTM against the
+   plain version, the split schedule (fewer groups than the persistent
+   grid: G in 1, 3, 4, 5, 263, 265 by N in 1, 115, 512, 4096) against the
+   plain version, the fit's call timed with and
    without a gradient and the cell's call in turns with
    ``torch.lstm_cell``, where each LSTM mutant must fail the plane's
    check; the chunk scan on inputs whose decay
@@ -83,18 +87,37 @@ cell), ``attn_lstm_seq.cu``, ``rmsnorm.cu``, ``flash_attention.cu``,
    equal the ``FleetController``'s tick by tick, every steady tick
    forecasts all Z targets, the engine is within rtol 1e-4 / atol 1e-3
    of the host plane and within 1e-4 of its own body through the plain
-   stacked version, and (c)'s two dispatch modes give equal digests.
+   stacked version, and (c)'s two dispatch modes give equal digests;
+11. the rest of the forecaster zoo and the serving federation: (a)
+   examples/quickstart.py's guardrail demo at full length
+   (``ServingFleet(batch=True)`` + ``ShardedControlPlane`` with
+   ``SLAPolicy`` and the guard) with the deep ensemble (E=4, fit one
+   grouped launch an epoch) and with ARIMA(1,1,1) (fit on the card in
+   matrix form); (b) one shared ensemble over phase 4's Z=4096 targets and
+   rows, S=8, fused gang (one grouped launch a tick at G=4, N=4096, on more
+   CTAs than groups) and per shard, each equal to the
+   ``FleetController`` tick by tick, the forecast within 1e-4 of the
+   member loop through the plain version, the confidence gate sending
+   targets reactive; (c) benchmarks/bench_chaos.py's federation (F=4,
+   900 s, the seed-1 tape) with resilience off and on, and
+   benchmarks/bench_fleet_scale.py's digital twin at 10^4 pods with the
+   ARIMA-d1 and with (b)'s ensemble: every request completes, the chip
+   budget holds, the ON lane's degraded-mode counters fire; the ARMA fit
+   on the card against its sequential plain version; (d) ``autotune``
+   with the default candidates on phase 3's cloud-zone series.
 
-Phases 3 to 10 (and phase 4's lane) each set the launch counts to 0 before
+Phases 3 to 11 (and phase 4's lane) each set the launch counts to 0 before
 they drive their path and read them right after it, before the checks that
 launch kernels of their own; the counts of all eleven wrappers must equal
 what the path needs (a fit forward an epoch, a stacked forecast a
 forecasting tick (a row block's in phase 10's per-block dispatch), a
-grouped forward a refit epoch, a shared forward a scalar PPA forecast, a
+grouped forward a refit epoch, an ensemble fit's epoch and a shared
+ensemble's forecasting tick (a shard's in per-shard dispatch), a shared
+forward a scalar PPA forecast and a member's scalar forecast, a
 cell launch a window step of the lane; 2 x 24 + 1
 norms and 24 attentions a prefill and a decode step of h2o-danube, 48 + 1
 norms a prefill and a decode step and 48 chunk scans a prefill of mamba2),
-and each kernel must have launched; phases 3 to 10 and the lane also hold
+and each kernel must have launched; phases 3 to 11 and the lane also hold
 both LSTMs' launches by path (``PATH_LAUNCHES``) to the path's.  Any
 failed check raises, so the script exits non-zero.
 The last three lines are the kernels' JSON record, the ``nvidia-smi``
@@ -156,6 +179,7 @@ WINDOW, HIDDEN, M = 4, 50, 5
 ATTN_WINDOW = 8
 WINDOWS = {"lstm": WINDOW, "attn": ATTN_WINDOW}
 PLANE_Z, PLANE_FIT_ROWS = 4096, 20
+ENSEMBLE_E, ENSEMBLE_EPOCHS = 4, 40   # phase 11's deep ensemble
 TICK_LIMIT_MS = 1500.0  # PERF.md section 2: a tenth of the 15 s interval
 # each kernel's source, and its symbol with the wrappers that launch it
 KERNELS = {
@@ -588,11 +612,13 @@ def kernels_vs_plain(fit_batch, attn_fit_batch, harness_fit_batch,
               f"{smem} B != the plan's {plan.smem} B")
         return plan
 
-    def lstm_path_check(name, fn, N_, W_, M_, H_, shared):
+    def lstm_path_check(name, fn, N_, W_, M_, H_, shared, G_=None):
         """``attn_path_check`` for the LSTM: one call of ``fn`` launches
-        once, on the path its plan names, with the library's shared-memory
-        figure equal to the plan's.  Returns the plan."""
-        plan = seq.launch_plan(N_, W_, M_, H_, n_out, shared)
+        once, on the path its plan names (for ``G_`` groups where weights
+        are per group), with the library's shared-memory figure equal to
+        the plan's.  Returns the plan."""
+        plan = seq.launch_plan(N_, W_, M_, H_, n_out, shared,
+                               G=None if shared else G_)
         seq.reset_launch_counts()
         fn()
         torch.cuda.synchronize()
@@ -669,6 +695,85 @@ def kernels_vs_plain(fit_batch, attn_fit_batch, harness_fit_batch,
                 lambda: seq.lstm_seq_grouped(*sp, gxs),
                 lambda: ref.lstm_seq_grouped(*sp, gxs), None,
                 bound(PLANE_Z, PLANE_Z, n_fit, W, M, H, n_out), iters=50)
+        # the deep ensemble: E members' weights, one grouped launch at G=E
+        # groups of N windows (the split schedule: the grid // E CTAs of
+        # each member share its windows) -- its forecast at plane scale
+        # (N=Z) and its fit's forward on phase 3's rows (N=fit_batch); the
+        # yardstick is E calls of cuDNN's LSTM plus the head; and the same
+        # launch on the schedule before the split (the plan the cost model
+        # gave without G, on one CTA a group)
+        E = ENSEMBLE_E
+        ep = _params(gen, (E,), M, H, n_out, dev)
+        cudnn_e = []
+        for e in range(E):
+            lm = torch.nn.LSTM(M, H, batch_first=True).to(dev)
+            lm.weight_ih_l0.copy_(ep[0][e].T)
+            lm.weight_hh_l0.copy_(ep[1][e].T)
+            lm.bias_ih_l0.copy_(ep[2][e])
+            lm.bias_hh_l0.zero_()
+            cudnn_e.append(lm)
+
+        def ensemble_record(N_):
+            exs_ = xs_of(E, N_, W, M)
+
+            def cudnn_members():
+                return torch.stack([
+                    torch.relu(lm(exs_[e])[1][0][-1]) @ ep[3][e] + ep[4][e]
+                    for e, lm in enumerate(cudnn_e)])
+
+            def plain():
+                return ref.lstm_seq_grouped(*ep, exs_)
+
+            rec = timed("lstm_seq_grouped",
+                        f"G={E} N={N_} W={W} M={M} H={H}",
+                        lambda: seq.lstm_seq_grouped(*ep, exs_), plain,
+                        bound(E, E, N_, W, M, H, n_out), iters=50)
+            rec["library_max_abs_err"] = compare(
+                f"lstm G={E} N={N_} library yardstick", cudnn_members(),
+                plain())
+            rec["library_ms"] = time_ms(cudnn_members, 50)
+            plan_ = seq.plan_of(N_, W, M, H, n_out, False, G=E)
+            rec["ctas"] = seq.launch_grid(plan_, E, N_, n_sm)
+            check(rec["ctas"] > E, f"lstm G={E} N={N_}: {rec['ctas']} "
+                  f"CTAs, not more than the {E} groups")
+            old = seq.launch_plan(N_, W, M, H, n_out, False)
+            out_ = torch.empty((E, N_, n_out), device=dev)
+            ptrs_ = [t.data_ptr() for t in ep] + [exs_.data_ptr()]
+            mask_ = seq.bulk_mask(ptrs_, old.sizes)
+
+            def whole_groups():
+                if old.kernel == "tiled":
+                    rc = slib.lstm_seq_tiled_f32(
+                        *ptrs_, out_.data_ptr(), E, N_, W, M, H, n_out, 0,
+                        old.rows, old.groups, old.slots, mask_, E, stream)
+                else:
+                    rc = slib.lstm_seq_reg_f32(
+                        *ptrs_, out_.data_ptr(), E, N_, W, M, H, n_out, 0,
+                        old.slots, mask_, E, stream)
+                check(rc == 0, f"lstm G={E} N={N_} on {E} CTAs: launch "
+                      f"failed ({rc})")
+                return out_
+
+            rec["whole_groups_max_abs_err"] = compare(
+                f"lstm G={E} N={N_} on {E} CTAs", whole_groups(), plain())
+            rec["whole_groups_kernel_ms"] = kernel_device_ms(
+                whole_groups, symbol_of("lstm_seq_grouped"), iters=10)
+            rec["whole_groups_plan"] = (f"{old.kernel} {old.rows} x "
+                                        f"{old.groups} rows, {E} CTAs")
+            log(f"[2] lstm_seq_grouped G={E} N={N_}: {plan_.kernel} kernel "
+                f"{plan_.rows} x {plan_.groups} rows on {rec['ctas']} CTAs; "
+                f"kernel {rec['kernel_ms']:.4f} ms, call "
+                f"{rec['call_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+                f"({rec['bound_by']}), plain {rec['plain_ms']:.4f} ms, {E} "
+                f"cuDNN calls + head {rec['library_ms']:.4f} ms; on the "
+                f"schedule before the split ({rec['whole_groups_plan']}) "
+                f"{rec['whole_groups_kernel_ms']:.4f} ms")
+            return rec, exs_
+
+        records["lstm_seq_grouped"]["ensemble"], exs = ensemble_record(
+            PLANE_Z)
+        records["lstm_seq_grouped"]["ensemble_fit"], _ = ensemble_record(
+            fit_batch)
         # a forecast of one window (the serving PPA's)
         records["lstm_seq"]["forecast"] = timed(
             "lstm_seq", f"B=1 W={W} M={M} H={H}",
@@ -694,9 +799,11 @@ def kernels_vs_plain(fit_batch, attn_fit_batch, harness_fit_batch,
                  PLANE_Z, 1, sp, zxs),
                 (f"G={PLANE_Z} N={n_fit}",
                  lambda: seq.lstm_seq_grouped(*sp, gxs), PLANE_Z, n_fit, sp,
-                 gxs)]:
+                 gxs),
+                (f"G={E} N={PLANE_Z}", lambda: seq.lstm_seq_grouped(*ep, exs),
+                 E, PLANE_Z, ep, exs)]:
             shared = len(ws_[1].shape) == 2
-            plan = lstm_path_check(label, fn, N_, W, M, H, shared)
+            plan = lstm_path_check(label, fn, N_, W, M, H, shared, G_)
             lstm_paths_[label] = plan.path
             kname = {"reg": "lstm_seq_grouped_reg_kernel",
                      "tiled": f"lstm_seq_grouped_tiled_kernel<{plan.rows}>",
@@ -727,6 +834,24 @@ def kernels_vs_plain(fit_batch, attn_fit_batch, harness_fit_batch,
             log(f"[2] lstm {label}: every forced plan against the plain "
                 f"version, max_abs_err {errs}")
         records["lstm_seq"]["paths"] = lstm_paths_
+        # the split schedule's edges: weights per group, G below, at the
+        # side of and past the persistent grid (two CTAs an SM: 264), G
+        # not dividing it, N from one window to the plane's Z
+        edge_errs = {}
+        for G_ in (1, 3, 4, 5, 263, 265):
+            for N_ in (1, 115, 512, PLANE_Z):
+                gp = _params(gen, (G_,), M, H, n_out, dev)
+                gx = xs_of(G_, N_, W, M)
+                tag = f"G={G_} N={N_}"
+                edge_errs[tag] = compare(
+                    f"lstm split {tag}", seq.lstm_seq_grouped(*gp, gx),
+                    ref.lstm_seq_grouped(*gp, gx))
+                edge_errs[tag] = (edge_errs[tag], seq.launch_grid(
+                    seq.plan_of(N_, W, M, H, n_out, False, G=G_), G_, N_,
+                    n_sm))
+        records["lstm_seq_grouped"]["split_edges"] = edge_errs
+        log(f"[2] lstm split schedule edges against the plain version "
+            f"(max_abs_err, CTAs): {edge_errs}")
         # the fit's call with a gradient wanted: the autograd.Function
         # around the same launch (the forward only), in turns with the
         # lean call without one
@@ -2128,6 +2253,7 @@ def closed_loop(device, minutes=30, epochs=60, arch="lstm", tag="[3]"):
             "rir_cloud": sim.rir_stats(["cloud"])[0],
             "proactive_ticks": n_pred, "fit_batch": len(pre["cloud"]) - window,
             "fits_s": t_fit, "base_model": specs[0].model,
+            "cloud_rows": pre["cloud"],
             "launches": launches, "expect": expect, "paths": paths,
             "expect_paths": expect_paths}
 
@@ -2738,6 +2864,607 @@ def sharded_planes(device, base, ref, tag="[10]"):
     return runs
 
 
+# -------------------------------------------------------------- phase 11 --
+PLAIN_REL = 1e-4          # a forecast against its plain version, relative
+# benchmarks/bench_chaos.py's federation: F fleets, the seed-1 tape
+CHAOS_F, CHAOS_T, CHAOS_SEED, SLA_S, WARMUP_WIN = 4, 900.0, 1, 2.0, 8
+# benchmarks/bench_fleet_scale.py's digital twin at 10^4 pods
+TWIN_P, TWIN_F, TWIN_T, TWIN_LOAD = 10_000, 64, 300.0, 0.05
+
+
+def expect_zero(launches):
+    """The counts of a path that launches no kernel."""
+    return dict.fromkeys(launches, 0), expect_lstm_paths()
+
+
+def guardrail_demo(device, forecaster, t_end=1200.0,
+                   epochs=ENSEMBLE_EPOCHS, tag="[11a]"):
+    """Phase 11 (a): examples/quickstart.py's guardrail demo (its lines
+    24-126, without ``--quick``) on the port: collect 80 windows from a
+    statically provisioned ``ServingFleet(batch=True)``, fit the
+    forecaster on the card, then a ``ShardedControlPlane`` with
+    ``SLAPolicy`` and the guard scales the fleet through a flash crowd.
+    The target carries its own model, which is no LSTM, so the plane runs
+    it per target: an ensemble forecasts one ``lstm_seq`` launch a member
+    a forecasting tick (B=1), after its fit's grouped launch an epoch
+    (G=E); the ARMA kinds launch nothing.  Counts are set to 0 before the
+    fit and read after the last tick."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (GuardrailConfig, PPAConfig,
+                                  ShardedControlPlane, SLAPolicy, TargetSpec)
+    from repro_torch.serving.fleet import FleetConfig, ServingFleet
+    from repro_torch.workloads import poisson_arrivals
+    w = 15.0
+    spike = (t_end / 2, t_end / 2 + 120.0)
+    base_rate, spike_rate, target_p95 = 6.0, 30.0, 6.0
+    fcfg = FleetConfig(total_chips=1024, chips_per_replica=16, seed=0,
+                       deadline_factor=1e9)
+    rng = np.random.default_rng(0)
+
+    def arrivals(rates, seed):
+        arr = poisson_arrivals(rates, t_end, w, seed=seed)
+        ntok = rng.integers(32, 64, len(arr.times)).astype(np.float64)
+        return arr.times, ntok
+
+    def run_fleet(fleet, times, ntok, step):
+        lo = 0
+        for tick in np.arange(w, t_end + w / 2, w):
+            fleet._apply_events(tick)
+            hi = int(np.searchsorted(times, tick, side="right"))
+            fleet.dispatch_window(times[lo:hi], ntok[lo:hi])
+            fleet.completed_log.seal_window()
+            lo = hi
+            step(tick, fleet.sample(tick))
+        return fleet
+
+    fleet = ServingFleet(fcfg, batch=True)
+    fleet.scale_to(4, 0.0)
+    fleet.make_ready_now(0.0)
+    times, ntok = arrivals(base_rate, seed=99)
+    run_fleet(fleet, times, ntok, lambda t, s: None)
+    series = np.stack([v for _, v in fleet.samples])
+    fkw = dict(window=4, device=device)
+    if forecaster not in ("arma", "arima", "arima_d1"):
+        fkw["epochs"] = epochs
+        if forecaster != "ensemble":
+            fkw["seed"] = 0
+    cfg = PPAConfig(key_metric_idx=1, stabilization_s=60.0,
+                    guard=GuardrailConfig(band=0.3, headroom=1.15,
+                                          down_ticks=3),
+                    forecaster=forecaster, forecaster_kw=fkw)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    model = cfg.build_forecaster()
+    model.fit(series, from_scratch=True)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    fit_s = time.perf_counter() - t0
+    check(model.valid(), f"{tag} {forecaster}: the fit is not valid")
+    plane = ShardedControlPlane(
+        cfg, [TargetSpec("svc", SLAPolicy(target_p95, min_replicas=2),
+                         model=model)], n_shards=1)
+    n_win = int(np.ceil(t_end / w))
+    edges = np.arange(n_win) * w
+    rates = np.where((edges >= spike[0]) & (edges < spike[1]), spike_rate,
+                     base_rate)
+    times, ntok = arrivals(rates, seed=1)
+    fleet = ServingFleet(fcfg, batch=True)
+    fleet.scale_to(2, 0.0)
+    fleet.make_ready_now(0.0)
+    stats = {"violation_s": 0.0, "pod_s": 0.0, "forecasts": 0,
+             "proactive": 0}
+
+    def step(tick, snap):
+        cur = len(fleet.live_replicas(tick))
+        stats["pod_s"] += cur * w
+        if snap.values[1] > target_p95:
+            stats["violation_s"] += w
+        plane.observe_batch(tick, snap.values[None, :])
+        res = plane.control_step(tick, 64, cur)["svc"]
+        stats["forecasts"] += res.raw_prediction is not None
+        stats["proactive"] += bool(res.predicted)
+        fleet.scale_to(max(res.replicas, 2), tick)
+
+    t0 = time.perf_counter()
+    run_fleet(fleet, times, ntok, step)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    loop_s = time.perf_counter() - t0
+    launches = launch_counts()
+    paths = lstm_paths()
+    g = plane.guard_stats()
+    plane.shutdown()
+    expect, expect_paths = expect_zero(launches)
+    if forecaster == "ensemble":
+        n_fc = stats["forecasts"]
+        expect.update(lstm_seq_grouped=epochs,
+                      lstm_seq=ENSEMBLE_E * n_fc)
+        expect_paths = expect_lstm_paths(lstm_seq=dict(
+            row_blocked=epochs, per_target=ENSEMBLE_E * n_fc))
+    check(stats["forecasts"] > 0, f"{tag} {forecaster}: no forecast")
+    check(fleet.response_times().size > 0
+          and bool(np.isfinite(fleet.response_times()).all()),
+          f"{tag} {forecaster}: response times")
+    rec = {"forecaster": forecaster, "windows": len(series),
+           "fit_s": fit_s, "loop_s": loop_s,
+           "sla_violation_s": stats["violation_s"],
+           "pod_hours": stats["pod_s"] / 3600,
+           "guard_up_overrides": g["up_overrides"],
+           "guard_down_overrides": g["down_overrides"],
+           "forecast_ticks": stats["forecasts"],
+           "proactive_ticks": stats["proactive"],
+           "launches": launches, "expect": expect, "paths": paths,
+           "expect_paths": expect_paths}
+    log(f"{tag} {forecaster}: {len(series)} windows collected, fit "
+        f"{fit_s:.2f} s on the card; flash crowd {spike_rate:.0f} req/s "
+        f"for {spike[1] - spike[0]:.0f} s: SLA violation "
+        f"{stats['violation_s']:.0f} s of {t_end:.0f} s, "
+        f"{rec['pod_hours']:.2f} pod-hours, guard overrides up="
+        f"{g['up_overrides']} down={g['down_overrides']}; "
+        f"{stats['forecasts']} forecasting ticks, {stats['proactive']} "
+        f"proactive; loop {loop_s:.2f} s")
+    return rec
+
+
+def member_loop_plain(ens, wins):
+    """The ensemble's means and stds through the per-member loop on the
+    plain version (``ref.lstm_seq``), on the members' device."""
+    import numpy as np
+    import torch
+    from repro_torch.core.forecaster import ARCH_PARAM_LEAVES
+    from repro_torch.kernels import ref
+    outs = []
+    for m in ens.members:
+        z = m.scaler.transform(wins)
+        with torch.no_grad():
+            pred = ref.lstm_seq(*[m.params[k] for k in
+                                  ARCH_PARAM_LEAVES["lstm"]],
+                                m._tensor(z)).cpu().numpy()
+        outs.append(m.scaler.inverse(z[:, -1] + pred))
+    outs = np.stack(outs)
+    return outs.mean(0), outs.std(0)
+
+
+def ensemble_plane(device, rows_fit, Z=PLANE_Z, ticks=22, tag="[11b]"):
+    """Phase 11 (b): one shared ``EnsembleForecaster`` (E=4, window 4,
+    hidden 50) fit on phase 3's cloud rows (one grouped launch an epoch at
+    G=E) drives ``ShardedControlPlane`` (S=8) over phase 4's Z targets and
+    rows: fused gang (one ``lstm_seq_grouped`` launch a forecasting tick at
+    G=E, N=Z) and per shard (one a shard at N~Z/S), each against the
+    ``FleetController`` with the same model, tick by tick.  The confidence
+    threshold is the median ensemble std of the first forecasting tick's
+    windows, so the gate sends about half the targets reactive.  Returns
+    the fit's and each run's counts, and the model."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (FleetController, PPAConfig,
+                                  ShardedControlPlane, Snapshot, TargetSpec)
+    from repro_torch.core.forecaster import EnsembleForecaster, stack_params
+    from repro_torch.kernels import lstm_seq as seq, ref
+    reset_launch_counts()
+    ens = EnsembleForecaster(n_members=ENSEMBLE_E, window=WINDOW,
+                             hidden=HIDDEN, epochs=ENSEMBLE_EPOCHS,
+                             device=device)
+    t0 = time.perf_counter()
+    ens.fit(rows_fit, from_scratch=True)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    fit_s = time.perf_counter() - t0
+    launches = launch_counts()
+    expect, _ = expect_zero(launches)
+    expect["lstm_seq_grouped"] = ENSEMBLE_EPOCHS
+    fit = {"fit_s": fit_s, "launches": launches, "expect": expect,
+           "paths": lstm_paths(), "expect_paths": expect_lstm_paths(
+               lstm_seq=dict(row_blocked=ENSEMBLE_EPOCHS))}
+    check(ens.valid(), f"{tag}: the ensemble's fit is not valid")
+    member0 = ens.members[0]
+    specs, probe = plane_targets(member0, Z)
+    names = [s.name for s in specs]
+    shared = [TargetSpec(s.name, s.policy) for s in specs]
+    levels = [next(probe) for _ in range(WINDOW + 1)]
+    first = np.stack(levels[1:], axis=1)             # (Z, W, M)
+    thr = float(np.median(ens.predict_batch(first)[1][:, 0]))
+    cfg = PPAConfig(threshold=100.0, stabilization_s=60.0,
+                    confidence_threshold=thr)
+
+    def run_plane(label, fused):
+        _, rows = plane_targets(member0, Z)
+        plane = ShardedControlPlane(cfg, shared, model=ens,
+                                    n_shards=PLANE_SHARDS,
+                                    coalesce_dispatch=fused)
+        cur = np.full(Z, 2, np.int64)
+        reps_log, tick_ms, n_fc, n_pred, n_launch = [], [], 0, 0, 0
+        wins = []
+        reset_launch_counts()
+        for k in range(1, ticks + 1):
+            level = next(rows)
+            wins = (wins + [level])[-WINDOW:]
+            plane.observe_batch(15.0 * k, level)
+            t0 = time.perf_counter()
+            res = plane.control_step(15.0 * k, 64, cur)
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+            reps, _, _, fc = plane_arrays(plane, res)
+            reps_log.append(reps)
+            n_fc += fc
+            # a shard record: (t, final, key, predicted, conf, maxr, means,
+            # cand); one launch a tick fused, one a shard with candidates
+            recs = [res._by_shard[id(shard)] for shard, _ in plane._shard_rows]
+            n_pred += sum(int(r[3].sum()) for r in recs)
+            with_cand = sum(bool(r[7].any()) for r in recs)
+            n_launch += min(with_cand, 1) if fused else with_cand
+            cur = np.clip(reps, 1, 64)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        launches = launch_counts()
+        paths = lstm_paths()
+        plane.shutdown()
+        expect, _ = expect_zero(launches)
+        expect["lstm_seq_grouped"] = n_launch
+        tk = np.asarray(tick_ms[WINDOW + 1:])
+        rec = {"label": label, "ticks": ticks,
+               "tick_ms_p50": float(np.percentile(tk, 50)),
+               "tick_ms_max": float(tk.max()),
+               "forecasts": n_fc, "proactive": n_pred,
+               "proactive_share": n_pred / max(n_fc, 1),
+               "launches": launches, "expect": expect, "paths": paths,
+               "expect_paths": expect_lstm_paths(lstm_seq=dict(
+                   row_blocked=n_launch))}
+        log(f"{tag} {label}: Z={Z}, S={PLANE_SHARDS}, {ticks} ticks, "
+            f"{n_launch} grouped launches; steady tick p50 "
+            f"{rec['tick_ms_p50']:.2f} ms, max {rec['tick_ms_max']:.2f} ms; "
+            f"{n_pred} of {n_fc} forecasts proactive "
+            f"({rec['proactive_share']:.3f}) at the confidence threshold "
+            f"{thr:.4g}")
+        return rec, reps_log, np.stack(wins, axis=1)
+
+    gang, reps_gang, wins = run_plane("fused gang", True)
+    per_shard, reps_shard, _ = run_plane("per shard", False)
+    reactive = gang["forecasts"] - gang["proactive"]
+    check(0 < gang["proactive"] and reactive > 0,
+          f"{tag}: the confidence gate sent {reactive} of "
+          f"{gang['forecasts']} forecast targets reactive")
+    # the FleetController with the same shared model, on the same rows
+    _, rows = plane_targets(member0, Z)
+    ctrl = FleetController(cfg, shared, model=ens)
+    cur = {n: 2 for n in names}
+    want = []
+    t0 = time.perf_counter()
+    for k in range(1, ticks + 1):
+        level = next(rows)
+        for i, n in enumerate(names):
+            ctrl.observe(n, Snapshot(15.0 * k, level[i]))
+        res = ctrl.control_step(15.0 * k, 64, cur)
+        want.append(np.array([res[n].replicas for n in names]))
+        cur = {n: max(1, min(64, r.replicas)) for n, r in res.items()}
+    ctrl_ms = (time.perf_counter() - t0) * 1e3 / ticks
+    for label, got in (("fused gang", reps_gang), ("per shard", reps_shard)):
+        miss = _first_mismatch(got, want)
+        check(miss is None, f"{tag} {label}: replicas differ from the "
+              f"FleetController's: {miss}")
+    # the last tick's windows: the one grouped launch against the member
+    # loop through the plain version on the card, then its times
+    mean, std = ens.predict_batch(wins)
+    pm, ps = member_loop_plain(ens, wins)
+    rel_m = float(np.max(np.abs(mean - pm) / np.maximum(np.abs(pm), 1.0)))
+    rel_s = float(np.max(np.abs(std - ps)) / max(np.abs(pm).max(), 1.0))
+    check(rel_m <= PLAIN_REL and rel_s <= PLAIN_REL,
+          f"{tag}: ensemble vs the member loop, means {rel_m}, stds {rel_s}")
+    out = {"fit": fit, "gang": gang, "per_shard": per_shard,
+           "threshold": thr, "controller_tick_ms": ctrl_ms,
+           "member_loop_rel": [rel_m, rel_s]}
+    if device.type == "cuda":
+        stacked = stack_params(ens.members)
+        leaves = [stacked[k] for k in ("Wx", "Wh", "b", "Wo", "bo")]
+        z = member0._tensor(np.stack([m.scaler.transform(wins)
+                                      for m in ens.members]))
+        with torch.no_grad():
+            plan = seq.plan_of(Z, WINDOW, M, HIDDEN, M, False, G=ENSEMBLE_E)
+            grid = seq.launch_grid(plan, ENSEMBLE_E, Z,
+                                   seq.n_sm_of(device.index or 0))
+            check(grid > ENSEMBLE_E, f"{tag}: the grouped launch at "
+                  f"G={ENSEMBLE_E} runs on {grid} CTAs")
+            kern = lambda: seq.lstm_seq_grouped(*leaves, z)     # noqa: E731
+            plain = lambda: ref.lstm_seq_grouped(*leaves, z)    # noqa: E731
+            err = float((kern() - plain()).abs().max())
+            check(err <= FWD_TOL, f"{tag}: grouped G={ENSEMBLE_E} N={Z} "
+                  f"max_abs_err {err}")
+            out["grouped"] = dict(
+                G=ENSEMBLE_E, N=Z, ctas=grid, kernel=plan.kernel,
+                rows=plan.rows * plan.groups, max_abs_err=err,
+                call_ms=time_ms(kern, 50),
+                kernel_ms=kernel_device_ms(kern, symbol_of(
+                    "lstm_seq_grouped")),
+                plain_ms=time_ms(plain, 20),
+                **bound(ENSEMBLE_E, ENSEMBLE_E, Z, WINDOW, M, HIDDEN, M))
+        gr = out["grouped"]
+        log(f"{tag} grouped launch G={ENSEMBLE_E} N={Z}: {plan.kernel} "
+            f"kernel, {gr['rows']} rows an item, {grid} CTAs; kernel "
+            f"{gr['kernel_ms']:.4f} ms, call {gr['call_ms']:.4f} ms, bound "
+            f"{gr['bound_ms']:.4f} ms ({gr['bound_by']}), plain "
+            f"{gr['plain_ms']:.4f} ms, max_abs_err {err:.3g}")
+    log(f"{tag} every run's replicas equal the FleetController's tick by "
+        f"tick (its tick {ctrl_ms:.1f} ms on average); the ensemble's "
+        f"forecast vs the member loop through the plain version: means "
+        f"rel {rel_m:.3g}, stds rel {rel_s:.3g}; fit {fit_s:.2f} s")
+    return out, ens
+
+
+def chaos_federation(device, model, resilience, tag="[11c]"):
+    """Phase 11 (c), one lane of benchmarks/bench_chaos.py's federation:
+    F=4 serving fleets under one ``ShardedControlPlane`` (S=2, SLA
+    policies on the window p95, the guard armed) and the chip arbiter,
+    driven by the seed-1 tape of storms, blackouts, forecaster stalls and
+    shard crashes and by closed-loop retrying clients; ``resilience`` on
+    or off.  ``model`` is the shared ARIMA-d1, fitted on the card: no
+    kernel launches.  SLA-violation seconds as the benchmark scores them
+    (the completed requests' window p95 over 2 s past the warm-up)."""
+    import numpy as np
+    from repro_torch.core import (GuardrailConfig, PPAConfig,
+                                  ShardedControlPlane, SLAPolicy, TargetSpec)
+    from repro_torch.serving.fleet import FleetConfig, batched_p95
+    from repro_torch.serving.multi_fleet import FleetSpec, MultiFleetSim
+    from repro_torch.sim.chaos import ChaosConfig
+    from repro_torch.workloads.scenarios import (ClientConfig,
+                                                 make_chaos_scenario)
+    F, w = CHAOS_F, 15.0
+    budget = F * 16
+    specs = [FleetSpec(f"fleet-{i}", FleetConfig(
+        total_chips=budget, chips_per_replica=1, slots_per_replica=2,
+        prefill_s=0.1, control_interval_s=w, spawn_s=30.0,
+        seed=CHAOS_SEED + i)) for i in range(F)]
+    cfg = PPAConfig(threshold=1.2, key_metric_idx=1, stabilization_s=60.0,
+                    guard=GuardrailConfig(), resilience=resilience)
+    plane = ShardedControlPlane(
+        cfg, [TargetSpec(s.name, SLAPolicy(1.2, 4, 0.35), min_replicas=4)
+              for s in specs], model=model, n_shards=2, async_ticks=False)
+    sim = MultiFleetSim(specs, budget, plane, batch=True, columnar=True)
+    scen = make_chaos_scenario(
+        [s.name for s in specs], t_end=CHAOS_T, seed=CHAOS_SEED,
+        chaos_cfg=ChaosConfig(
+            window_s=w, storm_start_p=0.10, storm_stop_p=0.5,
+            blackout_rate_per_h=10.0, blackout_lo_s=120.0,
+            blackout_hi_s=300.0, stall_rate_per_h=3.0, stall_s=3.0,
+            crash_rate_per_h=15.0, crash_down_ticks=2),
+        client_cfg=ClientConfig(rate_per_s=16.0, window_s=w, n_tokens=8,
+                                retry_threshold=SLA_S, retry_frac=0.3,
+                                max_retries=2, backoff_base_s=4.0),
+        n_shards=2)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    sim.run({}, CHAOS_T, scenario=scen)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    paths = lstm_paths()
+    n_win = int(np.ceil(CHAOS_T / w))
+    segs, rows_all, done_all = [], 0, 0
+    for f in sim.fleets.values():
+        rows = f.completed_log.view()
+        rows_all += len(rows)
+        done = rows[np.isfinite(rows["completion"])]
+        done_all += len(done)
+        resp = done["completion"] - done["arrival"]
+        wi = np.minimum((done["completion"] // w).astype(np.int64), n_win - 1)
+        order = np.argsort(wi, kind="stable")
+        wi, resp = wi[order], resp[order]
+        bounds = np.searchsorted(wi, np.arange(n_win + 1))
+        segs.extend(resp[bounds[k]:bounds[k + 1]] for k in range(n_win))
+    p95 = batched_p95(segs).reshape(F, n_win)
+    viol = p95[:, WARMUP_WIN:] > SLA_S
+    deg = plane.degraded_stats()
+    plane.shutdown()
+    stats = sim.completion_stats()
+    lane = "on" if resilience is not None else "off"
+    check(done_all == rows_all == stats["count"] > 0,
+          f"{tag} chaos {lane}: {done_all} of {rows_all} requests completed")
+    check(sim.peak_chips() <= budget,
+          f"{tag} chaos {lane}: peak {sim.peak_chips()} chips > {budget}")
+    if resilience is not None:
+        check(all(deg.get(k, 0) > 0 for k in ("stale_targets", "failovers",
+                                               "snapshots")),
+              f"{tag} chaos on: degraded-mode counters {deg}")
+    expect, expect_paths = expect_zero(launches)
+    rec = {"lane": lane, "wall_s": wall, "rtf": CHAOS_T / wall,
+           "chaos_events": len(scen.chaos),
+           "chaos_signature": scen.chaos.signature(),
+           "sla_violation_s": float(viol.sum() * w),
+           "completions": int(stats["count"]),
+           "peak_chips": sim.peak_chips(), "degraded": deg,
+           "retries": int(sum(c.total_retries
+                              for c in scen.clients.values())),
+           "launches": launches, "expect": expect, "paths": paths,
+           "expect_paths": expect_paths}
+    log(f"{tag} chaos federation F={F}, {CHAOS_T:.0f} s, seed "
+        f"{CHAOS_SEED} ({len(scen.chaos)} events), resilience {lane}: "
+        f"SLA violation {rec['sla_violation_s']:.0f} s, "
+        f"{rec['completions']} requests all completed, peak "
+        f"{rec['peak_chips']} of {budget} chips, {rec['retries']} retries, "
+        f"degraded {deg}; wall {wall:.2f} s, RTF {rec['rtf']:.1f}")
+    return rec
+
+
+def digital_twin(device, model, label, tag="[11c]"):
+    """Phase 11 (c), benchmarks/bench_fleet_scale.py's digital twin at
+    10^4 pods: F=64 windowed fleets pinned at P/F replicas of one chip
+    under one ``ShardedControlPlane`` (S=8, async ticks, fused gang) and
+    the arbiter, 300 simulated seconds at load 0.05, with ``model`` as the
+    plane's shared forecaster: the prefit ARIMA-d1 (no launch) or phase
+    11 (b)'s ensemble (one grouped launch a forecasting tick at G=4,
+    N<=64).  Real-time factor, wall time, completions and the budget."""
+    import numpy as np
+    from repro_torch.core import (PPAConfig, ShardedControlPlane,
+                                  TargetSpec, ThresholdPolicy)
+    from repro_torch.serving.fleet import FleetConfig
+    from repro_torch.serving.multi_fleet import FleetSpec, MultiFleetSim
+    from repro_torch.workloads import poisson_arrivals
+    P, F = TWIN_P, TWIN_F
+    per = P // F
+    rate = TWIN_LOAD * per * 8 / 2.1
+    rng = np.random.default_rng(0)
+    reqs = {}
+    for i in range(F):
+        arr = poisson_arrivals(rate, TWIN_T, 15.0, seed=100 + i)
+        reqs[f"fleet-{i}"] = (arr.times, rng.integers(
+            16, 64, len(arr.times)).astype(float))
+    events = sum(len(t) for t, _ in reqs.values())
+    specs = [FleetSpec(f"fleet-{i}", FleetConfig(
+        total_chips=P, chips_per_replica=1, seed=i)) for i in range(F)]
+    plane = ShardedControlPlane(
+        PPAConfig(threshold=100.0, stabilization_s=0.0),
+        [TargetSpec(s.name, ThresholdPolicy(100.0, 1), min_replicas=per)
+         for s in specs], model=model, n_shards=8, async_ticks=True)
+    sim = MultiFleetSim(specs, P, plane, batch=True, columnar=True)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    sim.run(reqs, TWIN_T)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    paths = lstm_paths()
+    fc_ticks = sorted({rec[0] for shard in plane.shards
+                       for rec in shard.ticks if rec[7].any()})
+    plane.shutdown()
+    stats = sim.completion_stats()
+    check(stats["count"] == events, f"{tag} twin {label}: "
+          f"{stats['count']} of {events} requests completed")
+    check(sim.peak_chips() <= P, f"{tag} twin {label}: peak "
+          f"{sim.peak_chips()} chips > {P}")
+    check(fc_ticks, f"{tag} twin {label}: no forecasting tick")
+    expect, expect_paths = expect_zero(launches)
+    if model.is_bayesian:
+        expect["lstm_seq_grouped"] = len(fc_ticks)
+        expect_paths = expect_lstm_paths(lstm_seq=dict(
+            row_blocked=len(fc_ticks)))
+    streaming = all(f.completed_log.streaming for f in sim.fleets.values())
+    rec = {"label": label, "P": P, "fleets": F, "sim_s": TWIN_T,
+           "events": events, "wall_s": wall, "rtf": TWIN_T / wall,
+           "forecast_ticks": len(fc_ticks), "streaming_logs": streaming,
+           "peak_chips": sim.peak_chips(), "launches": launches,
+           "expect": expect, "paths": paths, "expect_paths": expect_paths}
+    log(f"{tag} digital twin P={P} ({F} fleets, {TWIN_T:.0f} s, load "
+        f"{TWIN_LOAD}), {label}: {events} requests all completed, peak "
+        f"{rec['peak_chips']} of {P} chips, {len(fc_ticks)} forecasting "
+        f"ticks; wall {wall:.2f} s, RTF {rec['rtf']:.1f}x realtime "
+        f"(streaming logs {streaming})")
+    return rec
+
+
+def federation(device, ens, tag="[11c]"):
+    """Phase 11 (c): the shared ARIMA-d1 fit on the card (the twin's
+    synthetic prefit series) beside the sequential plain version's fit on
+    the CPU; the chaos federation with resilience off and on; the digital
+    twin with the ARIMA-d1 and with phase 11 (b)'s ensemble."""
+    import numpy as np
+    import torch
+    from repro_torch.core.forecaster import (ARIMAD1Forecaster,
+                                             _arma_fit_plain)
+    rng = np.random.default_rng(42)
+    series = np.abs(rng.normal(100.0, 10.0, (32, 5)))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    model = ARIMAD1Forecaster(device=device).fit(series)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    check(sum(launch_counts().values()) == 0,
+          f"{tag}: the ARMA fit launched a kernel")
+    z = model._series_for_fit(model.scaler.transform(series))
+    d = torch.tensor(np.ascontiguousarray(z.T, np.float32))
+    t0 = time.perf_counter()
+    theta, eps_T, _ = _arma_fit_plain(d, model.steps)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    # that series is differenced white noise: its MA roots sit at the clip
+    # (-0.98), where Adam's trajectory is chaotic in float32 and any two
+    # evaluations part (ROADMAP.md section 3), so its gap is logged; the
+    # fit is held to its plain version on a well-posed series (an
+    # integrated AR(1), T=350, 100 steps), every metric at once
+    drift = max(float(np.abs(model.theta - theta.numpy()).max()),
+                float(np.abs(model.eps_T - eps_T.numpy()).max()))
+    y = np.zeros(350)
+    for t in range(1, 350):
+        y[t] = 0.8 * y[t - 1] + rng.normal(0, 0.5)
+    ar = np.stack([np.cumsum(y) * (m + 1) + 10 * m for m in range(5)], 1)
+    held = ARIMAD1Forecaster(steps=100, device=device).fit(ar)
+    za = held._series_for_fit(held.scaler.transform(ar))
+    ta, ea, _ = _arma_fit_plain(
+        torch.tensor(np.ascontiguousarray(za.T, np.float32)), 100)
+    err = max(float(np.abs(held.theta - ta.numpy()).max()),
+              float(np.abs(held.eps_T - ea.numpy()).max()))
+    check(err <= 1e-5 and sum(launch_counts().values()) == 0,
+          f"{tag}: the ARMA fit on the card vs its sequential plain "
+          f"version: max abs err {err}, launches {launch_counts()}")
+    log(f"{tag} ARIMA-d1 fit ({model.steps} Adam steps, T={len(z)}, M=5): "
+        f"{fit_ms:.1f} ms on the card (matrix form), sequential plain "
+        f"version {plain_ms:.1f} ms on the CPU, max abs gap {drift:.3g} "
+        f"(MA coefficients {np.round(model.theta[:, 2], 3).tolist()}); on "
+        f"an integrated AR(1) (T=350, 100 steps) within {err:.3g} of the "
+        f"plain version")
+    out = {"arma_fit_ms": fit_ms, "arma_plain_cpu_ms": plain_ms,
+           "arma_prefit_gap": drift, "arma_fit_err": err}
+    out["chaos_off"] = chaos_federation(device, model, None, tag)
+    from repro_torch.core import ResilienceConfig
+    out["chaos_on"] = chaos_federation(device, model, ResilienceConfig(
+        stale_ttl_s=20.0, forecast_deadline_s=2.0, snapshot_every=2), tag)
+    out["twin_arima"] = digital_twin(device, model, "ARIMA-d1", tag)
+    out["twin_ensemble"] = digital_twin(device, ens, "ensemble", tag)
+    return out
+
+
+def autotune_run(device, series, tag="[11d]"):
+    """Phase 11 (d): ``autotune`` with the default candidates (ARMA,
+    ARIMA-d1, LSTM at windows 1 and 4, a 3-member ensemble) on phase 3's
+    cloud-zone series on the card.  The exact launches follow from the
+    candidates, the walk-forward points and the winner: a fit's forward an
+    epoch (the LSTMs shared-weight at N=T-W, the ensemble grouped at G=3),
+    a forecast's one shared launch at B=1 a member, the winner's forecasts
+    again for both key-metric candidates, and its refit on the whole
+    series."""
+    import numpy as np
+    import torch
+    from repro_torch.core.autotune import autotune
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = autotune(series, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    paths = lstm_paths()
+    split = max(int(len(series) * (1 - 0.33)), 16)
+    # (fit epochs, forecast launches a point) of each default candidate:
+    # every candidate fits and walks the validation points once, the
+    # winner walks them again for both key-metric candidates and refits
+    cands = {"arma": (0, 0), "arima_d1": (0, 0), "lstm_w1": (150, 1),
+             "lstm_w4": (150, 1), "ensemble": (80, 3)}
+    pts = len(range(split, len(series) - 1, 2))
+    fits = {"lstm_seq": 0, "lstm_seq_grouped": 0}
+    fc = 0
+    for kind, (epochs, per) in cands.items():
+        fit_kernel = ("lstm_seq_grouped" if kind == "ensemble"
+                      else "lstm_seq")
+        winner = kind == rep.best_kind
+        fits[fit_kernel] += epochs * (1 + winner)
+        fc += per * pts * (1 + 2 * winner)
+    expect, _ = expect_zero(launches)
+    expect.update(lstm_seq=fits["lstm_seq"] + fc,
+                  lstm_seq_grouped=fits["lstm_seq_grouped"])
+    expect_paths = expect_lstm_paths(lstm_seq=dict(
+        row_blocked=sum(fits.values()), per_target=fc))
+    check(rep.model.valid(), f"{tag}: the refitted winner is not valid")
+    check(all(np.isfinite(v) for v in rep.val_mse.values()),
+          f"{tag}: val_mse {rep.val_mse}")
+    rec = {"val_mse": rep.val_mse, "best_kind": rep.best_kind,
+           "key_metric_idx": rep.key_metric_idx,
+           "key_metric_scores": rep.key_metric_scores, "wall_s": wall,
+           "series": len(series), "launches": launches, "expect": expect,
+           "paths": paths, "expect_paths": expect_paths}
+    log(f"{tag} autotune on {len(series)} cloud rows: val_mse "
+        f"{ {k: round(v, 5) for k, v in rep.val_mse.items()} }, best "
+        f"{rep.best_kind}, key metric {rep.key_metric_idx} (scores "
+        f"{ {k: round(v, 5) for k, v in rep.key_metric_scores.items()} }); "
+        f"wall {wall:.2f} s")
+    return rec
+
+
 # --------------------------------------------------------------- phase 7 --
 def harness(device, minutes=30, pretrain_s=HARNESS_PRETRAIN_S, tag="[7]"):
     """The paper's §5 protocol on the card (tests/test_system.py): pretrain
@@ -3292,12 +4019,14 @@ def main() -> int:
     loop = closed_loop(device)
     check(loop["fit_batch"] == fit_batch, "fit batch differs from phase 2")
     lstm_base = loop.pop("base_model")
+    cloud_rows = loop.pop("cloud_rows")
     plane = plane_tick(device, lstm_base)
     lane = lane_path(device, *plane.pop("lane_inputs"))
     attn_loop = closed_loop(device, arch="attn", tag="[5]")
     check(attn_loop["fit_batch"] == attn_fit_batch,
           "attn fit batch differs from phase 2")
     attn_base = attn_loop.pop("base_model")
+    attn_loop.pop("cloud_rows")
     attn_plane = plane_tick(device, attn_base, tag="[6]")
     attn_plane.pop("lane_inputs")
     check(attn_plane["refit_n"] == PLANE_FIT_ROWS - ATTN_WINDOW,
@@ -3317,6 +4046,15 @@ def main() -> int:
     attn_planes = sharded_planes(device, attn_base, attn_plane)
     plane.pop("replicas")
     attn_plane.pop("replicas")
+    # phase 11: the rest of the forecaster zoo, autotune and the serving
+    # federation
+    t11 = time.perf_counter()
+    demos = {kind: guardrail_demo(device, kind)
+             for kind in ("ensemble", "arima_d1")}
+    zoo_plane, ens = ensemble_plane(device, cloud_rows)
+    fed = federation(device, ens)
+    tune = autotune_run(device, cloud_rows)
+    log(f"[11] phase 11 took {time.perf_counter() - t11:.1f} s")
     launches = {}
     for tag, phase in (("[3] closed loop", loop), ("[4] plane", plane),
                        ("[4] lstm_cell lane", lane),
@@ -3328,7 +4066,17 @@ def main() -> int:
                        *((f"[10] {arch} {rec['label']}", rec)
                          for arch, runs in (("lstm", planes),
                                             ("attn", attn_planes))
-                         for rec in runs.values())):
+                         for rec in runs.values()),
+                       *((f"[11a] guardrail demo {k}", rec)
+                         for k, rec in demos.items()),
+                       ("[11b] ensemble fit", zoo_plane["fit"]),
+                       ("[11b] ensemble plane, fused gang", zoo_plane["gang"]),
+                       ("[11b] ensemble plane, per shard",
+                        zoo_plane["per_shard"]),
+                       *((f"[11c] {k}", fed[k]) for k in (
+                           "chaos_off", "chaos_on", "twin_arima",
+                           "twin_ensemble")),
+                       ("[11d] autotune", tune)):
         got, want = phase.pop("launches"), phase.pop("expect")
         log(f"{tag} launches {got}, the path's count {want}")
         check(got == want, f"{tag} launches {got} != {want}")
@@ -3345,7 +4093,9 @@ def main() -> int:
     phases = {"loop": loop, "plane": plane, "lane": lane,
               "attn_loop": attn_loop, "attn_plane": attn_plane,
               "harness": paper, "serving": serve, "serving_ssm": serve_ssm,
-              "sharded_planes": planes, "attn_sharded_planes": attn_planes}
+              "sharded_planes": planes, "attn_sharded_planes": attn_planes,
+              "guardrail_demos": demos, "ensemble_plane": zoo_plane,
+              "federation": fed, "autotune": tune}
     log(f"[summary] {json.dumps(phases)}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f} s")
 

@@ -1,11 +1,14 @@
 # The paper's primary contribution, ported: the Proactive Pod Autoscaler and
-# its substrate -- the LSTM and attention forecasters, Evaluator (Alg. 1),
-# static policies, Updater (3 update policies), the batched FleetController,
-# the sharded control plane and the reactive HPA baseline (Eq. 1).
+# its substrate -- the forecaster zoo (LSTM, attention, ARMA / ARIMA, the
+# deep ensemble), Evaluator (Alg. 1), static policies, Updater (3 update
+# policies), the batched FleetController, the sharded control plane and the
+# reactive HPA baseline (Eq. 1).
 from repro_torch.core.metrics import (METRIC_NAMES, N_METRICS, KEY_CPU,
                                       KEY_CUSTOM, MetricsHistory, Snapshot)
 from repro_torch.core.forecaster import (Forecaster, LSTMForecaster,
-                                         AttnLSTMForecaster, make_forecaster)
+                                         AttnLSTMForecaster,
+                                         ARMAForecaster, ARIMAD1Forecaster,
+                                         EnsembleForecaster, make_forecaster)
 from repro_torch.core.policies import (ThresholdPolicy,
                                        TargetUtilizationPolicy, SLAPolicy,
                                        GuardrailConfig, ResilienceConfig,

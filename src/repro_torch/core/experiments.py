@@ -121,7 +121,8 @@ def run_scenario(tasks, t_end, *, scaler: str = "ppa", model_kind: str = "lstm",
                    else sim.cfg.sort_service_s)
             thr = rate_threshold * 0.7 / svc
         if scaler == "ppa":
-            kw = ({} if model_kind in ("arma", "arima", "arima_d1")
+            kw = ({"device": device}
+                  if model_kind in ("arma", "arima", "arima_d1")
                   else {"window": window, "device": device})
             cfg = PPAConfig(key_metric_idx=key_metric_idx, threshold=thr,
                             update_interval_s=update_interval_s,

@@ -1,5 +1,5 @@
-"""Workload forecasters in PyTorch -- the LSTM and attention half of the JAX
-package's ``core/forecaster.py``.
+"""Workload forecasters in PyTorch -- the port of the JAX package's
+``core/forecaster.py``.
 
 The paper's Keras LSTM(50)+ReLU-dense model and the Attention-Double-LSTM,
 following the model protocol of §4.2.2: input = the last ``window`` rows of
@@ -16,13 +16,19 @@ the batched refit of Z models), on the CPU its plain version.  There is no
 switch between the two: the device decides.  A forecaster built without a
 device runs on the card, and raises where there is none.
 
+The ARMA(1,1) forecasters (the paper's Eq. 3 on levels, and ARIMA(1,1,1)
+on first differences) fit every metric at once on the model's device: the
+conditional-least-squares residual recurrence is linear in the residuals,
+so one Adam step is a few batched matrix products over the metrics
+(``_arma_fit``); ``_arma_fit_plain`` is the sequential recurrence it is held
+against.  Their forecasts are closed-form numpy.  The deep ensemble forecasts
+its E members x Z targets in one launch of the grouped kernel.
+
 The forecaster protocol:
     fit(series (T, M), from_scratch=bool)   -- (re)train
     predict(recent (W, M)) -> (mean (M,), std (M,) | None)
     predict_batch(recents (Z, T, M)) -> (means (Z, M), stds (Z, M) | None)
     valid() / is_bayesian / save(path) / load(path)
-
-The ARMA and ensemble forecasters are later slices of the port.
 """
 from __future__ import annotations
 
@@ -499,11 +505,21 @@ def lstm_fit_batch_stacked(models: list["LSTMForecaster"], serieses,
     Preconditions for stacking: homogeneous architecture (window / hidden /
     residual / device / opt_cfg).  Unequal-length histories pad-and-mask
     (``_lstm_fit_stacked_masked``), so ragged fits match their sequential
-    counterparts.  Returns ``None`` only when the models can't stack (the
-    caller falls back to sequential fits); otherwise a ``BatchFitResult``
+    counterparts.  A list of ``EnsembleForecaster``s is flattened to its
+    members (E members x Z targets on the one group axis).  Returns ``None``
+    only when the models can't stack (the caller falls back to sequential
+    fits); otherwise a ``BatchFitResult``
     (already applied unless ``apply=False``; scratch and finetune models
     are grouped, one batched fit per group).
     """
+    if models and all(type(m) is EnsembleForecaster for m in models):
+        # E x Z: every ensemble's members ride the same stacked batch axis,
+        # each member fitting on its ensemble's series
+        flat = [mm for m in models for mm in m.members]
+        flat_series = [s for m, s in zip(models, serieses)
+                       for _ in m.members]
+        return lstm_fit_batch_stacked(flat, flat_series, from_scratch,
+                                      apply)
     if not models or not all(isinstance(m, LSTMForecaster) for m in models):
         return None
     m0 = models[0]
@@ -567,22 +583,304 @@ def lstm_fit_batch_stacked(models: list["LSTMForecaster"], serieses,
     return result.apply() if apply else result
 
 
-_LATER_SLICE = {
-    "arma": "ARMA / ARIMA", "arima": "ARMA / ARIMA",
-    "arima_d1": "ARMA / ARIMA", "ensemble": "the deep ensemble",
-}
+
+
+# ------------------------------------------------------------------ ARMA ---
+ARMA_LR = 5e-2
+ARMA_CLIP = 0.98     # the stationarity guard on (mu, phi, theta)
+_F32 = torch.float32
+
+
+def _arma_css_grad_matrix(n: int, device):
+    """The CSS loss of ARMA(1,1), d_t = mu + phi d_{t-1} + theta eps_{t-1}
+    + eps_t, its gradient and its residuals for every row of d (M, n + 1)
+    at once, in matrix form.
+
+    The residual recurrence eps_t = r_t - theta eps_{t-1}, with r_t = d_t -
+    (mu + phi d_{t-1}) and eps_{-1} = 0, is linear in eps: eps = P r with
+    the lower-triangular Toeplitz P[t, s] = (-theta)^(t-s).  Its derivatives
+    follow the same recurrence (d eps / d mu = -P 1, d eps / d phi =
+    -P d_prev, d eps / d theta = -P eps_prev), so the gradient of mean(eps^2)
+    needs u = P^T eps alone: g = -(2 / n) (sum u, u . d_prev, u . eps_prev).
+
+    P is built from the n powers (-theta)^k (``torch.pow`` on integral
+    float exponents) behind n - 1 zeros, q, as the strided view H[t, s] =
+    q[t + s]: H is P with its columns reversed (its upper triangle the
+    zeros), and symmetric, so P r = H r[::-1] and P^T eps = (H eps)[::-1].
+    A call is one pow over n values a row and two batched products."""
+    expo = torch.arange(n, dtype=_F32, device=device)
+
+    def grad(theta, d):
+        M = d.shape[0]
+        d_prev = d[:, :-1]
+        mu, phi, th = theta[:, 0:1], theta[:, 1:2], theta[:, 2:3]
+        r = d[:, 1:] - (mu + phi * d_prev)
+        q = torch.nn.functional.pad(torch.pow(-th, expo), (n - 1, 0))
+        H = q.as_strided((M, n, n), (2 * n - 1, 1, 1))
+        eps = (H @ r.flip(1)[:, :, None])[:, :, 0]
+        u = (H @ eps[:, :, None])[:, :, 0].flip(1)
+        eps_prev = torch.nn.functional.pad(eps[:, :-1], (1, 0))
+        c = -2.0 / n
+        g = torch.stack([c * u.sum(1), c * (u * d_prev).sum(1),
+                         c * (u * eps_prev).sum(1)], dim=1)
+        return (eps * eps).mean(1), g, eps
+
+    return grad
+
+
+def _arma_css_grad_plain(theta, d):
+    """The plain version of ``_arma_css_grad_matrix``'s function: the
+    sequential recurrence of the JAX package's scan, eps_t = d_t - (mu +
+    phi d_{t-1} + theta eps_{t-1}), with each derivative carried forward
+    beside it (De_t = -(1, d_{t-1}, eps_{t-1}) - theta De_{t-1})."""
+    M, T = d.shape
+    mu, phi, th = theta.unbind(1)
+    eps = d.new_zeros(M)
+    de = d.new_zeros((M, 3))
+    g = d.new_zeros((M, 3))
+    one = d.new_ones(M)
+    out = []
+    for t in range(1, T):
+        d_prev = d[:, t - 1]
+        de = -torch.stack([one, d_prev, eps], dim=1) - th[:, None] * de
+        eps = d[:, t] - (mu + phi * d_prev + th * eps)
+        g = g + eps[:, None] * de
+        out.append(eps)
+    eps = torch.stack(out, dim=1)
+    return (eps * eps).mean(1), g * (2.0 / (T - 1)), eps
+
+
+def _arma_adam(d, steps, lr, grad):
+    """``steps`` Adam steps from theta = 0 on the CSS loss of every row of d
+    (M, T), as the JAX package's ``_arima_fit_one`` takes them in float32:
+    bias corrections 1 - 0.9^(i+1) and 1 - 0.999^(i+1) in float32, eps 1e-8,
+    theta clipped to +-0.98 after each step.  ``grad(theta, d) -> (loss,
+    g, eps)``.  Returns theta (M, 3), eps_T (M,) -- the last residual under
+    the final theta, the forecast's state -- and the final loss (M,)."""
+    theta = d.new_zeros((d.shape[0], 3))
+    m = torch.zeros_like(theta)
+    v = torch.zeros_like(theta)
+    i1 = torch.arange(1, steps + 1, dtype=_F32, device=d.device)
+    c1 = 1 - torch.pow(torch.tensor(0.9, dtype=_F32, device=d.device), i1)
+    c2 = 1 - torch.pow(torch.tensor(0.999, dtype=_F32, device=d.device), i1)
+    for i in range(steps):
+        g = grad(theta, d)[1]
+        m = 0.9 * m + 0.1 * g
+        v = 0.999 * v + 0.001 * g * g
+        mh = m / c1[i]
+        vh = v / c2[i]
+        theta = theta - lr * mh / (torch.sqrt(vh) + 1e-8)
+        theta = theta.clamp(-ARMA_CLIP, ARMA_CLIP)
+    loss, _, eps = grad(theta, d)
+    return theta, eps[:, -1], loss
+
+
+def _arma_fit(d, steps: int = 400, lr: float = ARMA_LR):
+    """Fit ARMA(1,1) by conditional least squares on every row of d (M, T)
+    float32 at once, on d's device, in matrix form."""
+    return _arma_adam(d, steps, lr, _arma_css_grad_matrix(d.shape[1] - 1,
+                                                          d.device))
+
+
+def _arma_fit_plain(d, steps: int = 400, lr: float = ARMA_LR):
+    """``_arma_fit`` through the sequential recurrence (the plain version)."""
+    return _arma_adam(d, steps, lr, _arma_css_grad_plain)
+
+
+class ARMAForecaster(Forecaster):
+    """Paper-faithful Eq. 3: ARMA(1,1) on metric LEVELS, per metric.
+
+        y_t = mu + eps_t + theta_1 eps_{t-1} + phi_1 y_{t-1}
+
+    Fit once on the pretraining distribution, this model exhibits exactly
+    the 'significant shifts' under load-regime change the paper reports in
+    §6.1 (the mean term is anchored to the training regime).
+
+    ``fit`` runs every metric's CSS fit at once on ``device`` (``None``:
+    the card, raising where there is none; tests pass ``"cpu"``); the
+    forecasts are closed-form numpy."""
+
+    differenced = False   # ARIMAD1Forecaster flips this (beyond-paper)
+
+    def __init__(self, window: int = 1, steps: int = 400, device=None):
+        self.device = resolve_device(device)
+        self.window = window
+        self.steps = steps
+        self.scaler = Scaler()
+        self.theta = None      # (M, 3) float32
+        self.eps_T = None      # (M,) float64
+        self._fitted = False
+
+    def _series_for_fit(self, z):
+        return np.diff(z, axis=0) if self.differenced else z
+
+    def fit(self, series: np.ndarray, from_scratch: bool = False):
+        if len(series) < 8:
+            return self
+        self.scaler.fit(series)
+        z = self._series_for_fit(self.scaler.transform(series))
+        d = torch.as_tensor(np.ascontiguousarray(z.T, np.float32),
+                            device=self.device)
+        theta, eps_T, _ = _arma_fit(d, self.steps)
+        self.theta = theta.cpu().numpy()
+        self.eps_T = eps_T.cpu().numpy().astype(np.float64)
+        self._fitted = True
+        return self
+
+    def predict(self, recent: np.ndarray):
+        if not self._fitted:
+            raise RuntimeError("model not fitted")
+        z = self.scaler.transform(recent)
+        mu, phi, th = self.theta[:, 0], self.theta[:, 1], self.theta[:, 2]
+        if self.differenced:
+            d_last = z[-1] - z[-2] if len(z) >= 2 else np.zeros_like(z[-1])
+            y_next = z[-1] + mu + phi * d_last + th * self.eps_T
+        else:
+            y_next = mu + phi * z[-1] + th * self.eps_T
+        return self.scaler.inverse(y_next), None
+
+    def predict_batch(self, recents):
+        """Closed-form one-step forecast vectorised over Z targets -- pure
+        numpy, no per-target loop."""
+        if not self._fitted:
+            raise RuntimeError("model not fitted")
+        z = np.stack([self.scaler.transform(
+            np.asarray(r, np.float64)[-2:]) for r in recents])   # (Z, <=2, M)
+        mu, phi, th = self.theta[:, 0], self.theta[:, 1], self.theta[:, 2]
+        if self.differenced:
+            d_last = (z[:, -1] - z[:, -2] if z.shape[1] >= 2
+                      else np.zeros_like(z[:, -1]))
+            y_next = z[:, -1] + mu + phi * d_last + th * self.eps_T
+        else:
+            y_next = mu + phi * z[:, -1] + th * self.eps_T
+        return self.scaler.inverse(y_next), None
+
+    def valid(self):
+        return self._fitted and np.isfinite(self.theta).all()
+
+    def __getstate__(self):
+        d = dict(self.__dict__)
+        d["device"] = str(self.device)
+        return d
+
+    def __setstate__(self, d):
+        self.__dict__.update(d)
+        self.device = resolve_device(d["device"])
+
+
+class ARIMAD1Forecaster(ARMAForecaster):
+    """Beyond-paper: ARIMA(1,1,1) (first-differenced ARMA(1,1)).  On the
+    Prometheus 1-minute-MA metric this persistence-anchored variant turns
+    out to beat both paper models."""
+    differenced = True
+
+
+def arma_state_from_numpy(model: ARMAForecaster, theta, eps_T, mean, std):
+    """Install a fitted ARMA state -- theta (M, 3), eps_T (M,) and the
+    scaler's mean and std, as numpy (the JAX package's model carries them
+    so) -- on a port model, which then forecasts as that model does."""
+    model.theta = np.array(theta)
+    model.eps_T = np.array(eps_T)
+    model.scaler.mean = np.array(mean)
+    model.scaler.std = np.array(std)
+    model.scaler.fitted = True
+    model._fitted = True
+    return model
+
+
+# -------------------------------------------------------------- ensemble ---
+class EnsembleForecaster(Forecaster):
+    """Deep ensemble of LSTMs -- the Bayesian path of Algorithm 1: predictive
+    std across members is the (un)certainty compared against the PPA's
+    confidence threshold.  ``**kw`` (``device`` included) goes to every
+    member; member i is seeded i."""
+
+    is_bayesian = True
+
+    def __init__(self, n_members: int = 4, **kw):
+        self.members = [LSTMForecaster(seed=i, **kw) for i in range(n_members)]
+        self.window = self.members[0].window
+        self._stack_cache: dict = {}
+
+    def fit(self, series, from_scratch: bool = False):
+        """All E members at once (their params ride
+        ``lstm_fit_batch_stacked``'s group axis: one grouped launch an
+        epoch at G=E); heterogeneous members fall back to the member
+        loop."""
+        if lstm_fit_batch_stacked(self.members,
+                                  [series] * len(self.members),
+                                  from_scratch) is None:
+            for m in self.members:
+                m.fit(series, from_scratch=from_scratch)
+        return self
+
+    def predict(self, recent):
+        preds = np.stack([m.predict(recent)[0] for m in self.members])
+        return preds.mean(0), preds.std(0)
+
+    def predict_batch(self, recents):
+        """E members x Z targets in one launch of the grouped kernel (G=E
+        groups of N=Z windows): the members' params stacked on the group
+        axis (cached per member fit generation), each member's
+        scaler-transformed (Z, W, M) window batch stacked alongside.
+        Non-stackable members forecast one launch each."""
+        ms = self.members
+        m0 = ms[0]
+        sig = lstm_stack_signature(m0)
+        if not all(isinstance(m, LSTMForecaster) and m._fitted
+                   and lstm_stack_signature(m) == sig for m in ms):
+            preds = np.stack([m.predict_batch(recents)[0] for m in ms])
+            return preds.mean(0), preds.std(0)
+        if isinstance(recents, np.ndarray) and recents.ndim == 3:
+            wins = np.asarray(recents, np.float64)[:, -m0.window:]
+        else:
+            wins = np.stack([np.asarray(r, np.float64)[-m0.window:]
+                             for r in recents])
+        z = np.stack([m.scaler.transform(wins) for m in ms])  # (E, Z, W, M)
+        cache = self._stack_cache
+        gens = tuple(m._fit_count for m in ms)
+        if cache.get("gens") != gens:
+            cache["gens"] = gens
+            cache["stacked"] = stack_params(ms)
+        with torch.no_grad():
+            preds = grouped_forward(cache["stacked"], m0._tensor(z),
+                                    m0.arch).cpu().numpy()
+        if m0.residual:
+            preds = z[:, :, -1] + preds
+        means = np.stack([m.scaler.inverse(p) for m, p in zip(ms, preds)])
+        return means.mean(0), means.std(0)
+
+    def valid(self):
+        return all(m.valid() for m in self.members)
+
+    def __getstate__(self):
+        return {"members": [m.__getstate__() for m in self.members]}
+
+    def __setstate__(self, d):
+        # pickle and deepcopy skip __init__: rebuild the members from their
+        # own state
+        self._stack_cache = {}
+        members = []
+        for s in d["members"]:
+            m = LSTMForecaster.__new__(LSTMForecaster)
+            m.__setstate__(s)
+            members.append(m)
+        self.members = members
+        self.window = members[0].window if members else 1
 
 
 def make_forecaster(kind: str, **kw) -> Forecaster:
-    """The paper's ModelType argument.  The port has 'lstm' and 'attn'
-    (Attention-Double-LSTM); the other kinds of the JAX package raise until
-    their slice lands."""
+    """The paper's ModelType argument (mirrors ``make_policy``):
+    'lstm' | 'attn' (Attention-Double-LSTM) | 'arma' (paper Eq. 3) |
+    'arima_d1' (beyond-paper) | 'ensemble'."""
     if kind == "lstm":
         return LSTMForecaster(**kw)
     if kind == "attn":
         return AttnLSTMForecaster(**kw)
-    if kind in _LATER_SLICE:
-        raise NotImplementedError(
-            f"forecaster kind {kind!r} is not ported yet: "
-            f"{_LATER_SLICE[kind]} comes in a later slice of the port")
+    if kind in ("arma", "arima"):
+        return ARMAForecaster(**kw)
+    if kind == "arima_d1":
+        return ARIMAD1Forecaster(**kw)
+    if kind == "ensemble":
+        return EnsembleForecaster(**kw)
     raise ValueError(f"unknown forecaster kind {kind!r}")

@@ -47,8 +47,10 @@
 //
 // Both new kernels run persistent CTAs (grid <= SMs x CTAs an SM) that walk
 // work items: with weights per group, the groups g = blockIdx.x + i *
-// gridDim.x and each group's items; with shared weights, the items of all
-// groups, the one weight set copied once.  A group's weights (its "stage":
+// gridDim.x and each group's items, or, where there are fewer groups than
+// CTAs, each group's items spread over the grid / G CTAs of that group
+// (struct Items); with shared weights, the items of all groups, the one
+// weight set copied once.  A group's weights (its "stage":
 // Wx, Wh, b, Wo, bo, each padded to 16 bytes; Wx and Wh back to back form
 // the stacked (M + H, 4H) matrix) land in one of `slots` stage slots, each
 // with its own mbarrier; target i uses slot i % slots at parity
@@ -382,19 +384,44 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;
 }
 
-// Work items of a CTA of the persistent grid: with shared weights the
-// items of all groups (one weight set, "target" 0), else this CTA's groups
-// (targets) times `per_group` items each.
+// Work items of a CTA of the persistent grid, in one of three modes:
+//   * shared weights: the items of all groups (one weight set, "target" 0);
+//   * weights per group, no fewer groups than CTAs: this CTA's groups
+//     (targets) g = cta + i * grid, times `per_group` items each;
+//   * weights per group, fewer groups than CTAs ("split", grid > G): group g
+//     gets grid / G CTAs (the first grid % G groups one more); each loads
+//     its group's weights once, as its only target, and walks the group's
+//     items sub, sub + ctas, ... (sub: its rank among the group's CTAs).
+//     A few groups of many items (an ensemble's E members x Z targets) then
+//     fill the grid instead of running on G CTAs.
 struct Items {
     long long cta, grid, n_tg, n_items;
+    long long group, sub, ctas;   // split mode: the group, rank, CTAs of it
     int per_group, shared;
+    bool split;
 
     __device__ Items(int G, int per_group_, int shared_)
-        : cta(blockIdx.x), grid(gridDim.x), per_group(per_group_),
-          shared(shared_) {
+        : cta(blockIdx.x), grid(gridDim.x), group(0), sub(0), ctas(1),
+          per_group(per_group_), shared(shared_),
+          split(!shared_ && (long long)gridDim.x > G) {
         if (shared) {
             const long long total = (long long)G * per_group;
             n_items = total > cta ? (total - cta + grid - 1) / grid : 0;
+            n_tg = n_items > 0;
+        } else if (split) {
+            const long long base = grid / G, rem = grid - base * G;
+            const long long wide = rem * (base + 1);   // the first rem groups'
+            if (cta < wide) {
+                ctas = base + 1;
+                group = cta / ctas;
+                sub = cta - group * ctas;
+            } else {
+                ctas = base;
+                group = rem + (cta - wide) / base;
+                sub = cta - wide - (group - rem) * base;
+            }
+            n_items = per_group > sub ? (per_group - sub + ctas - 1) / ctas
+                                      : 0;
             n_tg = n_items > 0;
         } else {
             n_tg = G > cta ? (G - cta + grid - 1) / grid : 0;
@@ -403,7 +430,7 @@ struct Items {
     }
     // the weight set of target i
     __device__ long long weights(long long i) const {
-        return shared ? 0 : cta + i * grid;
+        return shared ? 0 : split ? group : cta + i * grid;
     }
     // item k -> group g, item b within the group, target i; whether it is
     // the first and the last item of its target
@@ -413,6 +440,12 @@ struct Items {
             const long long flat = cta + k * grid;
             g = flat / per_group;
             b = (int)(flat - g * per_group);
+            i = 0;
+            first = k == 0;
+            last = k == n_items - 1;
+        } else if (split) {
+            g = group;
+            b = (int)(sub + k * ctas);
             i = 0;
             first = k == 0;
             last = k == n_items - 1;

@@ -127,7 +127,8 @@ def _forward(Wx, Wh, b, h, c, x, shape):
     h2, c2 = torch.empty_like(h), torch.empty_like(c)
     if G == 0 or N == 0:
         return h2, c2
-    plan = seq.plan_of(N, 1, In, H, 0, shared, cell=True)
+    plan = seq.plan_of(N, 1, In, H, 0, shared, cell=True,
+                       G=None if shared else G)
     lib = seq.bound_lib()
     ptrs = [t.data_ptr() for t in (Wx, Wh, b, h, c, x, h2, c2)]
     rc = seq.on_device(idx, lambda stream: run(lib, plan, ptrs, G, N, In, H,

@@ -21,7 +21,10 @@ register kernel (one row an item, the weights in registers: the per-target
 forecast, the fits, the cell), the tiled kernel (RT rows a thread, the
 weights in shared memory: the refit) -- both persistent, each group's
 weights streamed into stage slots by bulk copies (``bulk_mask``) -- and the
-first port's general kernel for shapes neither takes.  ``PATH_LAUNCHES``
+first port's general kernel for shapes neither takes.  With weights per
+group and fewer groups than the persistent grid holds (an ensemble's E
+members x Z targets), each group gets grid // G CTAs that share its items
+(the split schedule, ``launch_grid``).  ``PATH_LAUNCHES``
 counts launches by path, the cell's included: ``per_target`` (one window a
 group: the stacked forecast, a B=1 forecast, the lane's cell step),
 ``row_blocked`` (more: the fits and the refit) and ``general``.
@@ -234,21 +237,32 @@ def _per_sm(smem, threads, launch):
                SM_CTAS, budget // warps)
 
 
-def _waves(items, shared, n_sm, per_sm):
-    """Items one CTA runs: all of its group's (weights per group), or its
-    share of the items of one group spread over the persistent grid."""
-    return -(-items // (n_sm * per_sm)) if shared else items
+def _waves(items, shared, n_sm, per_sm, G=None):
+    """Items one CTA runs of ``items`` a group: its share of one group's
+    items spread over the persistent grid (shared weights); all of its
+    group's (weights per group, ``G`` None or at least the grid); or, with
+    fewer groups than the grid holds, its share of its group's items over
+    the grid // G CTAs each group gets (the split schedule)."""
+    cap = n_sm * per_sm
+    if shared:
+        return -(-items // cap)
+    if G is None or G >= cap:
+        return items
+    return -(-items // (cap // G))
 
 
 def launch_plan(N, W, M, H, n_out, shared, *, n_sm=N_SM, kernel=None,
-                rows=None, slots=None, cell=False) -> Plan:
+                rows=None, slots=None, cell=False, G=None) -> Plan:
     """The launch of N windows a group (W steps, M inputs, hidden H, n_out
     outputs), weights shared by every group or one set a group; with
     ``cell`` the one-step cell (W = 1, M = In, no head; the register or the
-    general kernel).  Each kernel that takes the shape is costed by the
-    items one CTA runs times an item's time on the card (``REG_ROW_US``;
-    ``TILED_ITEM_US`` for RT rows a thread), counting one group where
-    weights are shared; the cheapest wins, the register kernel on a tie.
+    general kernel).  ``G``: the groups of a launch with weights per group
+    (None: at least as many as the grid holds), which the split schedule
+    spreads over the grid where they are fewer (``_waves``).  Each kernel
+    that takes the shape is costed by the items one CTA runs times an
+    item's time on the card (``REG_ROW_US``; ``TILED_ITEM_US`` for RT rows
+    a thread), counting one group where weights are shared; the cheapest
+    wins, the register kernel on a tie.
     Both take H <= ``MAX_H``; the general kernel takes the rest, and
     raises where not even one row fits.
     ``kernel``, ``rows`` and ``slots`` force a choice (design
@@ -264,7 +278,7 @@ def launch_plan(N, W, M, H, n_out, shared, *, n_sm=N_SM, kernel=None,
             smem = reg_smem_bytes(M, H, W, n_out, s, cell)
             if smem <= _MAX_SMEM:
                 per_sm = _per_sm(smem, threads, REG_LAUNCH)
-                plans.append((_waves(N, shared, n_sm, per_sm) * REG_ROW_US,
+                plans.append((_waves(N, shared, n_sm, per_sm, G) * REG_ROW_US,
                               Plan("reg", path, 1, 1, threads, smem, s,
                                    per_sm, sizes, shared, cell)))
                 break
@@ -278,7 +292,7 @@ def launch_plan(N, W, M, H, n_out, shared, *, n_sm=N_SM, kernel=None,
                 if smem <= _MAX_SMEM:
                     per_sm = _per_sm(smem, threads, TILED_LAUNCH)
                     items = _waves(-(-N // (rt * groups)), shared, n_sm,
-                                   per_sm)
+                                   per_sm, G)
                     plans.append((items * (fixed + per_row * rt * groups),
                                   Plan("tiled", path, rt, groups, threads,
                                        smem, s, per_sm, sizes, shared)))
@@ -303,13 +317,16 @@ def launch_plan(N, W, M, H, n_out, shared, *, n_sm=N_SM, kernel=None,
 
 
 def launch_grid(plan, G, N, n_sm=N_SM):
-    """CTAs of a launch: the persistent grid (one CTA per group, or per
-    item with shared weights, up to what the SMs hold), or the general
-    kernel's one CTA per (group, row block)."""
+    """CTAs of a launch: the persistent grid (one CTA per item with shared
+    weights, or where weights are per group and G is below what the SMs
+    hold -- the split schedule, grid // G CTAs a group --, else one CTA per
+    group; up to what the SMs hold), or the general kernel's one CTA per
+    (group, row block)."""
     items = G * -(-N // (plan.rows * plan.groups))
     if plan.kernel == "general":
         return items
-    return min(items if plan.shared else G, n_sm * plan.ctas_per_sm)
+    cap = n_sm * plan.ctas_per_sm
+    return min(items if plan.shared or G < cap else G, cap)
 
 
 def bulk_mask(ptrs, sizes):
@@ -369,13 +386,14 @@ def run(lib, plan, ptrs, out_ptr, G, N, W, M, H, n_out, idx, stream):
         plan.slots, mask, grid, stream)
 
 
-def plan_of(N, W, M, H, n_out, shared, cell=False):
-    """``launch_plan`` cached per shape."""
-    key = (N, W, M, H, n_out, shared, cell)
+def plan_of(N, W, M, H, n_out, shared, cell=False, G=None):
+    """``launch_plan`` cached per shape (``G`` where weights are per
+    group)."""
+    key = (N, W, M, H, n_out, shared, cell, G)
     plan = _plans.get(key)
     if plan is None:
         plan = _plans[key] = launch_plan(N, W, M, H, n_out, shared,
-                                         cell=cell)
+                                         cell=cell, G=G)
     return plan
 
 
@@ -442,7 +460,7 @@ def _forward(name, ws, xs, shape, out_shape):
     out = xs.new_empty(out_shape)
     if G == 0 or N == 0:
         return out
-    plan = plan_of(N, W, M, H, n_out, shared)
+    plan = plan_of(N, W, M, H, n_out, shared, G=None if shared else G)
     lib = _bound or bound_lib()
     ptrs = [t.data_ptr() for t in ws]
     ptrs.append(xs.data_ptr())

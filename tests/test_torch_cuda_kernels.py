@@ -878,3 +878,155 @@ def test_cuda_device_plane_engine_matches_plain(cuda_device, arch, W):
     rel = float((np.abs(outs["gang"] - want)
                  / np.maximum(np.abs(want), 1.0)).max())
     assert rel <= 1e-4, rel
+
+
+# ------------------------------------------- few groups and the zoo -------
+# the split schedule's edges: fewer groups than the persistent grid holds
+# (264 CTAs at two an SM), the grid not a multiple of G, and G past it
+SPLIT_G = (1, 3, 4, 5, 263, 265)
+SPLIT_N = (1, 115, 512, 4096)
+
+
+def test_launch_plan_keeps_the_earlier_paths_plans():
+    """Pure Python, no card: the plans of the stacked forecast (G=4096,
+    N=1), the refit (G=4096, N=16), the fits (shared, N=115 and N=1) and
+    the cell (the lane's G=4096 and the shared B=5) are those the plan
+    gave before the split schedule, whether or not G is given; at G=4,
+    N=4096 (an ensemble's forecast at plane scale) the grid holds more
+    CTAs than groups, and the cost counts grid // G CTAs a group."""
+    sizes, cell_sizes = (1000, 10000, 200, 250, 5), (1000, 10000, 200)
+    before = {
+        (1, 4, 5, 50, 5, False, False, 4096): tseq.Plan(
+            "reg", "per_target", 1, 1, 416, 48128, 1, 2, sizes, False),
+        (16, 4, 5, 50, 5, False, False, 4096): tseq.Plan(
+            "tiled", "row_blocked", 4, 4, 224, 100512, 2, 2, sizes, False),
+        (115, 4, 5, 50, 5, True, False, None): tseq.Plan(
+            "reg", "row_blocked", 1, 1, 416, 48128, 1, 2, sizes, True),
+        (1, 4, 5, 50, 5, True, False, None): tseq.Plan(
+            "reg", "per_target", 1, 1, 416, 48128, 1, 2, sizes, True),
+        (1, 1, 5, 50, 0, False, True, 4096): tseq.Plan(
+            "reg", "per_target", 1, 1, 416, 45376, 1, 2, cell_sizes, False,
+            True),
+        (5, 1, 5, 50, 0, True, True, None): tseq.Plan(
+            "reg", "row_blocked", 1, 1, 416, 45376, 1, 2, cell_sizes, True,
+            True)}
+    for (N, W, M, H, n_out, shared, cell, G), plan in before.items():
+        assert tseq.launch_plan(N, W, M, H, n_out, shared, cell=cell) == plan
+        assert tseq.launch_plan(N, W, M, H, n_out, shared, cell=cell,
+                                G=G) == plan
+        assert tseq.plan_of(N, W, M, H, n_out, shared, cell, G) == plan
+        assert tseq.launch_grid(plan, G or 1, N) == min(
+            (G or 1) * N if shared else G, 264)
+    plan = tseq.launch_plan(4096, 4, 5, 50, 5, False, G=4)
+    grid = tseq.launch_grid(plan, 4, 4096)
+    assert grid == 264 > 4
+    items = -(-4096 // (plan.rows * plan.groups))
+    cap = 132 * plan.ctas_per_sm
+    assert tseq._waves(items, False, 132, plan.ctas_per_sm, 4) == -(
+        -items // (cap // 4))
+    assert tseq._waves(items, False, 132, plan.ctas_per_sm) == items
+    for G in SPLIT_G:
+        for N in SPLIT_N:
+            p = tseq.launch_plan(N, 4, 5, 50, 5, False, G=G)
+            g = tseq.launch_grid(p, G, N)
+            per = -(-N // (p.rows * p.groups))
+            assert g == min(G * per if G < 132 * p.ctas_per_sm else G,
+                            132 * p.ctas_per_sm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", SPLIT_N)
+@pytest.mark.parametrize("G", SPLIT_G)
+def test_cuda_lstm_seq_split_schedule_matches_plain(cuda_device, G, N):
+    """Weights per group at the split schedule's edges: the wrapper's plan
+    and every register and tiled plan forced on the shape, through
+    ``lstm_seq.run`` on the grid ``launch_grid`` sizes (more CTAs than
+    groups wherever G is below it), against the plain version: float32
+    sums over M+H=55 terms in another order through 4 steps, 1e-4
+    absolute."""
+    rng = np.random.default_rng(G * 31 + N)
+    p = _on(_lstm_params(rng, (G,), 5, 50, 5), cuda_device)
+    xs = torch.tensor(rng.normal(0, 1, (G, N, 4, 5)).astype(np.float32),
+                      device=cuda_device)
+    want = tref.lstm_seq_grouped(*p, xs)
+    tseq.reset_launch_counts()
+    with torch.no_grad():
+        got = tseq.lstm_seq_grouped(*p, xs)
+    torch.cuda.synchronize()
+    assert tseq.LAUNCHES["lstm_seq_grouped"] == 1
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    lib = tseq._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    n_sm = tseq.n_sm_of(torch.cuda.current_device())
+    forced = [dict(kernel="reg")] + [dict(kernel="tiled", rows=r)
+                                     for r in tseq.TILED_ROWS]
+    for force in forced:
+        plan = tseq.launch_plan(N, 4, 5, 50, 5, False, G=G, **force)
+        grid = tseq.launch_grid(plan, G, N, n_sm)
+        if G < n_sm * plan.ctas_per_sm and G * N > G:
+            assert grid > G or plan.rows * plan.groups >= N, (force, grid)
+        out = torch.full((G, N, 5), float("nan"), device=cuda_device)
+        rc = tseq.run(lib, plan, [t.data_ptr() for t in p] + [xs.data_ptr()],
+                      out.data_ptr(), G, N, 4, 5, 50, 5,
+                      torch.cuda.current_device(), stream)
+        assert rc == 0, force
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, want, rtol=0, atol=1e-4,
+                                   msg=str(force))
+
+
+@pytest.mark.cuda
+def test_cuda_ensemble_predict_batch_matches_member_loop(cuda_device):
+    """The ensemble's E members x Z targets on the card in one grouped
+    launch (G=4 groups of N=4096 windows, the split schedule) against the
+    per-member loop through the plain version on the card: means and
+    stds to 1e-4 relative."""
+    from repro_torch.core.forecaster import EnsembleForecaster
+    rng = np.random.default_rng(3)
+    series = np.abs(rng.normal(100.0, 15.0, (120, 5)))
+    ens = EnsembleForecaster(n_members=4, window=4, hidden=50, epochs=5,
+                             device=cuda_device)
+    ens.fit(series, from_scratch=True)
+    recents = np.abs(rng.normal(100.0, 15.0, (4096, 4, 5)))
+    tseq.reset_launch_counts()
+    mean, std = ens.predict_batch(recents)
+    assert tseq.LAUNCHES["lstm_seq_grouped"] == 1
+    outs = []
+    for m in ens.members:
+        z = m.scaler.transform(recents)
+        with torch.no_grad():
+            pred = tref.lstm_seq_grouped(
+                *[m.params[k][None] for k in ("Wx", "Wh", "b", "Wo", "bo")],
+                m._tensor(z)[None])[0].cpu().numpy()
+        outs.append(m.scaler.inverse(z[:, -1] + pred))
+    outs = np.stack(outs)
+    np.testing.assert_allclose(mean, outs.mean(0), rtol=1e-4)
+    np.testing.assert_allclose(std, outs.std(0), rtol=1e-4,
+                               atol=1e-4 * np.abs(outs).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("differenced", [False, True])
+def test_cuda_arma_fit_matches_sequential_plain(cuda_device, differenced):
+    """The ARMA fit's matrix form on the card against the sequential
+    recurrence on the CPU, every metric at once (T=350, 100 Adam steps, a
+    well-posed AR(1) series; integrated for the differenced model): theta,
+    eps_T and the loss to 1e-5."""
+    from repro_torch.core import forecaster as tf
+    rng = np.random.default_rng(0)
+    y = np.zeros(350)
+    for t in range(1, 350):
+        y[t] = 0.8 * y[t - 1] + rng.normal(0, 0.5)
+    if differenced:
+        y = np.cumsum(y)
+    s = np.stack([y * (m + 1) + 10 * m for m in range(5)], axis=1)
+    cls = tf.ARIMAD1Forecaster if differenced else tf.ARMAForecaster
+    m = cls(steps=100, device=cuda_device).fit(s)
+    z = m._series_for_fit(m.scaler.transform(s))
+    d = torch.tensor(np.ascontiguousarray(z.T, np.float32))
+    theta, eps_T, loss = tf._arma_fit_plain(d, 100)
+    got = tf._arma_fit(d.to(cuda_device), 100)
+    np.testing.assert_allclose(m.theta, theta.numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(m.eps_T, eps_T.numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got[2].cpu().numpy(), loss.numpy(), rtol=0,
+                               atol=1e-5)

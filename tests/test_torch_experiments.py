@@ -12,8 +12,8 @@
   replica log and decision sequence as ``repro`` and forecasts equal to
   float32 rounding (1e-5 relative; the seed keeps every forecast away from
   a ``ceil(pred / threshold)`` boundary).
-* ``run_scenario(model_kind="attn", device="cpu")`` runs end to end; the
-  kinds of later slices raise ``NotImplementedError``.
+* ``run_scenario(model_kind="attn" | "arma" | "arima_d1", device="cpu")``
+  runs end to end.
 """
 import jax
 import numpy as np
@@ -192,6 +192,18 @@ def test_run_scenario_attn_on_cpu():
 
 
 def test_run_scenario_later_slice_kinds_raise():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tex.run_scenario(random_access(60, seed=3), 60, scaler="ppa",
-                         model_kind="arma")
+    """The ARMA kinds, once of a later slice, run the harness end to end on
+    the device asked for: each zone's model is fitted on the pretraining
+    series there and forecasts proactively."""
+    pre = tex.collect_series(random_access(600, seed=99), 600)
+    T = 300
+    for kind, cls in (("arma", tf.ARMAForecaster),
+                      ("arima_d1", tf.ARIMAD1Forecaster)):
+        res = tex.run_scenario(random_access(T, seed=3), T, scaler="ppa",
+                               model_kind=kind, min_replicas=2,
+                               pretrain=pre, device="cpu")
+        assert np.isfinite(res.sort_mean)
+        for z, ppa in res.ppas.items():
+            assert type(ppa.model) is cls and ppa.model.valid()
+            assert ppa.model.device == torch.device("cpu")
+            assert any(d.predicted for d in ppa.decisions), z
