@@ -3,8 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
         --requests 16 --max-new 24 [--device cpu]
 
-``--arch`` names a dense or ssm architecture (``h2o-danube-1.8b``,
-``codeqwen1.5-7b``, ``gemma2-9b``, ``mamba2-780m``, ...); the others raise.
+``--arch`` names a dense, MoE, ssm or hybrid architecture
+(``h2o-danube-1.8b``, ``codeqwen1.5-7b``, ``gemma2-9b``,
+``granite-moe-1b-a400m``, ``phi3.5-moe-42b-a6.6b``, ``mamba2-780m``,
+``zamba2-2.7b``, ...); the encoder-decoder family raises.
 
 Without ``--device`` the engine runs on the card (and raises without one);
 ``--device cpu`` runs the kernels' plain versions on the CPU.

@@ -1,5 +1,5 @@
-"""build_model(cfg) -> DecoderLM (the dense and ssm families; the others
-raise)."""
+"""build_model(cfg) -> DecoderLM (the dense, MoE, ssm and hybrid
+families; the encoder-decoder family raises)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
@@ -7,6 +7,6 @@ from repro_torch.models.transformer import DecoderLM
 
 
 def build_model(cfg: ModelConfig) -> DecoderLM:
-    """The MoE, hybrid and encoder-decoder families raise
-    ``NotImplementedError`` naming their ROADMAP.md item."""
+    """The encoder-decoder family raises ``NotImplementedError`` naming
+    its ROADMAP.md item."""
     return DecoderLM(cfg)

@@ -1,31 +1,41 @@
-"""Decoder-only LM: the dense family (gemma2 and qwen1.5 features included)
-and the ssm family (mamba2).
+"""Decoder-only LM: the dense family (gemma2 and qwen1.5 features
+included), the MoE family (granite-moe, phi3.5-moe), the ssm family
+(mamba2) and the hybrid family (zamba2).
 
 Depth is ``n_steps`` repetitions of a per-arch *pattern*, as in the JAX
 package's ``models/transformer.py``:
 
-    dense  : ("block",)            n_steps = n_layers
-    gemma2 : ("local", "global")   n_steps = n_layers // 2
-    ssm    : ("mamba",)            n_steps = n_layers
+    dense, moe      : ("block",)                  n_steps = n_layers
+    gemma2          : ("local", "global")         n_steps = n_layers // 2
+    ssm             : ("mamba",)                  n_steps = n_layers
+    hybrid (zamba2) : ("mamba", "mamba", SHARED)  n_steps = n_layers // 2
+
+Zamba2's SHARED transformer block (``n_shared_blocks`` alternating copies,
+applied after every pattern step on concat(hidden, the input embedding))
+lives outside the stacked params; step i runs copy i % n_shared_blocks,
+with an attention cache of its own a step (the cache's ``"shared"`` entry).
 
 Pattern params are stacked along a leading 'layers' dim; the port walks
 that axis in a Python loop (no scan, no remat, no mesh).  Inference only:
-``forward``, ``prefill`` and ``decode_step``.  The decode cache is the JAX
-package's pytree -- per attention entry ``k``, ``v`` (n_steps, B, max_len,
-Hkv, D) in bfloat16 whatever the compute dtype, and ``len`` (n_steps, B);
-per mamba entry the conv states ``conv_x``, ``conv_B``, ``conv_C`` (n_steps,
-B, K-1, .) in the compute dtype, a prompt's rounded through bfloat16 as the
-reference's merge rounds them, and the float32 SSM ``state`` (n_steps, B,
-H, P, N) -- but the port updates it in place: a decode step writes one row
-per slot and layer (and each layer's SSM entries whole), and
-``prefill(..., cache=, rows=)`` writes a prompt's rows and states into the
-given slots of a live cache.  A write position past the cache end is clamped to the last row, as
+``forward``, ``prefill`` and ``decode_step``; ``forward`` returns the MoE
+family's load-balance aux loss summed over the layers (0 for the others).
+The decode cache is the JAX package's pytree -- per attention entry ``k``,
+``v`` (n_steps, B, max_len, Hkv, D) in bfloat16 whatever the compute dtype,
+and ``len`` (n_steps, B); per mamba entry the conv states ``conv_x``,
+``conv_B``, ``conv_C`` (n_steps, B, K-1, .) in the compute dtype, a
+prompt's rounded through bfloat16 as the reference's merge rounds them,
+and the float32 SSM ``state`` (n_steps, B, H, P, N) -- but the port
+updates it in place: a decode step writes one row per slot and layer (and
+each layer's SSM entries whole), and ``prefill(..., cache=, rows=)``
+writes a prompt's rows and states into the given slots of a live cache.
+A write position past the cache end is clamped to the last row, as
 ``lax.dynamic_update_slice`` clamps it.
 
 The attention, the norms and the SSM's chunk scan run the hand-written
-kernels (``models/attention``, ``models/layers``, ``models/ssm``).  The MoE,
-hybrid and encoder-decoder families, the int8 KV cache and vision / audio
-prefixes raise ``NotImplementedError``.
+kernels (``models/attention``, ``models/layers``, ``models/ssm``); the MoE
+routing and expert products are plain PyTorch (``models/moe``), as the
+reference leaves them to XLA.  The encoder-decoder family, the int8 KV
+cache and vision / audio prefixes raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe
 from repro_torch.models import ssm
 from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.params import Spec, init_params, tree_map
@@ -44,9 +55,6 @@ from repro_torch.models.params import Spec, init_params, tree_map
 KV_CACHE_DTYPE = torch.bfloat16
 # what ports each missing piece (ROADMAP.md section 1, "Still to port")
 _LATER = {
-    "moe": "the MoE decoder family (models/moe.py)",
-    "hybrid": "the hybrid family (zamba2: models/ssm.py plus the shared "
-              "attention block)",
     "encdec": "the encoder-decoder family (models/encdec.py)",
     "int8": "the int8 KV cache (kv_cache_dtype='int8')",
     "frontend": "vision / audio prefix embeddings",
@@ -102,6 +110,9 @@ def _pattern(cfg: ModelConfig) -> tuple[list[str], int]:
     require_ported(cfg)
     if cfg.family == "ssm":
         return ["mamba"], cfg.n_layers
+    if cfg.family == "hybrid":
+        assert cfg.shared_period == 2
+        return ["mamba", "mamba"], cfg.n_layers // 2
     if cfg.local_global_period:
         return ["local", "global"], cfg.n_layers // cfg.local_global_period
     return ["block"], cfg.n_layers
@@ -110,13 +121,29 @@ def _pattern(cfg: ModelConfig) -> tuple[list[str], int]:
 def _sub_specs(cfg: ModelConfig, kind: str) -> dict:
     if kind == "mamba":
         return {"mamba": ssm.mamba_specs(cfg)}
-    return {"attn": attn_specs(cfg), "mlp": mlp_specs_full(cfg)}
+    sp = {"attn": attn_specs(cfg)}
+    if cfg.family == "moe":
+        sp["moe"] = moe.moe_specs(cfg)
+        sp["ln_moe"] = Spec((cfg.d_model,), ("norm",), init="ones")
+    else:
+        sp["mlp"] = mlp_specs_full(cfg)
+    return sp
 
 
 def _stack(specs, n: int):
     return tree_map(lambda s: Spec((n,) + s.shape, ("layers",) + s.axes,
                                    init=s.init, scale=s.scale, dtype=s.dtype),
                     specs)
+
+
+def shared_block_specs(cfg: ModelConfig) -> dict:
+    """Zamba2 shared block: concat(h, embed0) -> proj -> attn + mlp."""
+    d = cfg.d_model
+    return {
+        "w_in": Spec((2 * d, d), (None, "fsdp")),
+        "attn": attn_specs(cfg),
+        "mlp": mlp_specs_full(cfg),
+    }
 
 
 def lm_specs(cfg: ModelConfig) -> dict:
@@ -130,6 +157,9 @@ def lm_specs(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         sp["lm_head"] = Spec((L.padded_vocab(cfg.vocab), cfg.d_model),
                              ("vocab", "fsdp"))
+    if cfg.family == "hybrid":
+        sp["shared"] = _stack(shared_block_specs(cfg),
+                              max(cfg.n_shared_blocks, 1))
     return sp
 
 
@@ -218,16 +248,20 @@ def mlp_sublayer(p, x, cfg):
 
 
 # ============================================================ block step ===
-def make_block_step(cfg: ModelConfig, mode: str):
-    """Returns step(carry, step_params, cache_slice) -> (carry,
-    new_cache_slice).  carry = (x, q_offset); mode: 'train' | 'prefill' |
-    'decode'."""
+def make_block_step(cfg: ModelConfig, mode: str, shared_params=None,
+                    embed0=None):
+    """Returns step(carry, step_params, step_idx, cache_slice) -> (carry,
+    new_cache_slice, aux).  carry = (x, q_offset); mode: 'train' |
+    'prefill' | 'decode'.  The hybrid family's shared blocks
+    (``shared_params``, stacked) read ``embed0``: the prompt's embedding in
+    a prefill, the new token's in a decode step."""
     pattern, _ = _pattern(cfg)
     window_for = {"local": cfg.sliding_window, "global": None,
                   "block": cfg.sliding_window}
 
-    def step(carry, step_params, cache_slice):
+    def step(carry, step_params, step_idx, cache_slice):
         x, q_offset = carry
+        aux = 0.0
         new_cache = {}
         for i, kind in enumerate(pattern):
             p = step_params[f"s{i}_{kind}"]
@@ -245,8 +279,25 @@ def make_block_step(cfg: ModelConfig, mode: str):
                                   q_offset=q_offset, cache=csl, mode=mode)
             if nc is not None:
                 new_cache[ckey] = nc
-            x = mlp_sublayer(p["mlp"], x, cfg)
-        return (x, q_offset), (new_cache or None)
+            if cfg.family == "moe":
+                xn = L.rmsnorm(p["ln_moe"], x, cfg.norm_eps)
+                dx, a = moe.moe_block(p["moe"], xn, cfg)
+                x = x + dx
+                aux = aux + a
+            else:
+                x = mlp_sublayer(p["mlp"], x, cfg)
+        if cfg.family == "hybrid":
+            sel = _layer(shared_params,
+                         step_idx % max(cfg.n_shared_blocks, 1))
+            xi = torch.cat([x, embed0], dim=-1) @ sel["w_in"].to(x.dtype)
+            csl = cache_slice.get("shared") if mode == "decode" else None
+            h, nc = attn_sublayer(sel["attn"], xi, cfg, window=None,
+                                  q_offset=q_offset, cache=csl, mode=mode)
+            h = mlp_sublayer(sel["mlp"], h, cfg)
+            x = x + (h - xi)      # residual contribution of the shared block
+            if nc is not None:
+                new_cache["shared"] = nc
+        return (x, q_offset), (new_cache or None), aux
 
     return step
 
@@ -261,12 +312,22 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Stacked (n_steps, ...) cache on ``device`` (None: the card; raises
     without one): k and v zeros in bfloat16 and len = prefilled for
     attention entries; zero conv states (in the compute dtype) and SSM
-    states (float32) for mamba entries, which have no length."""
+    states (float32) for mamba entries, which have no length.  The hybrid
+    family's shared blocks have an attention entry of their own,
+    ``"shared"``, one a pattern step."""
     require_ported(cfg, cache=True)
     device = resolve_device(device)
     pattern, n_steps = _pattern(cfg)
     Hkv = cfg.n_kv_heads * cfg.kv_repeat
     shape = (n_steps, batch, max_len, Hkv, cfg.head_dim)
+
+    def attn_cache():
+        return {
+            "k": torch.zeros(shape, dtype=KV_CACHE_DTYPE, device=device),
+            "v": torch.zeros(shape, dtype=KV_CACHE_DTYPE, device=device),
+            "len": torch.full((n_steps, batch), prefilled, dtype=torch.int32,
+                              device=device)}
+
     cache = {}
     for i, kind in enumerate(pattern):
         if kind == "mamba":
@@ -274,12 +335,10 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                 lambda a: a.expand((n_steps,) + a.shape).clone(),
                 ssm.init_ssm_cache(cfg, batch, _dt(cfg.compute_dtype),
                                    device))
-            continue
-        cache[f"s{i}"] = {
-            "k": torch.zeros(shape, dtype=KV_CACHE_DTYPE, device=device),
-            "v": torch.zeros(shape, dtype=KV_CACHE_DTYPE, device=device),
-            "len": torch.full((n_steps, batch), prefilled, dtype=torch.int32,
-                              device=device)}
+        else:
+            cache[f"s{i}"] = attn_cache()
+    if cfg.family == "hybrid":
+        cache["shared"] = attn_cache()
     return cache
 
 
@@ -352,16 +411,20 @@ class DecoderLM:
         return L.unembed_logits(head, x, cfg.vocab, cfg.final_softcap)
 
     def _run(self, params, x, mode, q_offset=0, cache=None):
-        """The layer loop; returns the final hidden state and, in prefill,
-        the stacked raw per-layer k/v and mamba states.  In decode, the new
+        """The layer loop; returns the final hidden state, in prefill the
+        stacked raw per-layer k/v and mamba states, and the aux loss summed
+        over the layers (0.0 but for the MoE family).  In decode, the new
         lengths and mamba states go back into ``cache`` (k and v rows were
-        written in place by the attention)."""
-        step = make_block_step(self.cfg, mode)
+        written in place by the attention).  ``x`` is the embedded input,
+        which the hybrid family's shared blocks read at every step."""
+        step = make_block_step(self.cfg, mode,
+                               shared_params=params.get("shared"), embed0=x)
         n_steps = _pattern(self.cfg)[1]
-        carry, raws = (x, q_offset), []
+        carry, raws, aux = (x, q_offset), [], 0.0
         for i in range(n_steps):
             csl = _layer(cache, i) if cache is not None else None
-            carry, nc = step(carry, _layer(params["blocks"], i), csl)
+            carry, nc, a = step(carry, _layer(params["blocks"], i), i, csl)
+            aux = aux + a
             if mode == "decode":
                 for key, c in nc.items():
                     # attention wrote its k, v rows in place; mamba's
@@ -373,17 +436,18 @@ class DecoderLM:
         if mode == "prefill":
             raws = {key: {f: torch.stack([r[key][f] for r in raws])
                           for f in raws[0][key]} for key in raws[0]}
-        return carry[0], raws
+        return carry[0], raws, aux
 
     # ---- forward (inference)
     @torch.no_grad()
     def forward(self, params, tokens, *, extra_embeds=None, q_offset=0):
-        """tokens (B, S) -> (logits (B, S, V), aux = 0): the dense and ssm
-        families have no auxiliary loss."""
+        """tokens (B, S) -> (logits (B, S, V), aux): the MoE family's
+        load-balance loss summed over the layers (f32), 0 for the others."""
         x = self._embed_inputs(params, tokens, extra_embeds,
                                _dt(self.cfg.compute_dtype))
-        x, _ = self._run(params, x, "train", q_offset)
-        return self._head(params, x), torch.zeros((), dtype=torch.float32)
+        x, _, aux = self._run(params, x, "train", q_offset)
+        return self._head(params, x), torch.as_tensor(aux,
+                                                      dtype=torch.float32)
 
     # ---- prefill: forward pass that also fills a decode cache
     @torch.no_grad()
@@ -397,7 +461,7 @@ class DecoderLM:
         x = self._embed_inputs(params, tokens, extra_embeds,
                                _dt(self.cfg.compute_dtype))
         B, S = x.shape[:2]
-        x, raw = self._run(params, x, "prefill")
+        x, raw, _ = self._run(params, x, "prefill")
         cache = _merge_prefill_cache(self.cfg, B, S, max_len or S, raw,
                                      cache=cache, rows=rows, device=x.device)
         return self._head(params, x[:, -1:]), cache
@@ -410,5 +474,5 @@ class DecoderLM:
         states) and returned."""
         x = self._embed_inputs(params, tokens, None,
                                _dt(self.cfg.compute_dtype))
-        x, _ = self._run(params, x, "decode", cache=cache)
+        x, _, _ = self._run(params, x, "decode", cache=cache)
         return self._head(params, x), cache

@@ -718,6 +718,115 @@ def test_cuda_split_decode_matches_plain(cuda_device, G, D, window, dtypes):
         assert _row_err(got, want) <= 1e-2
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hq,Hkv,D,Sq", [(16, 8, 64, 520), (32, 32, 80, 520),
+                                         (16, 8, 64, 1100),
+                                         (32, 32, 80, 1100)])
+def test_cuda_flash_moe_hybrid_shapes_match_plain(cuda_device, Hq, Hkv, D,
+                                                  Sq):
+    """granite-moe's (Hq=16 over Hkv=8, D=64) and zamba2's (Hq = Hkv = 32,
+    D=80) prefill attention, causal with no window, on the tensor-core
+    kernel: within 2e-2 and 1e-2 of each row's scale."""
+    g = torch.Generator().manual_seed(Hq + D + Sq)
+    q, k, v = (torch.randn((1, Sq, H, D), generator=g).to(cuda_device, BF16)
+               .transpose(1, 2) for H in (Hq, Hkv, Hkv))
+    tflash.reset_launch_counts()
+    got = tflash.flash_attention(q, k, v)
+    want = tref.flash_attention(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert tflash.PATH_LAUNCHES == {"tensor_core": 1, "cuda_core": 0}
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=2e-2)
+    assert _row_err(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hq,Hkv,D", [(16, 8, 64), (32, 32, 80)])
+def test_cuda_decode_moe_hybrid_shapes_match_plain(cuda_device, Hq, Hkv, D):
+    """The split kernel at granite-moe's and zamba2's decode shapes, 16
+    slots against a 4096-row cache with no window, lengths from 1 to past
+    the cache end: within 2e-2 and 1e-2 of each row's scale."""
+    g = torch.Generator().manual_seed(Hq * D)
+    B, S = 16, 4096
+    q = torch.randn((B, Hq, D), generator=g).to(cuda_device, BF16)
+    kc, vc = (torch.randn((B, S, Hkv, D), generator=g).to(cuda_device, BF16)
+              for _ in range(2))
+    vals = torch.linspace(1, S + 9, B).round().to(cuda_device, torch.int32)
+    tdec.reset_launch_counts()
+    got = tdec.decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2),
+                                kv_valid=vals)
+    want = tref.decode_attention(q.float(), kc.transpose(1, 2).float(),
+                                 vc.transpose(1, 2).float(), kv_valid=vals)
+    torch.cuda.synchronize()
+    assert tdec.LAUNCHES == {"decode_attention": 1}
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=2e-2)
+    assert _row_err(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "zamba2-2.7b"])
+def test_cuda_moe_hybrid_model_matches_plain_model(cuda_device, arch):
+    """A smoke-size MoE and hybrid decoder on the card in float32: the
+    kernels' model (every norm, attention and chunk scan launched) against
+    the same model with the plain versions swapped in: prefill logits
+    within 1e-3 of the largest logit (the f32 kernels' last bits, carried
+    through the JAX package's init, whose smoke nets amplify them to
+    about 1e-4 between two correct implementations on the CPU), two
+    decode steps within 5e-2 (``chip_smoke.LOGIT_REL_TOL``: both models
+    round k and v into the bf16 cache, where a last-bit difference can
+    round to another bf16); the MoE routing (``route_and_dispatch``) on the
+    card equal to the CPU's on the same logits."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import moe
+    from repro_torch.models.registry import build_model
+    cfg = smoke_config(arch).replace(compute_dtype="float32")
+    m = build_model(cfg)
+    params = m.init(0, device=cuda_device)
+    toks = torch.randint(0, cfg.vocab, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    toks = toks.to(cuda_device)
+    wrappers = [(trms, "rmsnorm"), (tflash, "flash_attention"),
+                (tdec, "decode_attention"), (tssd, "ssd_scan")]
+
+    def run():
+        lg, cache = m.prefill(params, toks, max_len=48)
+        out = [lg]
+        for t in range(2):
+            lg, cache = m.decode_step(params, cache, toks[:, t:t + 1])
+            out.append(lg)
+        return out
+
+    for mod, _ in wrappers:
+        mod.reset_launch_counts()
+    got = run()
+    assert trms.LAUNCHES["rmsnorm"] > 0 and tdec.LAUNCHES[
+        "decode_attention"] > 0
+    saved = [(mod, name, getattr(mod, name)) for mod, name in wrappers]
+    try:
+        for mod, name, _ in saved:
+            setattr(mod, name, getattr(tref, name))
+        want = run()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    V = cfg.vocab
+    for i, (a, b) in enumerate(zip(got, want)):
+        err = float((a[..., :V] - b[..., :V]).abs().max())
+        assert err <= (1e-3 if i == 0 else 5e-2) * float(
+            b[..., :V].abs().max()), (i, err)
+    if cfg.family == "moe":
+        lg = torch.randn((2, 40, 32), generator=torch.Generator()
+                         .manual_seed(2)).round(decimals=1)
+        x = torch.randn((2, 40, 8))
+        cap = moe._capacity(40, 8, 32, 1.25)
+        on_card = moe.route_and_dispatch(x.to(cuda_device),
+                                         lg.to(cuda_device), 8, cap, 32)
+        on_cpu = moe.route_and_dispatch(x, lg, 8, cap, 32)
+        torch.testing.assert_close(on_card[1].cpu(), on_cpu[1], rtol=0,
+                                   atol=0)
+        torch.testing.assert_close(on_card[2].cpu(), on_cpu[2], rtol=0,
+                                   atol=1e-6)
+
+
 # --------------------------------------------------------- the chunk scan --
 def _card_inputs(dev, B, S, H, P, N, dtype, seed=0):
     """Unit-normal x, B, C, D; dt = |N| * 0.05 and A in -[0.02, 0.5]: a
@@ -748,6 +857,7 @@ def _errs(got, want):
     (BF16, 32, (2, 64, 4, 32, 16)),
     (torch.float32, 32, (1, 32, 2, 20, 16)),
     (BF16, 64, (1, 256, 4, 64, 64)),              # zamba2's N and chunk
+    (BF16, 64, (1, 512, 80, 64, 64)),             # zamba2-2.7b's prefill
     (BF16, 128, (1, 128, 2, 64, 128)),            # one chunk
     (BF16, 32, (1, 96, 2, 20, 16)),               # a ragged column tile
     (BF16, 64, (2, 128, 3, 16, 8)),               # N padded to 16

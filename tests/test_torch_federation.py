@@ -9,11 +9,16 @@ logs, federations by allocation and usage logs and completion statistics.
 The ARIMA(1,1,1) forecaster the federations run carries the JAX model's
 fitted state (``arma_state_from_numpy``), so the forecasts are bitwise too.
 
-The last section holds the port's versions of the JAX package's plane
-tests that need these modules (tests/test_sharded_plane.py's
-multi-fleet test, tests/test_chaos.py's plane tests,
-tests/test_guardrail.py's fleet test).
+The last sections hold ``benchmarks/bench_chaos.py``'s seed-1 pair (F=4,
+900 s, resilience off and on, an unfitted ARIMA-d1 as the bench runs it)
+through ``chip_smoke.py``'s lane, against the bench run on ``repro``
+itself and its recorded ``BENCH_chaos.json``, and the port's versions of
+the JAX package's plane tests that need these modules
+(tests/test_sharded_plane.py's multi-fleet test, tests/test_chaos.py's
+plane tests, tests/test_guardrail.py's fleet test).
 """
+import importlib.util
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -410,6 +415,43 @@ def test_multi_fleet_under_chaos_matches_jax(arima_state, armed):
     assert deg == ref.controller.degraded_stats()
     if armed:
         assert deg.get("snapshots", 0) >= 1
+
+
+# ------------------------------------------- bench_chaos.py's seed-1 pair ---
+def _chip_smoke():
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  root / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def bench_pair():
+    """The JAX package's benchmarks/bench_chaos.py pair for seed 1."""
+    from benchmarks.bench_chaos import bench_chaos_pair
+    return bench_chaos_pair(4, 900.0, 1)
+
+
+@pytest.mark.parametrize("lane", ["off", "on"])
+def test_bench_chaos_pair_matches_jax(bench_pair, lane):
+    """``chip_smoke.py``'s phase 11 (c) lane on the CPU (the seed-1 tape,
+    F=4, 900 s, the bench's unfitted ARIMA-d1): SLA-violation seconds,
+    completions, retries and degraded counters equal to the JAX bench's
+    run here and to ``BENCH_chaos.json``'s pair, on the same tape."""
+    cs = _chip_smoke()
+    res = (tc.ResilienceConfig(stale_ttl_s=20.0, forecast_deadline_s=2.0,
+                               snapshot_every=2) if lane == "on" else None)
+    rec = cs.chaos_federation(torch.device("cpu"),
+                              ARIMAD1Forecaster(device="cpu"), res)
+    assert rec["lane"] == lane
+    for pair in (bench_pair, cs.bench_chaos_pair()):
+        ok, got, want = cs.chaos_matches(rec, pair)
+        assert ok, (got, want)
+    assert rec["sla_violation_s"] == {"off": 750.0, "on": 675.0}[lane]
+    assert rec["completions"] == {"off": 74_546, "on": 73_951}[lane]
+    assert rec["retries"] == {"off": 17_679, "on": 17_025}[lane]
 
 
 # ------------------------------- the port's versions of the plane tests ---

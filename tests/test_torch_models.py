@@ -1,5 +1,5 @@
-"""The port's decoder (configs, params, layers, ``DecoderLM``: the dense
-family and mamba2) against the JAX package.
+"""The port's decoder (configs, params, layers, ``DecoderLM``: the dense,
+MoE, ssm and hybrid families) against the JAX package.
 
 The same weights go to both packages (JAX's ``init`` in float32, carried
 over with ``params_from_numpy``), the same tokens from a numpy generator.
@@ -18,6 +18,15 @@ Tolerances, with their reasons:
   difference that alone moves smoke-size bf16 logits by up to 13%.  The
   layer's own norm is held against the port's in
   ``test_torch_llm_kernels.py`` (3 bf16 ulps).
+
+The MoE (granite-moe, phi3.5-moe) and hybrid (zamba2) smoke nets' logits
+reach 30-35 (their residual streams grow unnormalised), so their float32
+bars are PREFILL_TOL and DECODE_TOL relative to the largest logit, as
+mamba2's.  Their decode steps start from the JAX package's own cache,
+carried over: a last-bit difference in a float32 k, v or conv state
+rounds to another bfloat16 in one package's cache than in the other's,
+and zamba2's smoke net carries one such rounding far past DECODE_TOL
+within a step.
 """
 import dataclasses
 
@@ -43,6 +52,7 @@ from repro_torch.models.registry import build_model as tbuild
 torch.set_num_threads(1)
 
 ARCHS = ["h2o-danube-1.8b", "codeqwen1.5-7b", "gemma2-9b"]
+NEW_ARCHS = ["granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b", "zamba2-2.7b"]
 PREFILL_TOL, DECODE_TOL, BF16_REL = 1e-4, 2e-3, 5e-2
 
 
@@ -71,7 +81,7 @@ def _spec_tree(tree):
 
 
 @pytest.mark.parametrize("arch", ARCHS + ["llama3-405b", "pixtral-12b",
-                                          "mamba2-780m"])
+                                          "mamba2-780m"] + NEW_ARCHS)
 def test_specs_and_counts_equal_jax(arch):
     for cfg_fn in ("get_config", "smoke_config"):
         tcfg = getattr(tconfigs, cfg_fn)(arch)
@@ -93,6 +103,30 @@ def test_mamba2_full_width_count():
     t = ttransformer.lm_specs(tconfigs.get_config("mamba2-780m"))
     j = jtransformer.lm_specs(jconfigs.get_config("mamba2-780m"))
     assert tparams.param_count(t) == jparams.param_count(j) == 781_328_640
+
+
+@pytest.mark.parametrize("arch,count", [
+    ("granite-moe-1b-a400m", 1_336_722_432), ("zamba2-2.7b", 2_473_371_808)])
+def test_moe_and_hybrid_full_width_counts(arch, count):
+    """The counts chip_smoke.py's phases 12 and 13 assert, in both
+    packages."""
+    t = ttransformer.lm_specs(tconfigs.get_config(arch))
+    j = jtransformer.lm_specs(jconfigs.get_config(arch))
+    assert tparams.param_count(t) == jparams.param_count(j) == count
+
+
+def test_moe_and_hybrid_config_fields_equal_jax():
+    """The fields the two families read, full and smoke, in both packages
+    (``kv_seq_shard`` is a sharding choice; the port reads it nowhere)."""
+    fields = ("family", "n_experts", "top_k", "d_ff_expert",
+              "capacity_factor", "shared_period", "n_shared_blocks",
+              "kv_seq_shard")
+    for arch in NEW_ARCHS:
+        for get in ("get_config", "smoke_config"):
+            a = getattr(tconfigs, get)(arch)
+            b = getattr(jconfigs, get)(arch)
+            assert ([getattr(a, f) for f in fields]
+                    == [getattr(b, f) for f in fields])
 
 
 @pytest.fixture
@@ -209,16 +243,25 @@ def test_row_update_clamps_like_dynamic_update_slice():
 
 
 def test_later_families_raise_naming_roadmap():
-    for arch in ("granite-moe-1b-a400m", "zamba2-2.7b",
-                 "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbuild(tconfigs.smoke_config(arch))
+    """The encoder-decoder family, the int8 KV cache and prefix embeddings
+    raise, naming their ROADMAP item; the MoE and hybrid families build."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tbuild(tconfigs.smoke_config("seamless-m4t-medium"))
     cfg = tconfigs.smoke_config("h2o-danube-1.8b").replace(
         kv_cache_dtype="int8")
     m = tbuild(cfg)
     with pytest.raises(NotImplementedError, match="int8"):
         m.prefill(m.init(0, device="cpu"),
                   torch.zeros((1, 4), dtype=torch.long))
+    m = tbuild(tconfigs.smoke_config("pixtral-12b"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        m.forward(m.init(0, device="cpu"),
+                  torch.zeros((1, 4), dtype=torch.long),
+                  extra_embeds=torch.zeros((1, 2, m.cfg.d_model)))
+    for arch in ("granite-moe-1b-a400m", "zamba2-2.7b"):
+        cfg = tconfigs.smoke_config(arch)
+        assert tbuild(cfg).cfg is cfg
+        assert ttransformer.init_decode_cache(cfg, 1, 8, device="cpu")
 
 
 # ----------------------------------------------------------------- model ---
@@ -315,13 +358,17 @@ def test_forward_matches_jax_f32():
     assert bool((tl[..., V:] == torch.finfo(tl.dtype).min).all())
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["mamba2-780m"])
+@pytest.mark.parametrize("arch", ARCHS + ["mamba2-780m"] + NEW_ARCHS)
 def test_decode_after_prefill_matches_prefill(arch):
     """As tests/test_prefill_decode.py holds the JAX package: decoding one
     token after a prefill equals prefilling the extended sequence (2e-2,
     that file's bound: the decode path reads k and v back from the bf16
-    cache)."""
+    cache).  MoE at capacity factor 8, as there: the capacity follows the
+    prompt's length, so at 1.25 the prefill drops tokens a decode step
+    keeps."""
     cfg = tconfigs.smoke_config(arch)
+    if cfg.family == "moe":
+        cfg = cfg.replace(capacity_factor=8.0)   # no capacity drops
     m = tbuild(cfg)
     params = m.init(1, device="cpu")
     rng = np.random.default_rng(4)
@@ -496,3 +543,179 @@ def test_plain_mamba2_equals_kernel_mamba2_on_cpu(monkeypatch):
     # decode step; one chunk scan a layer in the prefill only
     L = cfg.n_layers
     assert calls == {"rmsnorm": 2 * (L + 1), "ssd_scan": L}
+
+
+# ------------------------------------------------- the MoE and hybrid ---
+def _to_port_cache(jc, like):
+    """The JAX package's decode cache as the port's, in the port's dtypes
+    (``like``: a port cache of the same config)."""
+    return {key: {f: tparams.params_from_numpy(
+        {"a": np.asarray(jnp.asarray(a, jnp.float32))}, "cpu")["a"].to(
+            like[key][f].dtype) for f, a in entry.items()}
+        for key, entry in jc.items()}
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_forward_matches_jax_f32_moe_hybrid(arch):
+    """Forward logits within PREFILL_TOL of the largest logit; the MoE
+    family's aux loss (summed over the layers) within 1e-6, 0 for the
+    hybrid."""
+    jcfg, jm, jp, tm, tp = _pair(arch, "float32")
+    V = jcfg.vocab
+    toks = np.random.default_rng(1).integers(0, V, (2, 37))
+    jl, jaux = jm.forward(jp, jnp.asarray(toks), mode="prefill")
+    tl, aux = tm.forward(tp, torch.tensor(toks))
+    assert _rel(tl.numpy(), jl, V) <= PREFILL_TOL
+    assert abs(float(aux) - float(jaux)) <= 1e-6
+    assert (float(aux) > 0) == (jcfg.family == "moe")
+    assert bool((tl[..., V:] == torch.finfo(tl.dtype).min).all())
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_prefill_and_decode_match_jax_f32_moe_hybrid(arch):
+    """Prefill logits within PREFILL_TOL and each of three decode steps
+    (two slots at different lengths) within DECODE_TOL, of the largest
+    logit; each step starts from the JAX package's cache (see the module
+    docstring), and the lengths and every cache entry each step writes
+    agree: k and v rows and conv states to a bf16 ulp, SSM states within
+    1e-5 of their largest entry."""
+    jcfg, jm, jp, tm, tp = _pair(arch, "float32")
+    V = jcfg.vocab
+    rng = np.random.default_rng(1)
+    B, S = 2, 37
+    toks = rng.integers(0, V, (B, S))
+    jl, jc = jm.prefill(jp, jnp.asarray(toks), max_len=S + 8)
+    tl, tc = tm.prefill(tp, torch.tensor(toks), max_len=S + 8)
+    assert _rel(tl.numpy(), jl, V) <= PREFILL_TOL
+    assert set(tc) == set(jc)
+    for key, entry in jc.items():
+        if "len" in entry:
+            jc[key]["len"] = entry["len"].at[:, 1].set(S - 5)
+    for _ in range(3):
+        tc = _to_port_cache(jc, tc)
+        nxt = rng.integers(0, V, (B, 1))
+        jl, jc = jm.decode_step(jp, jc, jnp.asarray(nxt))
+        tl, tc = tm.decode_step(tp, tc, torch.tensor(nxt))
+        assert _rel(tl.numpy(), jl, V) <= DECODE_TOL
+        for key, entry in jc.items():
+            for f, a in entry.items():
+                a = np.asarray(jnp.asarray(a, jnp.float32))
+                b = tc[key][f].float().numpy()
+                if f == "len":
+                    np.testing.assert_array_equal(b, a)
+                elif f == "state":
+                    assert np.abs(b - a).max() <= 1e-5 * np.abs(a).max()
+                else:
+                    np.testing.assert_allclose(b, a, rtol=2 ** -7, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_prefill_and_decode_match_jax_bf16_moe_hybrid(arch, monkeypatch):
+    """bfloat16, the JAX side's ``layers.rmsnorm`` swapped for the Pallas
+    rmsnorm as in the dense bf16 test: within BF16_REL of the largest
+    logit.  zamba2's shared attention gets its projections at their true
+    fan-in in both packages (``chip_smoke.py::well_conditioned``): at the
+    reference's init (fan-in H) its softmax is near an argmax, and the two
+    packages' logits part past BF16_REL (a bf16 ulp of a score picks the
+    key)."""
+    monkeypatch.setattr(jlayers, "rmsnorm", _pallas_rmsnorm)
+    jcfg, jm, jp, tm, tp = _pair(arch, "bfloat16")
+    if jcfg.family == "hybrid":
+        d, Hq, Hkv = jcfg.d_model, jcfg.n_heads, jcfg.n_kv_heads
+        a = jp["shared"]["attn"]
+        a = dict(a, w_q=a["w_q"] * (Hq / d) ** 0.5,
+                 w_k=a["w_k"] * (Hkv / d) ** 0.5,
+                 w_v=a["w_v"] * (Hkv / d) ** 0.5, w_o=a["w_o"] / Hq ** 0.5)
+        jp = dict(jp, shared=dict(jp["shared"], attn=a))
+        tp = tparams.params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    V = jcfg.vocab
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, V, (2, 24))
+    jl, jc = jm.prefill(jp, jnp.asarray(toks), max_len=32)
+    tl, tc = tm.prefill(tp, torch.tensor(toks), max_len=32)
+    assert tl.dtype == torch.bfloat16
+    assert _rel(tl.float().numpy(), jl, V) <= BF16_REL
+    for _ in range(2):
+        nxt = rng.integers(0, V, (2, 1))
+        jl, jc = jm.decode_step(jp, jc, jnp.asarray(nxt))
+        tl, tc = tm.decode_step(tp, tc, torch.tensor(nxt))
+        assert _rel(tl.float().numpy(), jl, V) <= BF16_REL
+
+
+def test_hybrid_cache_and_prefill_into_live_rows():
+    """zamba2's cache: two mamba entries and the shared blocks' attention
+    entry, one a pattern step; ``prefill(cache=, rows=)`` writes one slot
+    of each (the shared k, v rows and len included), equal to a prefill
+    alone, and leaves the other slots as they were."""
+    cfg = tconfigs.smoke_config("zamba2-2.7b")
+    m = tbuild(cfg)
+    params = m.init(0, device="cpu")
+    n_steps = cfg.n_layers // 2
+    cache = ttransformer.init_decode_cache(cfg, 3, 48, device="cpu")
+    assert set(cache) == {"s0", "s1", "shared"}
+    assert cache["shared"]["k"].shape == (n_steps, 3, 48, cfg.n_kv_heads,
+                                          cfg.head_dim)
+    assert params["shared"]["w_in"].shape == (2, 2 * cfg.d_model,
+                                              cfg.d_model)
+    rng = np.random.default_rng(5)
+    for r in (0, 2):
+        m.prefill(params, torch.tensor(rng.integers(0, cfg.vocab, (1, 9))),
+                  cache=cache, rows=[r])
+    before = tparams.tree_map(lambda t: t.clone(), cache)
+    toks = torch.tensor(rng.integers(0, cfg.vocab, (1, 20)))
+    ref_logits, ref_cache = m.prefill(params, toks, max_len=48)
+    logits, same = m.prefill(params, toks, cache=cache, rows=[1])
+    assert same is cache
+    torch.testing.assert_close(logits, ref_logits, rtol=0, atol=0)
+    for key, entry in cache.items():
+        for f, t in entry.items():
+            torch.testing.assert_close(t[:, [0, 2]], before[key][f][:, [0, 2]],
+                                       rtol=0, atol=0)
+            want = ref_cache[key][f][:, 0]
+            if f in ("k", "v"):
+                t, want = t[:, 1, :20], want[:, :20]
+            else:
+                t = t[:, 1]
+            torch.testing.assert_close(t, want, rtol=0, atol=0)
+    assert cache["shared"]["len"][:, 1].tolist() == [20] * n_steps
+
+
+def test_plain_zamba2_equals_kernel_zamba2_on_cpu(monkeypatch):
+    """As the dense and mamba2 tests above, for the hybrid: every norm,
+    both attentions and the chunk scan go through the wrapper modules'
+    attributes, so swapping all four for the plain versions builds the
+    plain model, bit for bit equal on the CPU."""
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels import ssd_scan as sk
+    cfg = tconfigs.smoke_config("zamba2-2.7b")
+    m = tbuild(cfg)
+    params = m.init(0, device="cpu")
+    toks = torch.tensor(np.random.default_rng(9).integers(0, cfg.vocab,
+                                                          (1, 12)))
+    nxt = torch.tensor([[3]])
+    a, ca = m.prefill(params, toks, max_len=16)
+    a_dec = m.decode_step(params, ca, nxt)[0]
+    names = ["rmsnorm", "flash_attention", "decode_attention", "ssd_scan"]
+    calls = dict.fromkeys(names, 0)
+
+    def counted(name):
+        def fn(*args, **kw):
+            calls[name] += 1
+            return getattr(ref, name)(*args, **kw)
+        return fn
+
+    for mod, name in zip((rk, fk, dk, sk), names):
+        monkeypatch.setattr(mod, name, counted(name))
+    b, cb = m.prefill(params, toks, max_len=16)
+    b_dec = m.decode_step(params, cb, nxt)[0]
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    torch.testing.assert_close(a_dec, b_dec, rtol=0, atol=0)
+    # a step: two mamba layers (a gated norm each) and a shared block (its
+    # attention's and its mlp's norms, one attention); the final norm; a
+    # chunk scan a mamba layer in the prefill only
+    n = cfg.n_layers // 2
+    assert calls == {"rmsnorm": 2 * (4 * n + 1), "flash_attention": n,
+                     "decode_attention": n, "ssd_scan": 2 * n}

@@ -13,7 +13,11 @@ Slot isolation and recycling are tested as
 past ``max_len`` clamps its writes instead of raising.  The same engine on
 mamba2 (the ssm family: no KV cache, a conv and SSM state a slot and layer)
 gives the JAX engine's greedy tokens, and an insert replaces one slot's
-states whole and leaves the other slots' bit for bit.
+states whole and leaves the other slots' bit for bit.  So do the MoE
+family (granite-moe, its capacity following each prompt's length as in
+the reference) and the hybrid family (zamba2, whose slots also hold the
+shared blocks' attention rows); with the requests' seed (1) their greedy
+tokens, steps and snapshots equal the JAX engine's.
 """
 import jax
 import jax.numpy as jnp
@@ -257,4 +261,77 @@ def test_serve_launcher_on_cpu_mamba2():
     done = tserve.main(["--arch", "mamba2-780m", "--requests", "3",
                         "--max-new", "4", "--prompt-len", "40", "--slots",
                         "2", "--device", "cpu"])
+    assert sorted(len(r.output) for r in done) == [5, 5, 5]
+
+
+@pytest.fixture(scope="module", params=["granite-moe-1b-a400m",
+                                        "zamba2-2.7b"])
+def both_moe_hybrid(request):
+    arch = request.param
+    cfg = jsmoke(arch).replace(compute_dtype="float32")
+    jparams = jbuild(cfg).init(jax.random.PRNGKey(0), jnp.float32)
+    reqs = _requests()
+    je = JEngine(cfg, jparams, slots=SLOTS, max_len=MAX_LEN)
+    j_out, j_snaps = _serve(JBatcher(je), JRequest, reqs)
+    te = DecodeEngine(smoke_config(arch).replace(compute_dtype="float32"),
+                      params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                        "cpu"),
+                      slots=SLOTS, max_len=MAX_LEN, device="cpu")
+    t_out, t_snaps = _serve(ContinuousBatcher(te), Request, reqs)
+    return dict(reqs=reqs, je=je, te=te, j_out=j_out, t_out=t_out,
+                j_snaps=j_snaps, t_snaps=t_snaps)
+
+
+def test_moe_hybrid_greedy_tokens_equal_jax(both_moe_hybrid):
+    b = both_moe_hybrid
+    assert b["t_out"] == b["j_out"]
+    for i, (_, n) in enumerate(b["reqs"]):
+        assert len(b["t_out"][i]) == 1 + n
+    assert b["te"].steps == b["je"].steps
+    assert b["te"].tokens_out == b["je"].tokens_out
+    np.testing.assert_array_equal(b["t_snaps"], b["j_snaps"])
+    for key, entry in b["je"].cache.items():
+        if "len" in entry:
+            np.testing.assert_array_equal(b["te"].cache[key]["len"].numpy(),
+                                          np.asarray(entry["len"]))
+
+
+def test_hybrid_insert_replaces_one_slot_whole():
+    """zamba2: a prefill into slot 1 of a live cache writes that slot's
+    mamba states and its shared-block k, v rows and lengths -- equal to a
+    prefill alone -- and leaves the other slots' entries bit for bit."""
+    cfg = smoke_config("zamba2-2.7b")
+    e = DecodeEngine(cfg, build_model(cfg).init(0, device="cpu"), slots=3,
+                     max_len=32, device="cpu")
+    rng = np.random.default_rng(4)
+    for rid in range(3):
+        e.insert(rid, rng.integers(0, 200, 9 + rid), 5)
+    for _ in range(2):
+        e.step()
+    before = {key: {f: t.clone() for f, t in entry.items()}
+              for key, entry in e.cache.items()}
+    e.slot_state[1] = type(e.slot_state[1])()        # free slot 1
+    prompt = rng.integers(0, 200, 21)
+    assert e.insert(7, prompt, 5) == 1
+    alone, cache = e.model.prefill(e.params, torch.tensor(prompt)[None])
+    assert set(e.cache) == {"s0", "s1", "shared"}
+    for key, entry in e.cache.items():
+        for f, t in entry.items():
+            torch.testing.assert_close(t[:, [0, 2]], before[key][f][:, [0, 2]],
+                                       rtol=0, atol=0)
+            got, want = t[:, 1], cache[key][f][:, 0].to(t.dtype)
+            if f in ("k", "v"):
+                got = got[:, :21]
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+            assert not torch.equal(t[:, 1], before[key][f][:, 1])
+    assert e.cache["shared"]["len"][:, 1].tolist() == [21] * (cfg.n_layers
+                                                              // 2)
+    assert e.tokens[1, 0].item() == int(torch.argmax(alone[0, -1]))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "zamba2-2.7b"])
+def test_serve_launcher_on_cpu_moe_hybrid(arch):
+    done = tserve.main(["--arch", arch, "--requests", "3", "--max-new", "4",
+                        "--prompt-len", "40", "--slots", "2", "--device",
+                        "cpu"])
     assert sorted(len(r.output) for r in done) == [5, 5, 5]
