@@ -4,8 +4,10 @@
 Drives the port's main paths -- the paper's per-target LSTM and
 Attention-Double-LSTM closed loops, its PPA-vs-HPA harness, the LLM decode
 engine the PPA scales, on the dense decoder, on mamba2, on the MoE decoder
-and on the hybrid, the sharded control plane, and the rest of the
-forecaster zoo with the serving federation -- on the card, through the hand-written CUDA kernels of the six sources of
+and on the hybrid, the sharded control plane, the rest of the forecaster
+zoo with the serving federation, a vision-language decoder's prefix, the
+int8 KV cache and the encoder-decoder family -- on the card, through the
+hand-written CUDA kernels of the six sources of
 ``kernels/csrc/``: ``lstm_seq.cu`` (the LSTM sequence and the one-step
 cell), ``attn_lstm_seq.cu``, ``rmsnorm.cu``, ``flash_attention.cu``,
 ``decode_attention.cu`` and ``ssd_scan.cu``:
@@ -45,8 +47,12 @@ cell), ``attn_lstm_seq.cu``, ``rmsnorm.cu``, ``flash_attention.cu``,
    kernel), where the flash and decode mutants must fail the bf16 bars;
    flash, decode and the scan also at phases 12 and 13's shapes (no
    window; Hq = Hkv = 32 at D=80, Hq=16 over Hkv=8 at D=64; the scan at
-   H=80, N=64, chunk 64); the norm, the scan and both LSTMs on a side
-   stream;
+   H=80, N=64, chunk 64); flash, decode and the norm at phases 14-16's
+   shapes (pixtral's batched prefill, llama3-405b's 128 query heads over
+   8 and its decode at G=16 over a dequantised int8 cache, seamless's
+   non-causal encoder and its cross-attention at one query a row, the
+   norm at D=16384 on its general kernel); the norm, the scan and both
+   LSTMs on a side stream;
 3. the paper-scale closed loop of examples/multizone_control.py: a 1800 s
    collection run, 7 per-target LSTM(50) fits on the card, ``FleetController``
    + ``Updater(FINETUNE)`` over 30 simulated minutes of NASA + Random Access;
@@ -122,9 +128,27 @@ cell), ``attn_lstm_seq.cu``, ``rmsnorm.cu``, ``flash_attention.cu``,
 13. phase 8 on zamba2-2.7b at full width (54 mamba layers, 27 shared
    attention blocks on concat(hidden, input embedding), 2,473,371,808
    seeded bf16 parameters, ``hybrid_conditioned``): every chunk scan on
-   the tensor-core path, a shared attention cache of 27 x 16 x 8192 rows.
+   the tensor-core path, a shared attention cache of 27 x 16 x 8192 rows;
+14. pixtral-12b at full width (40 layers, d_model 5120, 12,247,782,400
+   seeded bf16 parameters): 16 requests of 1024 seeded patch embeddings
+   before a 512-token prompt, one batched ``DecoderLM.prefill(extra_embeds=
+   ...)`` and 128 greedy decode steps; the kernels' engine against the
+   plain versions' with one request's prefix, decode after prefill against
+   prefill with the same prefix, and another prefix that must move the
+   logits;
+15. phase 8 on llama3-405b at its published widths and int8 KV cache, 4
+   of its 126 layers (16,978,690,048 seeded bf16 parameters): the cache
+   holds int8 codes and float32 scales, 1,107,296,256 bytes, dequantised
+   whole before each decode attention; every norm (D=16384) on the general
+   kernel; the int8 engine's logits logged against a bf16-cache engine's;
+16. seamless-m4t-medium at full width (12 + 12 layers, vocab 256,206,
+   981,530,624 seeded bf16 parameters): 16 utterances of 1024 seeded
+   frame embeddings, ``EncDecLM.encode``, ``init_dec_cache`` and 128 greedy
+   decode steps (the cross-attention on the flash kernel at one query a
+   row); the encoder output, cross k and v and the first steps' logits
+   held against the plain path.
 
-Phases 3 to 13 (and phase 4's lane) each set the launch counts to 0 before
+Phases 3 to 16 (and phase 4's lane) each set the launch counts to 0 before
 they drive their path and read them right after it, before the checks that
 launch kernels of their own; the counts of all eleven wrappers must equal
 what the path needs (a fit forward an epoch, a stacked forecast a
@@ -136,8 +160,11 @@ cell launch a window step of the lane; 2 x 24 + 1
 norms and 24 attentions a prefill and a decode step of h2o-danube, 48 + 1
 norms a prefill and a decode step and 48 chunk scans a prefill of mamba2,
 2 x 24 + 1 norms and 24 attentions of granite-moe, 54 + 2 x 27 + 1 norms,
-27 attentions and 54 chunk scans of zamba2),
-and each kernel must have launched; phases 3 to 13 and the lane also hold
+27 attentions and 54 chunk scans of zamba2, 2 x 40 + 1 norms a pass and
+40 attentions of pixtral, 2 x 4 + 1 norms and 4 attentions of llama3-405b;
+2 x 12 + 1 norms and 12 flash an encode, 3 x 12 + 1 norms, 12 decode and
+12 flash a decode step of seamless), each phase logs its seconds,
+and each kernel must have launched; phases 3 to 16 and the lane also hold
 both LSTMs' launches by path (``PATH_LAUNCHES``) to the path's.  Any
 failed check raises, so the script exits non-zero.
 The last three lines are the kernels' JSON record, the ``nvidia-smi``
@@ -1156,6 +1183,24 @@ LLM_D_MODEL, LLM_HQ, LLM_HKV, LLM_HEAD_DIM, LLM_WINDOW = 2560, 32, 8, 80, 4096
 MOE_HYBRID_ATTN = {"granite-moe-1b-a400m": (16, 8, 64),
                    "zamba2-2.7b": (32, 32, 80)}
 SLOTS, MAX_LEN = 16, 8192
+# phases 14-16's attentions: (B, Hq, Hkv, Sq, Skv, D, causal, the
+# head chunks the plain version runs in: llama3-405b's full score matrix
+# at 6144 tokens, 19 GB in f32, would not fit beside its copies)
+NEW_FLASH = {
+    "pixtral-12b prefill": (16, 32, 8, 1536, 1536, 128, True, 1),
+    "llama3-405b Sq=512": (1, 128, 8, 512, 512, 128, True, 1),
+    "llama3-405b Sq=6144": (1, 128, 8, 6144, 6144, 128, True, 8),
+    "seamless-m4t-medium encoder": (16, 16, 16, 1024, 1024, 64, False, 1),
+    "seamless-m4t-medium cross Sq=1": (16, 16, 16, 1, 1024, 64, False, 1),
+}
+# their decode steps, 16 slots and no window: (Hq, Hkv, S, D, int8 cache,
+# plain head chunks); llama3-405b's G = 16 is the kernel's MAX_GROUP
+NEW_DECODE = {
+    "pixtral-12b": (32, 8, 2048, 128, False, 1),
+    "llama3-405b int8": (128, 8, MAX_LEN, 128, True, 8),
+    "seamless-m4t-medium": (16, 16, 256, 64, False, 1),
+}
+WIDE_D = 16384          # llama3-405b's d_model: the norm's general kernel
 
 
 def rmsnorm_bound(R, D, es_x, es_w):
@@ -1332,19 +1377,34 @@ def decode_bound(B, Hq, Hkv, D, es_q, es_kv, rows):
     return _bound(nbytes, 4 * Hq * D * n, BF16_TC_FLOP_PER_S)
 
 
-def _sdpa(q, k, v, mask):
+def _sdpa(q, k, v, mask, causal=False):
     """One PyTorch call for the same attention (the yardstick only):
-    ``scaled_dot_product_attention`` with an explicit boolean mask and GQA
-    (older PyTorch without ``enable_gqa``: k and v repeated first)."""
+    ``scaled_dot_product_attention`` with an explicit boolean mask (or
+    ``is_causal``) and GQA (older PyTorch without ``enable_gqa``: k and v
+    repeated first)."""
     import torch.nn.functional as F
+    kw = dict(attn_mask=mask, is_causal=causal)
     try:
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                              enable_gqa=True)
+        return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
     except TypeError:
         G = q.shape[1] // k.shape[1]
         return F.scaled_dot_product_attention(
-            q, k.repeat_interleave(G, 1), v.repeat_interleave(G, 1),
-            attn_mask=mask)
+            q, k.repeat_interleave(G, 1), v.repeat_interleave(G, 1), **kw)
+
+
+def by_heads(fn, chunks, q, k, v, **kw):
+    """An attention's plain version in ``chunks`` calls over slices of the
+    kv heads (with their query heads), joined on the head axis (dim 1 of
+    flash's and decode's layouts): the same function, in pieces whose
+    score matrices fit the card."""
+    import torch
+    if chunks == 1:
+        return fn(q, k, v, **kw)
+    n = k.shape[1] // chunks
+    G = q.shape[1] // k.shape[1]
+    kv = [slice(i * n, (i + 1) * n) for i in range(chunks)]
+    return torch.cat([fn(q[:, h.start * G:h.stop * G], k[:, h], v[:, h], **kw)
+                      for h in kv], dim=1)
 
 
 def attn_passes(got, want):
@@ -1468,6 +1528,22 @@ def llm_kernels_vs_plain(mutants):
               f"{norm_paths}")
         records["rmsnorm"] = {**subs[16], "prefill": subs[6144],
                               "path_launches": norm_paths}
+        # phase 15's norms: llama3-405b's rows (D=16384) are wider than the
+        # vector kernel takes, so a decode step (R=16) and the long prompt
+        # (R=6144) run the general kernel
+        rk.reset_launch_counts()
+        w = (1.0 + 0.1 * rnd(WIDE_D)).to(bf16)
+        for R in (16, 6144):
+            x = rnd(R, WIDE_D, dtype=bf16)
+            records["rmsnorm"][f"llama3-405b R={R}"] = measure(
+                "rmsnorm", f"R={R} D={WIDE_D} bf16 (llama3-405b)",
+                lambda: rk.rmsnorm(x, w), lambda: ref.rmsnorm(x, w),
+                lambda: F.rms_norm(x, (WIDE_D,), w, 1e-6),
+                ref.rmsnorm(x.float(), w.float()), BF16_NORM_REL,
+                rmsnorm_bound(R, WIDE_D, 2, 2), iters=50, rel=True)
+        check(rk.PATH_LAUNCHES["general"] == rk.LAUNCHES["rmsnorm"] > 0
+              and rk.PATH_LAUNCHES["vector"] == 0,
+              f"the norm at D={WIDE_D}: launches by path {rk.PATH_LAUNCHES}")
         # edge shapes on both kernels (f32 within FWD_TOL, bf16 relative),
         # each on the kernel vector_path picks: rows wider than a warp
         # holds, a 16-byte row stride, D off the vector, a base or a row
@@ -1563,6 +1639,30 @@ def llm_kernels_vs_plain(mutants):
                     flash_bound(1, Hq, Hkv, Sq, Sq, D, 2,
                                 flash_pairs(Sq, Sq, True, None)),
                     iters=10 if Sq > 1000 else 20, row_tol=BF16_ATTN_ROW_TOL)
+        # phases 14-16's: pixtral's batched prefill, llama3-405b's 128 query
+        # heads over 8, seamless's non-causal encoder and its cross-attention
+        # (one query a row against the encoder's 1024 frames)
+        for key, (B, Hq, Hkv, Sq, Skv, D, causal, chunks) in NEW_FLASH.items():
+            q = rnd(B, Sq, Hq, D, dtype=bf16).transpose(1, 2)
+            k, v = (rnd(B, Skv, Hkv, D, dtype=bf16).transpose(1, 2)
+                    for _ in range(2))
+            kw = dict(causal=causal)
+            subs[key] = measure(
+                "flash_attention",
+                f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} D={D} "
+                f"{'causal' if causal else 'non-causal'} bf16 ({key})",
+                lambda: fk.flash_attention(q, k, v, **kw),
+                lambda: by_heads(ref.flash_attention, chunks, q, k, v, **kw),
+                lambda: _sdpa(q, k, v, None, causal=causal),
+                by_heads(ref.flash_attention, chunks, q.float(), k.float(),
+                         v.float(), **kw),
+                BF16_ATTN_TOL,
+                flash_bound(B, Hq, Hkv, Sq, Skv, D, 2,
+                            flash_pairs(Sq, Skv, causal, None)),
+                iters=10 if B * Hq * Sq * Skv > 2 ** 30 else 20,
+                row_tol=BF16_ATTN_ROW_TOL)
+            subs[key]["plain_head_chunks"] = chunks
+            del q, k, v
         paths = dict(fk.PATH_LAUNCHES)
         check(paths["tensor_core"] == fk.LAUNCHES["flash_attention"] > 0
               and paths["cuda_core"] == 0,
@@ -1678,6 +1778,40 @@ def llm_kernels_vs_plain(mutants):
             records["decode_attention"][arch]["visible_rows"] = int(
                 rows.sum())
             del k, v
+        # phases 14-16's: 16 slots, no window, lengths spread over the
+        # cache; llama3-405b's cache is int8, dequantised into bf16 as the
+        # model does before the kernel (G = 16, the kernel's MAX_GROUP)
+        from repro_torch.models import transformer as tt
+        for key, (Hq, Hkv, S, D, int8, chunks) in NEW_DECODE.items():
+            vnp = np.linspace(1, S, SLOTS).round().astype(np.int32)
+            vd = torch.as_tensor(vnp, device=dev)
+            kv = []
+            for _ in range(2):
+                c = rnd(SLOTS, S, Hkv, D, dtype=bf16)
+                if int8:
+                    c = tt._dequant_kv(*tt._quant_kv(c), bf16)
+                kv.append(c.transpose(1, 2))
+            k, v = kv
+            q = rnd(SLOTS, Hq, D, dtype=bf16)
+            dm = torch.arange(S, device=dev)[None, :] < vd[:, None]
+            rows = decode_rows(vnp, S, None)
+            records["decode_attention"][key] = measure(
+                "decode_attention",
+                f"B={SLOTS} Hq={Hq} Hkv={Hkv} S={S} D={D} kv_valid "
+                f"{vnp.min()}..{vnp.max()} bf16"
+                f"{' (int8 dequantised)' if int8 else ''} ({key})",
+                lambda: dk.decode_attention(q, k, v, kv_valid=vd),
+                lambda: by_heads(ref.decode_attention, chunks, q, k, v,
+                                 kv_valid=vd),
+                lambda: _sdpa(q[:, :, None], k, v,
+                              dm[:, None, None, :])[:, :, 0],
+                by_heads(ref.decode_attention, chunks, q.float(), k.float(),
+                         v.float(), kv_valid=vd),
+                BF16_ATTN_TOL, decode_bound(SLOTS, Hq, Hkv, D, 2, 2, rows),
+                iters=20, row_tol=BF16_ATTN_ROW_TOL)
+            records["decode_attention"][key].update(
+                visible_rows=int(rows.sum()), plain_head_chunks=chunks)
+            del k, v, kv
         for (B, Hq, Hkv, S, D, opts, qd, kd) in [
                 (3, 4, 1, 300, 16, {}, f32, f32),
                 (2, 4, 4, 257, 64, dict(cap=5.0), bf16, bf16),
@@ -3686,16 +3820,34 @@ def well_conditioned(params, cfg):
     rescaled).  The MoE router and experts ((d, E), (E, d, ff), (E, ff,
     d)) and the shared blocks' w_in (2d, d) already have their fan-in
     there."""
-    d, Hq, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     attns = [step["attn"] for step in params["blocks"].values()
              if "attn" in step]
     if "shared" in params:
         attns.append(params["shared"]["attn"])
     for a in attns:
-        a["w_q"].mul_((Hq / d) ** 0.5)
-        a["w_k"].mul_((Hkv / d) ** 0.5)
-        a["w_v"].mul_((Hkv / d) ** 0.5)
-        a["w_o"].mul_((Dh / (Hq * Dh)) ** 0.5)
+        true_fan_in(a, cfg)
+    return params
+
+
+def true_fan_in(a, cfg):
+    """One (stacked) attention's projections, in place, at their true
+    fan-in: d for w_q, w_k, w_v; Hq * Dh for w_o."""
+    d, Hq, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    a["w_q"].mul_((Hq / d) ** 0.5)
+    a["w_k"].mul_((Hkv / d) ** 0.5)
+    a["w_v"].mul_((Hkv / d) ** 0.5)
+    a["w_o"].mul_((Dh / (Hq * Dh)) ** 0.5)
+
+
+def encdec_conditioned(params, cfg):
+    """The encoder-decoder family: every attention -- the encoder's, the
+    decoder's self- and cross-attention -- at its true fan-in, as
+    ``well_conditioned`` rescales the decoder-only families' (the same
+    (d, H, Dh) projections, the same chaotic bf16 net at the JAX init)."""
+    for stack, names in (("enc_blocks", ("attn",)),
+                         ("dec_blocks", ("attn", "cross"))):
+        for name in names:
+            true_fan_in(params[stack][name], cfg)
     return params
 
 
@@ -3770,7 +3922,19 @@ def hybrid_conditioned(params, cfg, seed=0):
 
 
 CONDITION = {"dense": well_conditioned, "moe": well_conditioned,
-             "ssm": mamba2_conditioned, "hybrid": hybrid_conditioned}
+             "ssm": mamba2_conditioned, "hybrid": hybrid_conditioned,
+             "encdec": encdec_conditioned}
+
+
+def norm_paths_expected(d_model, n):
+    """``n`` norm launches by path, all on the kernel ``rmsnorm.vector_path``
+    picks for the model's rows (contiguous and 16-byte aligned): the vector
+    kernel up to its widest row, the general kernel past it (llama3-405b's
+    16384)."""
+    from repro_torch.kernels import rmsnorm as rk
+    path = ("vector" if d_model % rk.VEC == 0 and d_model <= rk.MAX_VECTOR_D
+            else "general")
+    return {"vector": 0, "general": 0, path: n}
 
 
 @contextlib.contextmanager
@@ -3864,7 +4028,8 @@ def _logit_err(a, b, vocab):
     return err, err / max(float(b.abs().max()), 1e-6)
 
 
-def engines_compared(model, params, toks, check_steps, hold=True):
+def engines_compared(model, params, toks, check_steps, hold=True,
+                     extra=None):
     """The kernels' engine against the plain versions' engine on one
     prompt and ``check_steps`` greedy decode steps (the kernels' tokens
     fed to both), and decode-after-prefill against a prefill of the
@@ -3877,15 +4042,16 @@ def engines_compared(model, params, toks, check_steps, hold=True):
     routings are recorded and counted where they part: between the
     engines (``flips`` of ``routes``: tokens x layers) and between the
     kernels' prefill and decode steps and the extended prefill
-    (``pd_flips``)."""
+    (``pd_flips``).  ``extra``: a prefix (vision embeddings) before the
+    prompt, in every prefill."""
     import torch
     V = model.cfg.vocab
     klog, plog = [], []
-    n = toks.shape[1] + check_steps
+    n = toks.shape[1] + check_steps + (0 if extra is None else extra.shape[1])
     with routes_recorded(klog):
-        lk, ck = model.prefill(params, toks, max_len=n)
+        lk, ck = model.prefill(params, toks, max_len=n, extra_embeds=extra)
     with plain_versions(), routes_recorded(plog):
-        lp, cp = model.prefill(params, toks, max_len=n)
+        lp, cp = model.prefill(params, toks, max_len=n, extra_embeds=extra)
     errs, same, compared, margins, seq = [], 0, 0, [], toks
     for i in range(check_steps + 1):
         err, rel = _logit_err(lk, lp, V)
@@ -3913,7 +4079,7 @@ def engines_compared(model, params, toks, check_steps, hold=True):
             lp, cp = model.decode_step(params, cp, nxt)
     flog = []
     with routes_recorded(flog):
-        lfull, _ = model.prefill(params, seq)
+        lfull, _ = model.prefill(params, seq, extra_embeds=extra)
     pd_err = _logit_err(lk[:, -1], lfull[:, -1], V)[1]
     flips, routes = route_flips(klog, plog)
     # the kernels' routes a layer, prompt then decode steps, as one sequence
@@ -3962,18 +4128,13 @@ def serving(device, arch="h2o-danube-1.8b", cfg=None, slots=SLOTS,
     cfg = cfg or get_config(arch)
     model = build_model(cfg)
     n_params = param_count(model.specs())
-    if device.type == "cuda":
-        gc.collect()                   # an earlier phase's engine, if any
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(device)
+    _free_card(device)                 # an earlier phase's engine, if any
     t0 = time.perf_counter()
     params = CONDITION[cfg.family](
         model.init(seed, getattr(torch, cfg.param_dtype), device), cfg)
     engine = DecodeEngine(cfg, params, slots=slots, max_len=max_len,
                           device=device)
-    sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" \
-        else (lambda: None)
-    sync()
+    _sync(device)
     t_init = time.perf_counter() - t0
     batcher = ContinuousBatcher(engine)
     fc = LSTMForecaster(window=4, epochs=40, device=device)
@@ -4029,7 +4190,7 @@ def serving(device, arch="h2o-danube-1.8b", cfg=None, slots=SLOTS,
             decisions.append(ppa.control_step(now, max_replicas=16,
                                               current_replicas=1).replicas)
             ppa.maybe_update(now)
-    sync()
+    _sync(device)
     t_serve = time.perf_counter() - t0
     launches = launch_counts()
     paths = path_launches()
@@ -4082,12 +4243,13 @@ def serving(device, arch="h2o-danube-1.8b", cfg=None, slots=SLOTS,
                   "tensor_core": launches["flash_attention"], "cuda_core": 0},
               f"{tag} flash launches by path {paths['flash_attention']}, "
               f"launches {launches}")
-    # every norm on the vector kernel
-    check(paths["rmsnorm"] == {"vector": launches["rmsnorm"], "general": 0},
+    # every norm on the kernel its width takes
+    check(paths["rmsnorm"] == norm_paths_expected(cfg.d_model,
+                                                  launches["rmsnorm"]),
           f"{tag} norm launches by path {paths['rmsnorm']}, launches "
           f"{launches}")
-    mem = (torch.cuda.max_memory_allocated(device)
-           if device.type == "cuda" else 0)
+    kv = kv_cache_facts(engine.cache, cfg)
+    mem = _peak(device)
     n_out = sum(len(r.output) for r in done)
     n_pred = sum(1 for d in ppa.decisions if d.predicted)
 
@@ -4120,17 +4282,15 @@ def serving(device, arch="h2o-danube-1.8b", cfg=None, slots=SLOTS,
             del p32
     held = next(e for e in engines.values() if e["held"])
     errs, pd_err = held["errs"], held["pd_err"]
+    quant = (cache_dtype_gap(build_model(check_cfg), params, toks,
+                             check_steps)
+             if cfg.kv_cache_dtype == "int8" else None)
 
     # five decode steps of 16 long-running slots under the profiler
     for i in range(slots):
         engine.insert(10_000 + i,
                       rng.integers(0, cfg.vocab, min(1024, max_len // 2)), 64)
-    reset_launch_counts()
-    prof = profile_start(device)
-    for _ in range(5):
-        engine.step()
-    busy = profile_stop(prof, device)
-    step_launches = {k: v // 5 for k, v in launch_counts().items() if v}
+    busy, step_launches = profiled_steps(device, engine.step)
 
     pf = np.asarray(prefill_ms)
     dm = np.asarray(decode_ms)
@@ -4168,12 +4328,15 @@ def serving(device, arch="h2o-danube-1.8b", cfg=None, slots=SLOTS,
             f"differ between the engines {e['flips']} of {e['routes']} "
             f"(token x layer), between decode after prefill and prefill "
             f"{e['pd_flips']}")
-    log(f"{tag} profiled 5 decode steps at {slots} active slots: wall "
-        f"{busy['wall_ms']:.1f} ms, device busy {busy['device_ms']:.3f} ms "
-        f"({busy['busy_share']:.2%}); {busy['n_kernels'] / 5:.0f} device "
-        f"events (kernels and copies) a step, launches of the port's kernels "
-        f"a step {step_launches}; device time by name: "
-        f"{top_names(busy['by_name'])}")
+    if kv["dtype"]:
+        log(f"{tag} KV cache {kv['dtype']}: {kv['bytes']:,} B "
+            f"({kv['bf16_bytes']:,} B in bf16)")
+    if quant:
+        log(f"{tag} int8 cache against a bf16 cache, same weights and "
+            f"prompt (logged, no bar): logits rel err by step "
+            f"{[round(x, 5) for x in quant['errs']]}, greedy tokens equal "
+            f"{quant['same']}/{check_steps}")
+    log_profile(tag, busy, f"at {slots} active slots", step_launches)
     return {"params": n_params, "prefills": n_prefill,
             "decode_steps": n_decode, "tokens_out": n_out,
             "serve_s": t_serve, "tokens_per_s": n_out / t_serve,
@@ -4195,7 +4358,403 @@ def serving(device, arch="h2o-danube-1.8b", cfg=None, slots=SLOTS,
             "profiled_device_ms_per_step": busy["device_ms"] / 5,
             "path_launches": paths, "launches": launches, "expect": expect,
             "paths": {k: paths[k] for k in expect_paths},
-            "expect_paths": expect_paths}
+            "expect_paths": expect_paths, "kv_cache_bytes": kv["bytes"],
+            "kv_cache_dtype": kv["dtype"], "int8_vs_bf16_cache": quant}
+
+
+def kv_cache_facts(cache, cfg):
+    """The attention entries' bytes (k, v and, for an int8 cache, their
+    scales) and the bytes a bf16 cache of the same shape would hold; an
+    int8 cache must hold int8 codes and float32 scales."""
+    import torch
+    entries = [e for e in cache.values() if "len" in e]
+    int8 = cfg.kv_cache_dtype == "int8"
+    for e in entries:
+        check(e["k"].dtype == e["v"].dtype == (torch.int8 if int8
+                                              else torch.bfloat16)
+              and (not int8 or e["k_scale"].dtype == e["v_scale"].dtype
+                   == torch.float32),
+              f"{cfg.name}: a {cfg.kv_cache_dtype} cache of "
+              f"{e['k'].dtype} codes")
+    return {"dtype": str(entries[0]["k"].dtype).split(".")[1] if entries
+            else None,
+            "bytes": sum(t.numel() * t.element_size() for e in entries
+                         for f, t in e.items() if f != "len"),
+            "bf16_bytes": sum(4 * e["k"].numel() for e in entries)}
+
+
+def cache_dtype_gap(model, params, toks, steps):
+    """The int8 cache's own error at full width: the model's logits (its
+    int8 cache) against the same model and weights on a bf16 cache, on
+    one prompt and ``steps`` greedy decode steps (the int8 model's tokens
+    fed to both), relative to the largest bf16 logit; logged, no bar.  The
+    prefill's logits read no cache and agree exactly."""
+    import torch
+    V = model.cfg.vocab
+    other = type(model)(model.cfg.replace(kv_cache_dtype="bfloat16"))
+    n = toks.shape[1] + steps
+    la, ca = model.prefill(params, toks, max_len=n)
+    lb, cb = other.prefill(params, toks, max_len=n)
+    errs, same = [_logit_err(la, lb, V)[1]], 0
+    for _ in range(steps):
+        nxt = torch.argmax(la[:, -1, :V], -1)[:, None]
+        same += int(nxt.item() == int(torch.argmax(lb[0, -1, :V])))
+        la, ca = model.decode_step(params, ca, nxt)
+        lb, cb = other.decode_step(params, cb, nxt)
+        errs.append(_logit_err(la, lb, V)[1])
+    return {"errs": errs, "same": same}
+
+
+def log_profile(tag, busy, what, step_launches):
+    log(f"{tag} profiled 5 decode steps {what}: wall "
+        f"{busy['wall_ms']:.1f} ms, device busy {busy['device_ms']:.3f} ms "
+        f"({busy['busy_share']:.2%}); {busy['n_kernels'] / 5:.0f} device "
+        f"events (kernels and copies) a step, launches of the port's kernels "
+        f"a step {step_launches}; device time by name: "
+        f"{top_names(busy['by_name'])}")
+
+
+def profiled_steps(device, step, n=5):
+    """``n`` calls of ``step`` under the profiler, the launch counts set to
+    0 first: the profile and the port's launches a step."""
+    reset_launch_counts()
+    prof = profile_start(device)
+    for _ in range(n):
+        step()
+    busy = profile_stop(prof, device)
+    return busy, {k: v // n for k, v in launch_counts().items() if v}
+
+
+def _free_card(device):
+    """An earlier phase's engine and weights, if any, off the card, and the
+    peak memory counter reset."""
+    import torch
+    if device.type == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _sync(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _peak(device):
+    import torch
+    return (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else 0)
+
+
+def greedy_decode(model, params, cache, nxt, steps, keep=0):
+    """``steps`` greedy decode steps over ``cache`` from the tokens ``nxt``
+    (B, 1), every row at once; a step ends in its tokens' copy to the
+    host, as ``DecodeEngine.step`` does, so the host clock around it holds
+    the device work.  Returns (the tokens fed, each (B, 1) on the device;
+    the logits of the first ``keep`` steps; step ms; the last logits and
+    the cache)."""
+    import torch
+    V = model.cfg.vocab
+    fed, kept, ms = [], [], []
+    for i in range(steps):
+        t = time.perf_counter()
+        fed.append(nxt)
+        logits, cache = model.decode_step(params, cache, nxt)
+        nxt = torch.argmax(logits[:, -1, :V], -1)[:, None]
+        nxt.cpu()
+        ms.append((time.perf_counter() - t) * 1e3)
+        if i < keep:
+            kept.append(logits.clone())
+    return fed, kept, ms, logits, cache
+
+
+def logits_held(tag, got, want, V):
+    """Kernels' logits against the plain path's (each (B, 1, V), the same
+    tokens fed to both): within ``LOGIT_REL_TOL`` of the largest plain
+    logit, and every row's greedy token equal wherever the plain top-2
+    margin exceeds twice the step's logit difference.  Returns (rel errs by
+    step, tokens equal, tokens comparable)."""
+    import torch
+    errs, same, comparable = [], 0, 0
+    for i, (a, b) in enumerate(zip(got, want, strict=True)):
+        err, rel = _logit_err(a, b, V)
+        errs.append(rel)
+        check(rel <= LOGIT_REL_TOL, f"{tag} step {i}: kernels vs plain "
+              f"logits rel err {rel}")
+        top2 = torch.topk(b[:, -1, :V].float(), 2).values
+        agree = (torch.argmax(a[:, -1, :V], -1)
+                 == torch.argmax(b[:, -1, :V], -1))
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * err
+        check(bool(agree[sure].all()), f"{tag} step {i}: greedy tokens "
+              f"differ where the plain top-2 margin exceeds twice {err}")
+        same += int(agree.sum())
+        comparable += int(sure.sum())
+    check(comparable > 0, f"{tag}: no greedy token could be compared")
+    return errs, same, comparable
+
+
+# --------------------------------------------------------------- phase 15 --
+LLAMA_LAYERS = 4        # of llama3-405b's 126: its init peaks near 45 GiB
+
+
+# --------------------------------------------------------------- phase 14 --
+VISION_BATCH, VISION_PROMPT, VISION_STEPS, VISION_MAX_LEN = 16, 512, 128, 2048
+
+
+def vision_serving(device, arch="pixtral-12b", cfg=None, batch=VISION_BATCH,
+                   prompt=VISION_PROMPT, steps=VISION_STEPS,
+                   max_len=VISION_MAX_LEN, check_prompt=CHECK_PROMPT,
+                   check_steps=CHECK_STEPS, seed=0, tag="[14]"):
+    """A vision-language model at full width, through the JAX package's
+    entries for a vision config (``launch/steps.py``'s prefill step, then
+    its decode step): ``batch`` requests, each ``cfg.frontend_seq`` seeded
+    normal patch embeddings (the ViT frontend is a stub in both packages)
+    before a ``prompt``-token seeded prompt, one batched
+    ``DecoderLM.prefill(extra_embeds=..., max_len=max_len)``, then
+    ``steps`` greedy ``decode_step``s of every row.  Launch counts are set
+    to 0 before the prefill and read after the last step; then the
+    kernels' engine against the plain versions' engine with one request's
+    prefix and prompt (``engines_compared``, decode after prefill against
+    prefill of the extended sequence with the same prefix), a second
+    prefix that must move the prefill's logits, and five profiled decode
+    steps of the batch."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import param_count
+    from repro_torch.models.registry import build_model
+    cfg = cfg or get_config(arch)
+    model = build_model(cfg)
+    n_params = param_count(model.specs())
+    P, V, L = cfg.frontend_seq, cfg.vocab, cfg.n_layers
+    cdt = getattr(torch, cfg.compute_dtype)
+    _free_card(device)
+    t0 = time.perf_counter()
+    params = CONDITION[cfg.family](
+        model.init(seed, getattr(torch, cfg.param_dtype), device), cfg)
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    patches = torch.randn((batch, P, cfg.d_model), generator=gen,
+                          device=device).to(cdt)
+    toks = torch.as_tensor(rng.integers(0, V, (batch, prompt)), device=device)
+    _sync(device)
+    t_init = time.perf_counter() - t0
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, toks, extra_embeds=patches,
+                                  max_len=max_len)
+    check(tuple(logits.shape[:2]) == (batch, 1),
+          f"{tag} prefill logits {tuple(logits.shape)}")
+    nxt = torch.argmax(logits[:, -1, :V], -1)[:, None]
+    nxt.cpu()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    _, _, decode_ms, logits, cache = greedy_decode(model, params, cache, nxt,
+                                                   steps)
+    _sync(device)
+    t_serve = time.perf_counter() - t0
+    launches = launch_counts()
+    paths = path_launches()
+    n_pass = 1 + steps
+    expect = dict.fromkeys(launches, 0)
+    expect.update({"rmsnorm": (2 * L + 1) * n_pass, "flash_attention": L,
+                   "decode_attention": L * steps})
+    check(paths["flash_attention"]["cuda_core"] == 0
+          and paths["rmsnorm"] == norm_paths_expected(cfg.d_model,
+                                                      launches["rmsnorm"]),
+          f"{tag} launches by path {paths}")
+    lens = cache["s0"]["len"]
+    check(bool((lens == P + prompt + steps).all()),
+          f"{tag} cache lengths {lens.unique().tolist()}, not "
+          f"{P + prompt + steps}")
+    check(bool(torch.isfinite(logits).all()), f"{tag} non-finite logits")
+    mem = _peak(device)
+    kv = kv_cache_facts(cache, cfg)
+    n_out = batch * (1 + steps)
+
+    # one request's prefix and prompt: kernels against plain versions
+    # (every launch held against its plain version), decode after prefill
+    # against prefill with the same prefix; then another prefix
+    ctoks, cpatch = toks[:1, :check_prompt], patches[:1]
+    checked = {}
+    with every_launch_checked(checked):
+        eng = engines_compared(model, params, ctoks, check_steps,
+                               extra=cpatch)
+    other = torch.randn(cpatch.shape, generator=gen, device=device).to(cdt)
+    la, _ = model.prefill(params, ctoks, extra_embeds=cpatch)
+    lb, _ = model.prefill(params, ctoks, extra_embeds=other)
+    moved = _logit_err(lb, la, V)[1]
+    check(moved > LOGIT_REL_TOL, f"{tag} another prefix moved the prefill's "
+          f"logits by only {moved} of the largest: the prefix is not read")
+    del la, lb
+
+    tokens = [torch.argmax(logits[:, -1, :V], -1)[:, None]]
+
+    def step():
+        lg, _ = model.decode_step(params, cache, tokens[-1])
+        tokens.append(torch.argmax(lg[:, -1, :V], -1)[:, None])
+        tokens[-1].cpu()
+
+    busy, step_launches = profiled_steps(device, step)
+    dm = np.asarray(decode_ms)
+    log(f"{tag} {cfg.name}: {n_params:,} params ({L} layers, d_model "
+        f"{cfg.d_model}, {cfg.param_dtype}), init {t_init:.2f} s; {batch} "
+        f"requests of {P} patch embeddings + {prompt} tokens, max_len "
+        f"{max_len}: prefill {prefill_ms:.1f} ms, {steps} decode steps p50 "
+        f"{np.percentile(dm, 50):.2f} ms, max {dm.max():.2f} ms; {n_out} "
+        f"tokens out in {t_serve:.2f} s ({n_out / t_serve:.1f} tok/s); peak "
+        f"memory {mem / 2**30:.2f} GiB; KV cache {kv['bytes']:,} B")
+    log(f"{tag} launches by path {paths}")
+    log(f"{tag} every kernel launch of the check against its plain version, "
+        f"(launches, worst err): {checked}")
+    log(f"{tag} kernels vs plain engine (one request, prefix {P} + "
+        f"{check_prompt} tokens): logits rel err by step "
+        f"{[round(x, 5) for x in eng['errs']]}, greedy tokens equal "
+        f"{eng['same']}/{check_steps}, {eng['compared']} comparable; decode "
+        f"after prefill vs prefill rel err {eng['pd_err']:.5f}; another "
+        f"prefix moves the prefill's logits by {moved:.4f} of the largest")
+    log_profile(tag, busy, f"of {batch} rows", step_launches)
+    return {"params": n_params, "prefill_ms": prefill_ms,
+            "decode_steps": steps,
+            "decode_ms_p50": float(np.percentile(dm, 50)),
+            "decode_ms_max": float(dm.max()), "tokens_out": n_out,
+            "serve_s": t_serve, "tokens_per_s": n_out / t_serve,
+            "peak_memory": mem, "kv_cache_bytes": kv["bytes"],
+            "engine_logit_rel_err": max(eng["errs"]),
+            "prefill_decode_rel_err": eng["pd_err"],
+            "greedy_equal": eng["same"], "prefix_moves": moved,
+            "path_launches_checked": checked,
+            "profiled_busy_share": busy["busy_share"],
+            "profiled_kernels_per_step": busy["n_kernels"] / 5,
+            "profiled_device_ms_per_step": busy["device_ms"] / 5,
+            "path_launches": paths, "launches": launches, "expect": expect}
+
+
+# --------------------------------------------------------------- phase 16 --
+ENCDEC_BATCH, ENCDEC_SRC, ENCDEC_STEPS, ENCDEC_MAX_LEN = 16, 1024, 128, 256
+ENCDEC_CHECK_STEPS = 4
+
+
+def encdec_serving(device, arch="seamless-m4t-medium", cfg=None,
+                   batch=ENCDEC_BATCH, src=ENCDEC_SRC, steps=ENCDEC_STEPS,
+                   max_len=ENCDEC_MAX_LEN, check_steps=ENCDEC_CHECK_STEPS,
+                   seed=0, tag="[16]"):
+    """The encoder-decoder family at full width, through the JAX package's
+    encdec serving path (``launch/steps.py``'s prefill step for an encdec
+    config, ``tests/test_prefill_decode.py``'s decode loop): ``batch``
+    utterances of ``src`` seeded normal frame embeddings (the audio
+    frontend is a stub in both packages), ``EncDecLM.encode``, then
+    ``init_dec_cache(max_len=max_len)`` (every decoder layer's cross k and
+    v), then ``steps`` greedy ``decode_step``s from seeded start tokens.
+    Launch counts are set to 0 before the encoder and read after the last
+    step; then the plain path (every kernel's plain version) on the same
+    frames and the kernels' tokens: its encoder output, cross k and v and
+    the first ``check_steps`` steps' logits, against the kernels' path;
+    and five profiled decode steps."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import param_count
+    from repro_torch.models.registry import build_model
+    cfg = cfg or get_config(arch)
+    model = build_model(cfg)
+    n_params = param_count(model.specs())
+    V, Le, Ld = cfg.vocab, cfg.n_enc_layers, cfg.n_dec_layers
+    cdt = getattr(torch, cfg.compute_dtype)
+    _free_card(device)
+    t0 = time.perf_counter()
+    params = CONDITION[cfg.family](
+        model.init(seed, getattr(torch, cfg.param_dtype), device), cfg)
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    frames = torch.randn((batch, src, cfg.d_model), generator=gen,
+                         device=device).to(cdt)
+    start = torch.as_tensor(rng.integers(0, V, (batch, 1)), device=device)
+    _sync(device)
+    t_init = time.perf_counter() - t0
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    enc = model.encode(params, frames)
+    cache = model.init_dec_cache(params, enc, batch, max_len)
+    _sync(device)
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    fed, kept, decode_ms, logits, cache = greedy_decode(
+        model, params, cache, start, steps, keep=check_steps)
+    _sync(device)
+    t_serve = time.perf_counter() - t0
+    launches = launch_counts()
+    paths = path_launches()
+    expect = dict.fromkeys(launches, 0)
+    expect.update({"rmsnorm": 2 * Le + 1 + (3 * Ld + 1) * steps,
+                   "flash_attention": Le + Ld * steps,
+                   "decode_attention": Ld * steps})
+    check(paths["flash_attention"]["cuda_core"] == 0
+          and paths["rmsnorm"] == norm_paths_expected(cfg.d_model,
+                                                      launches["rmsnorm"]),
+          f"{tag} launches by path {paths}")
+    check(bool((cache["self"]["len"] == steps).all()),
+          f"{tag} self cache lengths {cache['self']['len'].unique()}")
+    check(cache["cross_k"].dtype == enc.dtype == cdt,
+          f"{tag} cross k {cache['cross_k'].dtype}, encoder {enc.dtype}")
+    check(bool(torch.isfinite(logits).all()), f"{tag} non-finite logits")
+    mem = _peak(device)
+    kv = kv_cache_facts({"self": cache["self"]}, cfg)
+    n_out = batch * steps
+
+    # the plain path on the same frames, fed the kernels' tokens
+    with plain_versions():
+        enc_p = model.encode(params, frames)
+        cache_p = model.init_dec_cache(params, enc_p, batch, max_len)
+        want = []
+        for nxt in fed[:check_steps]:
+            lp, cache_p = model.decode_step(params, cache_p, nxt)
+            want.append(lp)
+    net_errs = {}
+    for name, a, b in (("encoder", enc, enc_p),
+                       ("cross_k", cache["cross_k"], cache_p["cross_k"]),
+                       ("cross_v", cache["cross_v"], cache_p["cross_v"])):
+        net_errs[name] = _logit_err(a, b, a.shape[-1])[1]
+        check(net_errs[name] <= LOGIT_REL_TOL, f"{tag} {name} kernels vs "
+              f"plain rel err {net_errs[name]}")
+    errs, same, comparable = logits_held(tag, kept, want, V)
+    del enc_p, cache_p, want, kept
+
+    tokens = [fed[-1]]
+
+    def step():
+        lg, _ = model.decode_step(params, cache, tokens[-1])
+        tokens.append(torch.argmax(lg[:, -1, :V], -1)[:, None])
+        tokens[-1].cpu()
+
+    busy, step_launches = profiled_steps(device, step)
+    dm = np.asarray(decode_ms)
+    log(f"{tag} {cfg.name}: {n_params:,} params ({Le} + {Ld} layers, "
+        f"d_model {cfg.d_model}, vocab {V}, {cfg.param_dtype}), init "
+        f"{t_init:.2f} s; {batch} utterances of {src} frames: encode + "
+        f"cross k, v {encode_ms:.1f} ms, {steps} decode steps p50 "
+        f"{np.percentile(dm, 50):.2f} ms, max {dm.max():.2f} ms; {n_out} "
+        f"tokens out in {t_serve:.2f} s ({n_out / t_serve:.1f} tok/s); peak "
+        f"memory {mem / 2**30:.2f} GiB; self cache {kv['bytes']:,} B, cross "
+        f"k and v {2 * cache['cross_k'].nbytes:,} B")
+    log(f"{tag} launches by path {paths}")
+    log(f"{tag} kernels vs plain path: rel err {net_errs}, logits by step "
+        f"{[round(x, 5) for x in errs]}, greedy tokens equal {same} of "
+        f"{batch * check_steps} ({comparable} comparable)")
+    log_profile(tag, busy, f"of {batch} rows", step_launches)
+    return {"params": n_params, "encode_ms": encode_ms,
+            "decode_steps": steps,
+            "decode_ms_p50": float(np.percentile(dm, 50)),
+            "decode_ms_max": float(dm.max()), "tokens_out": n_out,
+            "serve_s": t_serve, "tokens_per_s": n_out / t_serve,
+            "peak_memory": mem, "kv_cache_bytes": kv["bytes"],
+            "net_rel_errs": net_errs, "engine_logit_rel_err": max(errs),
+            "greedy_equal": same, "greedy_comparable": comparable,
+            "profiled_busy_share": busy["busy_share"],
+            "profiled_kernels_per_step": busy["n_kernels"] / 5,
+            "profiled_device_ms_per_step": busy["device_ms"] / 5,
+            "path_launches": paths, "launches": launches, "expect": expect}
 
 
 def profile_start(device):
@@ -4253,7 +4812,17 @@ def main() -> int:
     import numpy as np
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
+    laps, t_lap = {}, [t_start]
+
+    def lap(name):
+        """Log the seconds since the last phase ended."""
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+        log(f"[time] phase {name} took {laps[name]} s")
+
     smi_line, mutants = device_facts()
+    lap("1")
     n_rows = len(np.arange(15.0, 1800.0, 15.0))
     fit_batch, attn_fit_batch = n_rows - WINDOW, n_rows - ATTN_WINDOW
     harness_fit_batch = (len(np.arange(15.0, HARNESS_PRETRAIN_S, 15.0))
@@ -4263,6 +4832,7 @@ def main() -> int:
     records.update(llm_kernels_vs_plain(mutants))
     records.update(ssm_kernels_vs_plain(mutants["ssd_scan"]))
     side_stream_runs()
+    lap("2")
 
     # each phase sets the counts to 0 before it drives its path and reads
     # them right after, before its own comparison checks
@@ -4271,36 +4841,43 @@ def main() -> int:
     lstm_base = loop.pop("base_model")
     cloud_rows = loop.pop("cloud_rows")
     edge_rows = loop.pop("edge_rows")
+    lap("3")
     plane = plane_tick(device, lstm_base)
     lane = lane_path(device, *plane.pop("lane_inputs"))
+    lap("4")
     attn_loop = closed_loop(device, arch="attn", tag="[5]")
     check(attn_loop["fit_batch"] == attn_fit_batch,
           "attn fit batch differs from phase 2")
     attn_base = attn_loop.pop("base_model")
     attn_loop.pop("cloud_rows")
     attn_loop.pop("edge_rows")
+    lap("5")
     attn_plane = plane_tick(device, attn_base, tag="[6]")
     attn_plane.pop("lane_inputs")
     check(attn_plane["refit_n"] == PLANE_FIT_ROWS - ATTN_WINDOW,
           "attn refit N differs from phase 2")
+    lap("6")
     paper = harness(device)
     check(paper["fit_batch"] == harness_fit_batch,
           "harness fit batch differs from phase 2")
+    lap("7")
     serve = serving(device)
     check(serve["params"] == 1_835_133_440,
           f"h2o-danube-1.8b has {serve['params']} parameters")
+    lap("8")
     serve_ssm = serving(device, arch="mamba2-780m", tag="[9]")
     check(serve_ssm["params"] == 781_328_640,
           f"mamba2-780m has {serve_ssm['params']} parameters")
+    lap("9")
     # phase 10 holds each sharded plane to phase 4's / phase 6's
     # FleetController on the same targets and rows
     planes = sharded_planes(device, lstm_base, plane)
     attn_planes = sharded_planes(device, attn_base, attn_plane)
     plane.pop("replicas")
     attn_plane.pop("replicas")
+    lap("10")
     # phase 11: the rest of the forecaster zoo, autotune and the serving
     # federation
-    t11 = time.perf_counter()
     demos = {kind: guardrail_demo(device, kind)
              for kind in ("ensemble", "arima_d1")}
     zoo_plane, ens = ensemble_plane(device, cloud_rows)
@@ -4312,13 +4889,36 @@ def main() -> int:
         f"variance {tune['val_var']:.6g}), edge-0 "
         f"{sorted(tune_edge['val_mse'], key=tune_edge['val_mse'].get)} "
         f"(variance {tune_edge['val_var']:.6g})")
-    log(f"[11] phase 11 took {time.perf_counter() - t11:.1f} s")
+    lap("11")
     serve_moe = serving(device, arch="granite-moe-1b-a400m", tag="[12]")
     check(serve_moe["params"] == 1_336_722_432,
           f"granite-moe-1b-a400m has {serve_moe['params']} parameters")
+    lap("12")
     serve_hybrid = serving(device, arch="zamba2-2.7b", tag="[13]")
     check(serve_hybrid["params"] == 2_473_371_808,
           f"zamba2-2.7b has {serve_hybrid['params']} parameters")
+    lap("13")
+    serve_vision = vision_serving(device)
+    check(serve_vision["params"] == 12_247_782_400,
+          f"pixtral-12b has {serve_vision['params']} parameters")
+    lap("14")
+    # llama3-405b's widths and int8 cache as published, 4 of its 126
+    # layers (126 do not fit one card)
+    from repro_torch.configs import get_config
+    serve_int8 = serving(device, cfg=get_config("llama3-405b").replace(
+        n_layers=LLAMA_LAYERS), tag="[15]")
+    check(serve_int8["params"] == 16_978_690_048,
+          f"llama3-405b at {LLAMA_LAYERS} layers has "
+          f"{serve_int8['params']} parameters")
+    check(serve_int8["kv_cache_dtype"] == "int8"
+          and serve_int8["kv_cache_bytes"] == 1_107_296_256,
+          f"llama3-405b's cache: {serve_int8['kv_cache_dtype']}, "
+          f"{serve_int8['kv_cache_bytes']} B")
+    lap("15")
+    serve_encdec = encdec_serving(device)
+    check(serve_encdec["params"] == 981_530_624,
+          f"seamless-m4t-medium has {serve_encdec['params']} parameters")
+    lap("16")
     launches = {}
     for tag, phase in (("[3] closed loop", loop), ("[4] plane", plane),
                        ("[4] lstm_cell lane", lane),
@@ -4344,7 +4944,10 @@ def main() -> int:
                        ("[11d] autotune", tune),
                        ("[11d] autotune edge-0", tune_edge),
                        ("[12] granite-moe serving", serve_moe),
-                       ("[13] zamba2 serving", serve_hybrid)):
+                       ("[13] zamba2 serving", serve_hybrid),
+                       ("[14] pixtral-12b vision prefix", serve_vision),
+                       ("[15] llama3-405b int8 serving", serve_int8),
+                       ("[16] seamless-m4t-medium encdec", serve_encdec)):
         got, want = phase.pop("launches"), phase.pop("expect")
         log(f"{tag} launches {got}, the path's count {want}")
         check(got == want, f"{tag} launches {got} != {want}")
@@ -4365,7 +4968,9 @@ def main() -> int:
               "guardrail_demos": demos, "ensemble_plane": zoo_plane,
               "federation": fed, "autotune": tune,
               "autotune_edge": tune_edge, "serving_moe": serve_moe,
-              "serving_hybrid": serve_hybrid}
+              "serving_hybrid": serve_hybrid, "serving_vision": serve_vision,
+              "serving_int8": serve_int8, "serving_encdec": serve_encdec,
+              "phase_seconds": laps}
     log(f"[summary] {json.dumps(phases)}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f} s")
 

@@ -6,7 +6,11 @@
 ``--arch`` names a dense, MoE, ssm or hybrid architecture
 (``h2o-danube-1.8b``, ``codeqwen1.5-7b``, ``gemma2-9b``,
 ``granite-moe-1b-a400m``, ``phi3.5-moe-42b-a6.6b``, ``mamba2-780m``,
-``zamba2-2.7b``, ...); the encoder-decoder family raises.
+``zamba2-2.7b``, ``pixtral-12b`` (its prompts without an image prefix),
+...), each with the KV cache its config names (int8 where
+``kv_cache_dtype="int8"``); the engine refuses the encoder-decoder
+family, whose model runs ``EncDecLM.encode``, ``init_dec_cache`` and
+``decode_step`` instead.
 
 Without ``--device`` the engine runs on the card (and raises without one);
 ``--device cpu`` runs the kernels' plain versions on the CPU.

@@ -20,7 +20,8 @@ that axis in a Python loop (no scan, no remat, no mesh).  Inference only:
 ``forward``, ``prefill`` and ``decode_step``; ``forward`` returns the MoE
 family's load-balance aux loss summed over the layers (0 for the others).
 The decode cache is the JAX package's pytree -- per attention entry ``k``,
-``v`` (n_steps, B, max_len, Hkv, D) in bfloat16 whatever the compute dtype,
+``v`` (n_steps, B, max_len, Hkv, D) in bfloat16 whatever the compute dtype
+(or int8, below),
 and ``len`` (n_steps, B); per mamba entry the conv states ``conv_x``,
 ``conv_B``, ``conv_C`` (n_steps, B, K-1, .) in the compute dtype, a
 prompt's rounded through bfloat16 as the reference's merge rounds them,
@@ -31,11 +32,19 @@ writes a prompt's rows and states into the given slots of a live cache.
 A write position past the cache end is clamped to the last row, as
 ``lax.dynamic_update_slice`` clamps it.
 
+With ``cfg.kv_cache_dtype == "int8"`` an attention entry holds ``k`` and
+``v`` as int8 codes and ``k_scale``, ``v_scale`` (n_steps, B, max_len, Hkv,
+1) in float32, one scale a row and head (the reference's ``_quant_kv``);
+a decode step writes its codes and scales in place and dequantises the
+whole cache into the compute dtype before ``decode_attention``, as the
+reference does.  ``forward`` and ``prefill`` take ``extra_embeds`` (B, P,
+d): a vision or audio prefix put before the token embeddings.
+
 The attention, the norms and the SSM's chunk scan run the hand-written
 kernels (``models/attention``, ``models/layers``, ``models/ssm``); the MoE
 routing and expert products are plain PyTorch (``models/moe``), as the
-reference leaves them to XLA.  The encoder-decoder family, the int8 KV
-cache and vision / audio prefixes raise ``NotImplementedError``.
+reference leaves them to XLA.  The encoder-decoder family is
+``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -53,26 +62,6 @@ from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.params import Spec, init_params, tree_map
 
 KV_CACHE_DTYPE = torch.bfloat16
-# what ports each missing piece (ROADMAP.md section 1, "Still to port")
-_LATER = {
-    "encdec": "the encoder-decoder family (models/encdec.py)",
-    "int8": "the int8 KV cache (kv_cache_dtype='int8')",
-    "frontend": "vision / audio prefix embeddings",
-}
-
-
-def require_ported(cfg: ModelConfig, cache: bool = False):
-    """Raise for what this slice does not run (with ``cache``: the decode
-    cache's int8 form too), naming the ROADMAP item."""
-    if cfg.family in _LATER:
-        what = _LATER[cfg.family]
-    elif cache and cfg.kv_cache_dtype == "int8":
-        what = _LATER["int8"]
-    else:
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: {what} is not ported yet; it is an item of ROADMAP.md "
-        f"section 1, 'Still to port'")
 
 
 def _dt(name: str) -> torch.dtype:
@@ -107,7 +96,6 @@ def mlp_specs_full(cfg: ModelConfig) -> dict:
 
 
 def _pattern(cfg: ModelConfig) -> tuple[list[str], int]:
-    require_ported(cfg)
     if cfg.family == "ssm":
         return ["mamba"], cfg.n_layers
     if cfg.family == "hybrid":
@@ -231,12 +219,35 @@ def _row_update(buf, val, pos):
     buf[rows, idx] = val.to(buf.dtype)
 
 
+def _quant_kv(k):
+    """k (..., D) -> (int8 codes, float32 scales (..., 1)): a row's scale is
+    its largest |k| over 127, at least 1e-8; the codes round k / scale half
+    to even (``torch.round``, as ``jnp.round``)."""
+    kf = k.float()
+    scale = (kf.abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-8)
+    return torch.round(kf / scale).to(torch.int8), scale
+
+
+def _dequant_kv(kq, scale, dtype):
+    return (kq * scale).to(dtype)           # int8 * float32 -> float32
+
+
 def _cache_append(cache, k, v, cfg):
     """Write k, v (B, T, H, D) at per-slot positions cache['len'] (B,) into
-    the cache (rounded to its dtype); return the cache arrays."""
-    _row_update(cache["k"], k, cache["len"])
-    _row_update(cache["v"], v, cache["len"])
-    return cache["k"], cache["v"]
+    the cache, in place: rounded to its dtype, or as int8 codes and scales;
+    return the whole cache's k and v for the attention (an int8 cache
+    dequantised into k's dtype)."""
+    pos = cache["len"]
+    if cfg.kv_cache_dtype != "int8":
+        _row_update(cache["k"], k, pos)
+        _row_update(cache["v"], v, pos)
+        return cache["k"], cache["v"]
+    for f, t in (("k", k), ("v", v)):
+        q, sc = _quant_kv(t)
+        _row_update(cache[f], q, pos)
+        _row_update(cache[f + "_scale"], sc, pos)
+    return (_dequant_kv(cache["k"], cache["k_scale"], k.dtype),
+            _dequant_kv(cache["v"], cache["v_scale"], v.dtype))
 
 
 def mlp_sublayer(p, x, cfg):
@@ -307,27 +318,35 @@ def _layer(tree, i):
 
 
 # ============================================================== caches =====
+def attn_cache(cfg: ModelConfig, n: int, batch: int, max_len: int,
+               prefilled: int, device) -> dict:
+    """One stacked attention entry of ``n`` layers: k and v zeros (n,
+    batch, max_len, Hkv, D) in bfloat16, or int8 codes with float32
+    ``k_scale`` / ``v_scale`` (n, batch, max_len, Hkv, 1) where
+    ``cfg.kv_cache_dtype == "int8"``; len (n, batch) = prefilled."""
+    Hkv = cfg.n_kv_heads * cfg.kv_repeat
+    shape = (n, batch, max_len, Hkv, cfg.head_dim)
+    int8 = cfg.kv_cache_dtype == "int8"
+    c = {f: torch.zeros(shape, dtype=torch.int8 if int8 else KV_CACHE_DTYPE,
+                        device=device) for f in ("k", "v")}
+    c["len"] = torch.full((n, batch), prefilled, dtype=torch.int32,
+                          device=device)
+    if int8:
+        for f in ("k_scale", "v_scale"):
+            c[f] = torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                               device=device)
+    return c
+
+
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       prefilled: int = 0, device=None) -> dict:
     """Stacked (n_steps, ...) cache on ``device`` (None: the card; raises
-    without one): k and v zeros in bfloat16 and len = prefilled for
-    attention entries; zero conv states (in the compute dtype) and SSM
-    states (float32) for mamba entries, which have no length.  The hybrid
-    family's shared blocks have an attention entry of their own,
-    ``"shared"``, one a pattern step."""
-    require_ported(cfg, cache=True)
+    without one): ``attn_cache`` entries for attention; zero conv states
+    (in the compute dtype) and SSM states (float32) for mamba entries,
+    which have no length.  The hybrid family's shared blocks have an
+    attention entry of their own, ``"shared"``, one a pattern step."""
     device = resolve_device(device)
     pattern, n_steps = _pattern(cfg)
-    Hkv = cfg.n_kv_heads * cfg.kv_repeat
-    shape = (n_steps, batch, max_len, Hkv, cfg.head_dim)
-
-    def attn_cache():
-        return {
-            "k": torch.zeros(shape, dtype=KV_CACHE_DTYPE, device=device),
-            "v": torch.zeros(shape, dtype=KV_CACHE_DTYPE, device=device),
-            "len": torch.full((n_steps, batch), prefilled, dtype=torch.int32,
-                              device=device)}
-
     cache = {}
     for i, kind in enumerate(pattern):
         if kind == "mamba":
@@ -336,9 +355,11 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                 ssm.init_ssm_cache(cfg, batch, _dt(cfg.compute_dtype),
                                    device))
         else:
-            cache[f"s{i}"] = attn_cache()
+            cache[f"s{i}"] = attn_cache(cfg, n_steps, batch, max_len,
+                                        prefilled, device)
     if cfg.family == "hybrid":
-        cache["shared"] = attn_cache()
+        cache["shared"] = attn_cache(cfg, n_steps, batch, max_len, prefilled,
+                                     device)
     return cache
 
 
@@ -346,9 +367,10 @@ def _merge_prefill_cache(cfg, B, S, max_len, raw, *, cache=None, rows=None,
                          device="cpu"):
     """raw: per pattern entry, stacked over n_steps, either attention's
     {'k', 'v'} (n_steps, B, S, H, D) or mamba's conv and SSM states.
-    Writes them, rounded to the cache's dtypes, into the slots ``rows`` of
-    ``cache`` (in place; a new cache of B slots when None): k and v into
-    rows [0, S), with those slots' len set to S, and the mamba states whole,
+    Writes them, rounded to the cache's dtypes (k and v of an int8 cache as
+    codes and scales), into the slots ``rows`` of ``cache`` (in place; a
+    new cache of B slots when None): k and v into rows [0, S), with those
+    slots' len set to S, and the mamba states whole,
     replacing what the slots held.  The conv states are rounded through
     bfloat16 on the way, as the reference rounds them into the bfloat16
     cache of its ``init_ssm_cache`` (its decode steps then carry them in
@@ -369,7 +391,12 @@ def _merge_prefill_cache(cfg, B, S, max_len, raw, *, cache=None, rows=None,
         if S > dst["k"].shape[2]:
             raise ValueError(f"a {S}-token prompt does not fit the cache")
         for f in ("k", "v"):
-            dst[f][:, rows, :S] = src[f].to(KV_CACHE_DTYPE)
+            if cfg.kv_cache_dtype == "int8":
+                q, sc = _quant_kv(src[f])
+                dst[f][:, rows, :S] = q
+                dst[f + "_scale"][:, rows, :S] = sc
+            else:
+                dst[f][:, rows, :S] = src[f].to(KV_CACHE_DTYPE)
         dst["len"][:, rows] = S
     return cache
 
@@ -378,9 +405,6 @@ def _merge_prefill_cache(cfg, B, S, max_len, raw, *, cache=None, rows=None,
 @dataclasses.dataclass
 class DecoderLM:
     cfg: ModelConfig
-
-    def __post_init__(self):
-        require_ported(self.cfg)
 
     # ---- params
     def specs(self):
@@ -393,14 +417,14 @@ class DecoderLM:
 
     # ---- embedding frontend
     def _embed_inputs(self, params, tokens, extra_embeds, cdt):
-        if extra_embeds is not None:
-            raise NotImplementedError(
-                f"{_LATER['frontend']} are not ported yet (ROADMAP.md "
-                f"section 1, 'Still to port')")
+        """Token embeddings (scaled where the config says so), after the
+        prefix ``extra_embeds`` (B, P, d) where one is given."""
         x = L.embed_lookup(params["embed"]["embedding"], tokens, cdt)
         if self.cfg.embed_scale:
             x = x * torch.sqrt(torch.tensor(float(self.cfg.d_model),
                                             dtype=torch.float32)).to(cdt)
+        if extra_embeds is not None:
+            x = torch.cat([extra_embeds.to(cdt), x], dim=1)
         return x
 
     def _head(self, params, x):
@@ -441,8 +465,9 @@ class DecoderLM:
     # ---- forward (inference)
     @torch.no_grad()
     def forward(self, params, tokens, *, extra_embeds=None, q_offset=0):
-        """tokens (B, S) -> (logits (B, S, V), aux): the MoE family's
-        load-balance loss summed over the layers (f32), 0 for the others."""
+        """tokens (B, S) and an optional prefix ``extra_embeds`` (B, P, d)
+        -> (logits (B, P + S, V), aux): the MoE family's load-balance loss
+        summed over the layers (f32), 0 for the others."""
         x = self._embed_inputs(params, tokens, extra_embeds,
                                _dt(self.cfg.compute_dtype))
         x, _, aux = self._run(params, x, "train", q_offset)
@@ -453,11 +478,12 @@ class DecoderLM:
     @torch.no_grad()
     def prefill(self, params, tokens, *, max_len=None, extra_embeds=None,
                 cache=None, rows=None):
-        """tokens (B, S) -> (logits of the last position (B, 1, V), cache).
-        With ``cache`` and ``rows`` (B slot indices) the prompt's k/v (or
-        mamba states) go into those slots of that cache, in place;
-        otherwise into a new cache of B slots and ``max_len`` (default S)
-        positions."""
+        """tokens (B, S) and an optional prefix ``extra_embeds`` (B, P, d)
+        -> (logits of the last position (B, 1, V), cache): P + S rows of
+        k/v (or the mamba states after them).  With ``cache`` and ``rows``
+        (B slot indices) they go into those slots of that cache, in place;
+        otherwise into a new cache of B slots and ``max_len`` (default
+        P + S) positions."""
         x = self._embed_inputs(params, tokens, extra_embeds,
                                _dt(self.cfg.compute_dtype))
         B, S = x.shape[:2]

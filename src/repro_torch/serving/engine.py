@@ -44,9 +44,10 @@ class DecodeEngine:
         """``params``: the model's nested dict of tensors, already on
         ``device``."""
         if cfg.family == "encdec":
-            raise NotImplementedError(
-                "the encoder-decoder engine is not ported yet (ROADMAP.md "
-                "section 1, 'Still to port')")
+            raise ValueError(
+                f"{cfg.name}: the engine serves decoder-only models; an "
+                f"encoder-decoder model runs EncDecLM.encode, init_dec_cache "
+                f"and decode_step")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params

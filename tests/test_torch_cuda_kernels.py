@@ -827,6 +827,154 @@ def test_cuda_moe_hybrid_model_matches_plain_model(cuda_device, arch):
                                    atol=1e-6)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal", [
+    (4, 16, 16, 1, 1024, 64, False), (2, 16, 16, 1024, 1024, 64, False),
+    (2, 16, 16, 1, 1000, 64, False), (1, 128, 8, 520, 520, 128, True),
+    (2, 32, 8, 700, 700, 128, True)])
+def test_cuda_flash_new_serving_shapes_match_plain(cuda_device, B, Hq, Hkv,
+                                                   Sq, Skv, D, causal):
+    """The tensor-core flash kernel at the shapes the encoder-decoder,
+    vision and int8 phases give it: seamless's cross-attention (one query a
+    row against the encoder's frames, non-causal) and its encoder
+    (non-causal), llama3-405b's 128 query heads over 8 and pixtral's 32
+    over 8 (causal, D=128): within 2e-2 and 1e-2 of each row's scale."""
+    g = torch.Generator().manual_seed(B + Hq + Sq + Skv)
+    q = torch.randn((B, Sq, Hq, D), generator=g).to(cuda_device, BF16)
+    k, v = (torch.randn((B, Skv, Hkv, D), generator=g).to(cuda_device, BF16)
+            for _ in range(2))
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    tflash.reset_launch_counts()
+    got = tflash.flash_attention(q, k, v, causal=causal)
+    want = tref.flash_attention(q.float(), k.float(), v.float(),
+                                causal=causal)
+    torch.cuda.synchronize()
+    assert tflash.PATH_LAUNCHES == {"tensor_core": 1, "cuda_core": 0}
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=2e-2)
+    assert _row_err(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hq,Hkv,D,S,int8", [(128, 8, 128, 2048, True),
+                                             (128, 8, 128, 2048, False),
+                                             (32, 8, 128, 2048, False),
+                                             (16, 16, 64, 256, False)])
+def test_cuda_decode_new_serving_shapes_match_plain(cuda_device, Hq, Hkv, D,
+                                                    S, int8):
+    """The split decode kernel at G=16 (llama3-405b: the kernel's
+    MAX_GROUP, four heads a warp) over a cache dequantised from int8 codes
+    as the model does, at pixtral's and seamless's shapes, 16 slots, no
+    window, lengths from 1 to past the cache end: within 2e-2 and 1e-2 of
+    each row's scale."""
+    from repro_torch.models import transformer as tt
+    g = torch.Generator().manual_seed(Hq * D + S)
+    B = 16
+    q = torch.randn((B, Hq, D), generator=g).to(cuda_device, BF16)
+    caches = []
+    for _ in range(2):
+        c = torch.randn((B, S, Hkv, D), generator=g).to(cuda_device, BF16)
+        if int8:
+            c = tt._dequant_kv(*tt._quant_kv(c), BF16)
+        caches.append(c.transpose(1, 2))
+    kc, vc = caches
+    vals = torch.linspace(1, S + 9, B).round().to(cuda_device, torch.int32)
+    tdec.reset_launch_counts()
+    got = tdec.decode_attention(q, kc, vc, kv_valid=vals)
+    want = tref.decode_attention(q.float(), kc.float(), vc.float(),
+                                 kv_valid=vals)
+    torch.cuda.synchronize()
+    assert tdec.LAUNCHES == {"decode_attention": 1}
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=2e-2)
+    assert _row_err(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_cuda_rmsnorm_wide_rows_take_the_general_kernel(cuda_device):
+    """llama3-405b's rows (D=16384) are wider than the vector kernel
+    takes: the general kernel, within 8e-3 relative in bf16."""
+    g = torch.Generator().manual_seed(16384)
+    w = (1 + 0.1 * torch.randn(16384, generator=g)).to(cuda_device, BF16)
+    for R in (16, 300):
+        x = torch.randn((R, 16384), generator=g).to(cuda_device, BF16)
+        trms.reset_launch_counts()
+        got = trms.rmsnorm(x, w)
+        want = tref.rmsnorm(x.float(), w.float())
+        torch.cuda.synchronize()
+        assert trms.PATH_LAUNCHES == {"vector": 0, "general": 1}
+        assert _norm_err(got, want) <= 8e-3
+
+
+def _swapped_plain(run, wrappers):
+    """``run()`` with each wrapper ``(module, name)`` set to its plain
+    version in ``kernels.ref``, restored after."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name in wrappers]
+    try:
+        for mod, name, _ in saved:
+            setattr(mod, name, getattr(tref, name))
+        return run()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["int8", "prefix", "encdec"])
+def test_cuda_int8_prefix_encdec_models_match_plain_model(cuda_device, case):
+    """Smoke-size models on the card in float32, the kernels' model (every
+    norm and attention launched) against the same model with the plain
+    versions swapped in: h2o-danube with the int8 KV cache, pixtral with
+    its vision prefix, seamless's encoder-decoder (the encoder output, the
+    cross k, then decode steps with the cross-attention on flash at one
+    query a row).  The prefill and the encoder within 1e-3 of their
+    largest value (the f32 kernels' last bits), decode steps within 5e-2
+    (``chip_smoke.LOGIT_REL_TOL``: a last-bit difference in k can round to
+    another bf16 or int8 code in the cache)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.registry import build_model
+    arch = {"int8": "h2o-danube-1.8b", "prefix": "pixtral-12b",
+            "encdec": "seamless-m4t-medium"}[case]
+    cfg = smoke_config(arch).replace(compute_dtype="float32")
+    if case == "int8":
+        cfg = cfg.replace(kv_cache_dtype="int8")
+    m = build_model(cfg)
+    params = m.init(0, device=cuda_device)
+    g = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (2, 40), generator=g).to(cuda_device)
+    frames = torch.randn((2, 40, cfg.d_model), generator=g).to(cuda_device)
+    extra = frames[:, :cfg.frontend_seq] if case == "prefix" else None
+    V = cfg.vocab
+
+    def run():
+        if case == "encdec":
+            enc = m.encode(params, frames)
+            cache = m.init_dec_cache(params, enc, 2, max_len=8)
+            nets = [enc, cache["cross_k"]]
+        else:
+            lg, cache = m.prefill(params, toks, max_len=64,
+                                  extra_embeds=extra)
+            nets = [lg[..., :V]]
+        steps = []
+        for t in range(3):
+            lg, cache = m.decode_step(params, cache, toks[:, t:t + 1])
+            steps.append(lg[..., :V])
+        return nets, steps, cache
+
+    wrappers = [(trms, "rmsnorm"), (tflash, "flash_attention"),
+                (tdec, "decode_attention")]
+    for mod, _ in wrappers:
+        mod.reset_launch_counts()
+    got = run()
+    assert (trms.LAUNCHES["rmsnorm"] > 0 and tflash.LAUNCHES[
+        "flash_attention"] > 0 and tdec.LAUNCHES["decode_attention"] > 0)
+    if case == "int8":
+        assert got[2]["s0"]["k"].dtype == torch.int8
+    want = _swapped_plain(run, wrappers)
+    for tol, xs, ys in ((1e-3, got[0], want[0]), (5e-2, got[1], want[1])):
+        for a, b in zip(xs, ys):
+            err = float((a - b).abs().max())
+            assert err <= tol * float(b.abs().max()), (case, tol, err)
+
+
 # --------------------------------------------------------- the chunk scan --
 def _card_inputs(dev, B, S, H, P, N, dtype, seed=0):
     """Unit-normal x, B, C, D; dt = |N| * 0.05 and A in -[0.02, 0.5]: a

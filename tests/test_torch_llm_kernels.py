@@ -410,6 +410,29 @@ def test_rmsnorm_vector_path_only_where_every_load_is_aligned(
                       and aligned)
 
 
+@pytest.mark.parametrize("chunks", [1, 2, 4])
+def test_plain_attention_by_head_chunks_equals_whole(chunks):
+    """``chip_smoke.by_heads``, the plain versions run over slices of the
+    kv heads (phase 2's yardstick where a whole score matrix would not fit
+    the card), equals one call over all heads, flash and decode, GQA
+    included."""
+    import importlib.util
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    g = torch.Generator().manual_seed(chunks)
+    q = torch.randn((2, 16, 9, 8), generator=g)
+    k, v = (torch.randn((2, 4, 11, 8), generator=g) for _ in range(2))
+    torch.testing.assert_close(
+        cs.by_heads(tref.flash_attention, chunks, q, k, v, causal=False),
+        tref.flash_attention(q, k, v, causal=False), rtol=0, atol=0)
+    qd, valid = torch.randn((2, 16, 8), generator=g), torch.tensor([3, 11])
+    torch.testing.assert_close(
+        cs.by_heads(tref.decode_attention, chunks, qd, k, v, kv_valid=valid),
+        tref.decode_attention(qd, k, v, kv_valid=valid), rtol=0, atol=0)
+
+
 def test_cpu_counts_no_launch_by_path():
     for mod in (tflash, tdec):
         mod.reset_launch_counts()

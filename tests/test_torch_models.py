@@ -1,5 +1,6 @@
 """The port's decoder (configs, params, layers, ``DecoderLM``: the dense,
-MoE, ssm and hybrid families) against the JAX package.
+MoE, ssm and hybrid families, the int8 KV cache and the vision prefix)
+against the JAX package.
 
 The same weights go to both packages (JAX's ``init`` in float32, carried
 over with ``params_from_numpy``), the same tokens from a numpy generator.
@@ -242,26 +243,39 @@ def test_row_update_clamps_like_dynamic_update_slice():
     np.testing.assert_array_equal(tb.numpy(), np.asarray(want))
 
 
-def test_later_families_raise_naming_roadmap():
-    """The encoder-decoder family, the int8 KV cache and prefix embeddings
-    raise, naming their ROADMAP item; the MoE and hybrid families build."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuild(tconfigs.smoke_config("seamless-m4t-medium"))
-    cfg = tconfigs.smoke_config("h2o-danube-1.8b").replace(
-        kv_cache_dtype="int8")
-    m = tbuild(cfg)
-    with pytest.raises(NotImplementedError, match="int8"):
-        m.prefill(m.init(0, device="cpu"),
-                  torch.zeros((1, 4), dtype=torch.long))
-    m = tbuild(tconfigs.smoke_config("pixtral-12b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.forward(m.init(0, device="cpu"),
-                  torch.zeros((1, 4), dtype=torch.long),
-                  extra_embeds=torch.zeros((1, 2, m.cfg.d_model)))
-    for arch in ("granite-moe-1b-a400m", "zamba2-2.7b"):
-        cfg = tconfigs.smoke_config(arch)
-        assert tbuild(cfg).cfg is cfg
-        assert ttransformer.init_decode_cache(cfg, 1, 8, device="cpu")
+def test_every_config_builds_and_the_engine_refuses_encdec():
+    """Every config builds in the port (the encoder-decoder family as
+    ``EncDecLM``, the others as ``DecoderLM``), and every decoder-only
+    full config's cache takes the dtype its config names: int8 codes with
+    float32 scales for llama3-405b, bfloat16 otherwise.  ``DecodeEngine``
+    refuses the encoder-decoder family, as the JAX package's asserts."""
+    from repro_torch.models.encdec import EncDecLM
+    from repro_torch.serving import DecodeEngine
+    for arch in tconfigs.list_archs():
+        for cfg in (tconfigs.get_config(arch), tconfigs.smoke_config(arch)):
+            m = tbuild(cfg)
+            assert m.cfg is cfg
+            assert isinstance(m, EncDecLM if cfg.family == "encdec"
+                              else ttransformer.DecoderLM), arch
+            if cfg.family == "encdec":
+                continue
+            cache = ttransformer.init_decode_cache(cfg, 1, 2, device="cpu")
+            for entry in cache.values():
+                if "len" not in entry:
+                    continue
+                int8 = cfg.kv_cache_dtype == "int8"
+                assert entry["k"].dtype == (torch.int8 if int8
+                                            else torch.bfloat16)
+                assert ("k_scale" in entry) == int8
+                if int8:
+                    assert entry["v_scale"].dtype == torch.float32
+                    assert entry["v_scale"].shape == entry["v"].shape[:-1] + (
+                        1,)
+    assert tconfigs.get_config("llama3-405b").kv_cache_dtype == "int8"
+    cfg = tconfigs.smoke_config("seamless-m4t-medium")
+    with pytest.raises(ValueError, match="EncDecLM"):
+        DecodeEngine(cfg, tbuild(cfg).init(0, device="cpu"), slots=1,
+                     max_len=8, device="cpu")
 
 
 # ----------------------------------------------------------------- model ---
@@ -358,14 +372,15 @@ def test_forward_matches_jax_f32():
     assert bool((tl[..., V:] == torch.finfo(tl.dtype).min).all())
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["mamba2-780m"] + NEW_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["mamba2-780m"] + NEW_ARCHS
+                         + ["pixtral-12b"])
 def test_decode_after_prefill_matches_prefill(arch):
     """As tests/test_prefill_decode.py holds the JAX package: decoding one
     token after a prefill equals prefilling the extended sequence (2e-2,
     that file's bound: the decode path reads k and v back from the bf16
-    cache).  MoE at capacity factor 8, as there: the capacity follows the
-    prompt's length, so at 1.25 the prefill drops tokens a decode step
-    keeps."""
+    cache); pixtral with its vision prefix before the prompt in both.  MoE
+    at capacity factor 8, as there: the capacity follows the prompt's
+    length, so at 1.25 the prefill drops tokens a decode step keeps."""
     cfg = tconfigs.smoke_config(arch)
     if cfg.family == "moe":
         cfg = cfg.replace(capacity_factor=8.0)   # no capacity drops
@@ -373,10 +388,18 @@ def test_decode_after_prefill_matches_prefill(arch):
     params = m.init(1, device="cpu")
     rng = np.random.default_rng(4)
     toks = torch.tensor(rng.integers(0, cfg.vocab, (2, 32)))
-    _, cache = m.prefill(params, toks, max_len=40)
+    extra, P = None, 0
+    if cfg.frontend == "vision":
+        P = cfg.frontend_seq
+        extra = torch.tensor(rng.normal(0, 1, (2, P, cfg.d_model)),
+                             dtype=torch.float32)
+    _, cache = m.prefill(params, toks, max_len=P + 40, extra_embeds=extra)
+    if extra is not None:
+        assert int(cache["s0"]["len"][0, 0]) == P + 32
     nxt = torch.tensor(rng.integers(0, cfg.vocab, (2, 1)))
     lg_dec, _ = m.decode_step(params, cache, nxt)
-    lg_full, _ = m.prefill(params, torch.cat([toks, nxt], 1), max_len=41)
+    lg_full, _ = m.prefill(params, torch.cat([toks, nxt], 1),
+                           max_len=P + 41, extra_embeds=extra)
     err = float((lg_dec[:, -1].float() - lg_full[:, -1].float())
                 .abs()[..., :cfg.vocab].max())
     assert err < 2e-2, (arch, err)
@@ -719,3 +742,231 @@ def test_plain_zamba2_equals_kernel_zamba2_on_cpu(monkeypatch):
     n = cfg.n_layers // 2
     assert calls == {"rmsnorm": 2 * (4 * n + 1), "flash_attention": n,
                      "decode_attention": n, "ssd_scan": 2 * n}
+
+
+# ------------------------------------------ the int8 cache and prefixes ---
+def _quant_inputs():
+    """Rows of k (..., 16) with a row at zero, a row whose scale is exactly
+    1 and whose entries tie at .5 (2.5, -3.5, 0.5, 1.5 round half to even),
+    the rest seeded normals."""
+    k = np.random.default_rng(11).normal(0, 2, (3, 5, 2, 16)).astype(
+        np.float32)
+    k[0, 0, 0] = 0.0
+    k[0, 1, 0] = np.array([127.0, 2.5, -3.5, 0.5] + [1.5, -0.5] * 6,
+                          np.float32)
+    return k
+
+
+def test_quant_kv_bit_for_bit_equals_jax():
+    """The port's ``_quant_kv`` and ``_dequant_kv`` equal the JAX
+    package's op by op, bit for bit: codes, scales (a zero row's clamped
+    to 1e-8) and the dequantised rows in float32 and bfloat16.  Under
+    ``jax.jit`` XLA turns the division by 127 into a product with its
+    float32 reciprocal, so the jitted scales may sit one ulp off (and the
+    codes with them at a tie); the port divides, as the source does."""
+    k = _quant_inputs()
+    jq, js = jtransformer._quant_kv(jnp.asarray(k))
+    tq, ts = ttransformer._quant_kv(torch.tensor(k))
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert tq[0, 1, 0, :6].tolist() == [127, 2, -4, 0, 2, 0]
+    assert not tq[0, 0, 0].any() and float(ts[0, 0, 0, 0]) == np.float32(
+        1e-8)
+    for jdt, tdt in ((jnp.float32, torch.float32),
+                     (jnp.bfloat16, torch.bfloat16)):
+        want = np.asarray(jtransformer._dequant_kv(jq, js, jdt).astype(
+            jnp.float32))
+        got = ttransformer._dequant_kv(tq, ts, tdt)
+        assert got.dtype == tdt
+        np.testing.assert_array_equal(got.float().numpy(), want)
+    _, jjs = jax.jit(jtransformer._quant_kv)(jnp.asarray(k))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(jjs), rtol=2 ** -23,
+                               atol=0)
+
+
+def _int8_pair(arch):
+    jcfg = jconfigs.smoke_config(arch).replace(compute_dtype="float32",
+                                               kv_cache_dtype="int8")
+    tcfg = tconfigs.smoke_config(arch).replace(compute_dtype="float32",
+                                               kv_cache_dtype="int8")
+    jm, tm = jbuild(jcfg), tbuild(tcfg)
+    jp = jm.init(jax.random.PRNGKey(0), jnp.float32)
+    tp = tparams.params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    return jcfg, jm, jp, tm, tp
+
+
+def _int8_entries_agree(tc, jc):
+    """Each attention entry of the two int8 caches: codes int8, at most one
+    step apart (a float32 k a last bit apart can round to the next code)
+    and apart in at most 1% of them; scales (a row's largest |k| over 127)
+    within PREFILL_TOL relative, the bar k itself is held to; lengths
+    equal."""
+    for key, entry in jc.items():
+        if "len" not in entry:
+            continue
+        np.testing.assert_array_equal(tc[key]["len"].numpy(),
+                                      np.asarray(entry["len"]))
+        for f in ("k", "v"):
+            assert tc[key][f].dtype == torch.int8
+            a = np.asarray(entry[f]).astype(np.int32)
+            b = tc[key][f].numpy().astype(np.int32)
+            assert np.abs(a - b).max() <= 1 and (a != b).mean() <= 0.01
+            np.testing.assert_allclose(tc[key][f + "_scale"].numpy(),
+                                       np.asarray(entry[f + "_scale"]),
+                                       rtol=PREFILL_TOL, atol=0)
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "zamba2-2.7b"])
+def test_int8_prefill_and_decode_match_jax_f32(arch):
+    """kv_cache_dtype="int8" in float32 compute: prefill logits within
+    PREFILL_TOL of the largest logit and the prefilled caches' codes and
+    scales (zamba2's ``"shared"`` entry included) as
+    ``_int8_entries_agree`` holds them; then three decode steps, two slots
+    at different lengths, each from the JAX package's cache carried over
+    (codes and scales exactly): logits within DECODE_TOL of the largest
+    logit, and the rows each step writes agree."""
+    jcfg, jm, jp, tm, tp = _int8_pair(arch)
+    jm = _Jitted(jax.jit(jm.prefill, static_argnames=("max_len",)),
+                 jax.jit(jm.decode_step), jm.forward)
+    V = jcfg.vocab
+    rng = np.random.default_rng(12)
+    B, S = 2, 37
+    toks = rng.integers(0, V, (B, S))
+    jl, jc = jm.prefill(jp, jnp.asarray(toks), max_len=S + 8)
+    tl, tc = tm.prefill(tp, torch.tensor(toks), max_len=S + 8)
+    assert _rel(tl.numpy(), jl, V) <= PREFILL_TOL
+    assert set(tc) == set(jc)
+    assert all(set(tc[k]) == set(jc[k]) for k in jc)
+    _int8_entries_agree(tc, jc)
+    for key, entry in jc.items():
+        if "len" in entry:
+            jc[key]["len"] = entry["len"].at[:, 1].set(S - 5)
+    for _ in range(3):
+        tc = _to_port_cache(jc, tc)
+        nxt = rng.integers(0, V, (B, 1))
+        jl, jc = jm.decode_step(jp, jc, jnp.asarray(nxt))
+        tl, tc = tm.decode_step(tp, tc, torch.tensor(nxt))
+        assert _rel(tl.numpy(), jl, V) <= DECODE_TOL
+        _int8_entries_agree(tc, jc)
+
+
+def test_int8_prefill_into_live_cache_rows():
+    """``prefill(cache=, rows=)`` on an int8 cache writes one slot's codes
+    and scales in place, equal to a prefill alone, and leaves the other
+    slots as they were."""
+    cfg = tconfigs.smoke_config("h2o-danube-1.8b").replace(
+        kv_cache_dtype="int8")
+    m = tbuild(cfg)
+    params = m.init(0, device="cpu")
+    cache = ttransformer.init_decode_cache(cfg, 3, 48, device="cpu")
+    rng = np.random.default_rng(13)
+    m.prefill(params, torch.tensor(rng.integers(0, cfg.vocab, (1, 9))),
+              cache=cache, rows=[0])
+    before = tparams.tree_map(lambda t: t.clone(), cache)
+    toks = torch.tensor(rng.integers(0, cfg.vocab, (1, 20)))
+    ref_logits, ref_cache = m.prefill(params, toks, max_len=48)
+    logits, same = m.prefill(params, toks, cache=cache, rows=[1])
+    assert same is cache
+    torch.testing.assert_close(logits, ref_logits, rtol=0, atol=0)
+    for f, t in cache["s0"].items():
+        torch.testing.assert_close(t[:, [0, 2]], before["s0"][f][:, [0, 2]],
+                                   rtol=0, atol=0)
+        want = ref_cache["s0"][f][:, 0]
+        got = t[:, 1]
+        if f != "len":
+            got, want = got[:, :20], want[:, :20]
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert cache["s0"]["k"].dtype == torch.int8
+
+
+def test_prefix_forward_and_prefill_match_jax_f32():
+    """pixtral's vision prefix: ``forward`` with ``extra_embeds`` gives
+    logits for the prefix's and the prompt's positions, within PREFILL_TOL
+    of the JAX package's; ``prefill`` fills P + S cache rows (k and v to a
+    bf16 ulp) and its logits agree; two decode steps from there within
+    DECODE_TOL.  A different prefix moves the logits."""
+    jcfg, jm, jp, tm, tp = _pair("pixtral-12b", "float32")
+    V, P = jcfg.vocab, jcfg.frontend_seq
+    rng = np.random.default_rng(14)
+    B, S = 2, 21
+    toks = rng.integers(0, V, (B, S))
+    extra = rng.normal(0, 1, (B, P, jcfg.d_model)).astype(np.float32)
+    jl, _ = jm.forward(jp, jnp.asarray(toks), extra_embeds=jnp.asarray(extra),
+                       mode="prefill")
+    tl, _ = tm.forward(tp, torch.tensor(toks), extra_embeds=torch.tensor(
+        extra))
+    assert tl.shape == (B, P + S, tlayers.padded_vocab(V))
+    assert _rel(tl.numpy(), jl, V) <= PREFILL_TOL
+    other, _ = tm.forward(tp, torch.tensor(toks), extra_embeds=torch.tensor(
+        extra[::-1].copy()))
+    assert float((other - tl).abs().max()) > 1e-2
+    jl, jc = jm.prefill(jp, jnp.asarray(toks), max_len=P + S + 4,
+                        extra_embeds=jnp.asarray(extra))
+    tl, tc = tm.prefill(tp, torch.tensor(toks), max_len=P + S + 4,
+                        extra_embeds=torch.tensor(extra))
+    assert _rel(tl.numpy(), jl, V) <= PREFILL_TOL
+    assert tc["s0"]["len"].tolist() == [[P + S] * B] * jcfg.n_layers
+    np.testing.assert_allclose(tc["s0"]["k"].float().numpy(),
+                               np.asarray(jc["s0"]["k"].astype(jnp.float32)),
+                               rtol=2 ** -7, atol=1e-6)
+    for _ in range(2):
+        nxt = rng.integers(0, V, (B, 1))
+        jl, jc = jm.decode_step(jp, jc, jnp.asarray(nxt))
+        tl, tc = tm.decode_step(tp, tc, torch.tensor(nxt))
+        assert _rel(tl.numpy(), jl, V) <= DECODE_TOL
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("phase", ["vision", "int8", "encdec"])
+def test_chip_smoke_phases_14_to_16_run_on_cpu(phase):
+    """chip_smoke.py's phases 14-16 at smoke size on the CPU, where every
+    wrapper runs its plain version (no launch is counted): each drives its
+    path, holds the kernels' path against the plain one and returns the
+    launch counts the card must show -- pixtral's 2 x L + 1 norms a pass,
+    L flash and L decode a step; the int8 engine's cache of int8 codes and
+    float32 scales; seamless's 2 x Le + 1 norms and Le flash an encode,
+    3 x Ld + 1 norms, Ld decode and Ld flash a decode step."""
+    cs = _chip_smoke()
+    cpu = torch.device("cpu")
+    if phase == "vision":
+        cfg = tconfigs.smoke_config("pixtral-12b")
+        r = cs.vision_serving(cpu, cfg=cfg, batch=2, prompt=16, steps=4,
+                              max_len=64, check_prompt=8, check_steps=2)
+        L = cfg.n_layers
+        want = {"rmsnorm": (2 * L + 1) * 5, "flash_attention": L,
+                "decode_attention": 4 * L}
+        assert r["prefix_moves"] > cs.LOGIT_REL_TOL
+    elif phase == "int8":
+        cfg = tconfigs.smoke_config("llama3-405b").replace(
+            kv_cache_dtype="int8")
+        r = cs.serving(cpu, cfg=cfg, slots=4, max_len=64, n_requests=6,
+                       prompts=(8, 20), new_tokens=(4, 8), long_prompt=40,
+                       check_prompt=12, check_steps=2, tag="[15]")
+        L, H, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+        assert r["kv_cache_dtype"] == "int8"
+        assert r["kv_cache_bytes"] == L * 4 * 64 * H * (2 * D + 2 * 4)
+        assert r["int8_vs_bf16_cache"]["errs"][0] == 0.0
+        n = r["prefills"] + r["decode_steps"]
+        want = {"rmsnorm": (2 * L + 1) * n,
+                "flash_attention": L * r["prefills"],
+                "decode_attention": L * r["decode_steps"]}
+    else:
+        cfg = tconfigs.smoke_config("seamless-m4t-medium")
+        r = cs.encdec_serving(cpu, cfg=cfg, batch=2, src=16, steps=4,
+                              max_len=16, check_steps=2)
+        Le, Ld = cfg.n_enc_layers, cfg.n_dec_layers
+        want = {"rmsnorm": 2 * Le + 1 + (3 * Ld + 1) * 4,
+                "flash_attention": Le + 4 * Ld, "decode_attention": 4 * Ld}
+    assert {k: v for k, v in r["expect"].items() if v and k != "lstm_seq"} \
+        == want
+    assert not any(r["launches"].values())

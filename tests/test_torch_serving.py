@@ -17,7 +17,8 @@ states whole and leaves the other slots' bit for bit.  So do the MoE
 family (granite-moe, its capacity following each prompt's length as in
 the reference) and the hybrid family (zamba2, whose slots also hold the
 shared blocks' attention rows); with the requests' seed (1) their greedy
-tokens, steps and snapshots equal the JAX engine's.
+tokens, steps and snapshots equal the JAX engine's, and so do the dense
+model's with the int8 KV cache.
 """
 import jax
 import jax.numpy as jnp
@@ -139,6 +140,40 @@ def test_ppa_on_snapshots_decides_as_jax(both):
                                rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(scope="module")
+def both_int8():
+    cfg = jsmoke(ARCH).replace(compute_dtype="float32", kv_cache_dtype="int8")
+    jparams = jbuild(cfg).init(jax.random.PRNGKey(0), jnp.float32)
+    reqs = _requests()
+    je = JEngine(cfg, jparams, slots=SLOTS, max_len=MAX_LEN)
+    j_out, j_snaps = _serve(JBatcher(je), JRequest, reqs)
+    te = DecodeEngine(smoke_config(ARCH).replace(compute_dtype="float32",
+                                                 kv_cache_dtype="int8"),
+                      params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                        "cpu"),
+                      slots=SLOTS, max_len=MAX_LEN, device="cpu")
+    t_out, t_snaps = _serve(ContinuousBatcher(te), Request, reqs)
+    return dict(reqs=reqs, je=je, te=te, j_out=j_out, t_out=t_out,
+                j_snaps=j_snaps, t_snaps=t_snaps)
+
+
+def test_int8_greedy_tokens_equal_jax(both_int8):
+    """The engine serves an int8-cache model unchanged, as the JAX
+    package's does: the same greedy tokens, steps, snapshots and lengths
+    (idle slots clamped past max_len), its cache int8 codes with float32
+    scales."""
+    b = both_int8
+    assert b["t_out"] == b["j_out"]
+    for i, (_, n) in enumerate(b["reqs"]):
+        assert len(b["t_out"][i]) == 1 + n
+    assert b["te"].steps == b["je"].steps
+    np.testing.assert_array_equal(b["t_snaps"], b["j_snaps"])
+    tc, jc = b["te"].cache["s0"], b["je"].cache["s0"]
+    np.testing.assert_array_equal(tc["len"].numpy(), np.asarray(jc["len"]))
+    assert tc["k"].dtype == torch.int8 and tc["v_scale"].dtype == torch.float32
+    assert set(tc) == set(jc)
+
+
 def _engine(slots=4, max_len=64, **kw):
     cfg = smoke_config(ARCH)
     params = build_model(cfg).init(0, device="cpu")
@@ -191,7 +226,7 @@ def test_engine_needs_a_device_or_the_cpu():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             DecodeEngine(cfg, params, slots=1, max_len=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="EncDecLM"):
         DecodeEngine(smoke_config("seamless-m4t-medium"), params, slots=1,
                      max_len=8, device="cpu")
 
