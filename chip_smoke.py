@@ -146,9 +146,30 @@ cell), ``attn_lstm_seq.cu``, ``rmsnorm.cu``, ``flash_attention.cu``,
    frame embeddings, ``EncDecLM.encode``, ``init_dec_cache`` and 128 greedy
    decode steps (the cross-attention on the flash kernel at one query a
    row); the encoder output, cross k and v and the first steps' logits
-   held against the plain path.
+   held against the plain path;
+17. training at full width: ``train_loop.train`` on h2o-danube-1.8b (all
+   24 layers, B=4, S=4096, 12 steps, remat full, from phase 8's
+   ``well_conditioned`` params), every norm and attention
+   on the kernels through their ``autograd.Function``s (the backward the
+   plain versions recomputed): each step's loss, grad norm and lr, step
+   times, tokens a second, peak memory and two profiled steps; every loss
+   finite, the last three steps' mean below step 1's, every leaf moved
+   that bf16 can move at the run's lr;
+18. h2o-danube-1.8b cut to 2 layers at full width: (a) one step's loss and
+   gradients with the kernels against the plain versions (loss, global
+   grad norm, cosine of the flattened gradients); (b) ``train`` with
+   checkpoints every 2 steps and a failure injected at step 5, against the
+   same run without it (both end at step 8, final losses within a bar),
+   the step-6 checkpoint loaded bit for bit;
+19. phase 17 on mamba2-780m (48 layers, B=4, S=2048, 8 steps, from
+   ``mamba2_conditioned`` params): every chunk scan and norm on the
+   kernels.
 
-Phases 3 to 16 (and phase 4's lane) each set the launch counts to 0 before
+Phase 2's training shapes hold each Function's forward and gradient
+against the plain version's at phases 17 and 19's shapes, beside SDPA's
+and ``F.rms_norm``'s forward and backward.
+
+Phases 3 to 19 (and phase 4's lane) each set the launch counts to 0 before
 they drive their path and read them right after it, before the checks that
 launch kernels of their own; the counts of all eleven wrappers must equal
 what the path needs (a fit forward an epoch, a stacked forecast a
@@ -163,7 +184,10 @@ norms a prefill and a decode step and 48 chunk scans a prefill of mamba2,
 27 attentions and 54 chunk scans of zamba2, 2 x 40 + 1 norms a pass and
 40 attentions of pixtral, 2 x 4 + 1 norms and 4 attentions of llama3-405b;
 2 x 12 + 1 norms and 12 flash an encode, 3 x 12 + 1 norms, 12 decode and
-12 flash a decode step of seamless), each phase logs its seconds,
+12 flash a decode step of seamless; 2 x 2 x 24 + 1 norms and 2 x 24
+flash a train step of h2o-danube, 2 x 48 + 1 norms and 2 x 48
+chunk scans of mamba2: the layer steps run twice under remat, the
+backward launches nothing), each phase logs its seconds,
 and each kernel must have launched; phases 3 to 16 and the lane also hold
 both LSTMs' launches by path (``PATH_LAUNCHES``) to the path's.  Any
 failed check raises, so the script exits non-zero.
@@ -4757,12 +4781,599 @@ def encdec_serving(device, arch="seamless-m4t-medium", cfg=None,
             "path_launches": paths, "launches": launches, "expect": expect}
 
 
-def profile_start(device):
+# ------------------------------------- phases 2 and 17-19: training ------
+# phase 17: h2o-danube-1.8b at full width and depth, the reference's
+# train_4k sequence (configs/base.py), 4 rows; phase 19: mamba2-780m
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 12
+SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 2048, 8
+PROFILED_STEPS = 2            # the last steps of a run, under the profiler
+# phase 18: h2o-danube-1.8b at 2 of its 24 layers, full width
+RESTART_LAYERS, RESTART_STEPS, RESTART_EVERY, RESTART_FAIL_AT = 2, 8, 2, 5
+# a gradient through a kernel's autograd.Function against the plain
+# version's own autograd gradient on the same bf16 inputs: the backward is
+# that plain version, run a batch row at a time for flash (other cuBLAS
+# algorithms than one whole-batch call), so at most a bf16 rounding of an
+# element apart: within 1e-2 of the gradient's largest |element|
+GRAD_WIRING_REL = 1e-2
+# phase 18 (a): one step's loss and gradients, the kernels against the
+# plain versions on the same bf16 params and batch (the norm's one rounding
+# against the plain version's, p's rounding before P.V, the chunk scan's
+# f32 sums in another order, carried through 2 layers and their backward)
+TRAIN_LOSS_REL, TRAIN_GNORM_REL, TRAIN_GRAD_COS = 1e-2, 5e-2, 0.99
+# phase 18 (b): the run that failed and resumed against the uninterrupted
+# one: both take the same ops on the same data, and every op on the path is
+# deterministic (the embedding's backward, an accumulating index_put, sorts
+# its indices before it sums them), so the two must agree bit for bit --
+# every logged loss, the params, and the last checkpoint's moments and
+# step counter; a restore that dropped or mis-set the moments or the
+# counter changes them
+
+
+def training_kernels_vs_plain():
+    """The training path's three kernels at phases 17 and 19's shapes,
+    with inputs that require grad (their ``autograd.Function``s): the
+    norm at h2o-danube's rows (B S = 16,384 at D=2560) and mamba2's gated
+    norm (8,192 at d_inner 3072), flash at h2o-danube's (B=4, Hq=32 over
+    Hkv=8, S=4096, D=80, causal, window 4096) as (B, H, S, D) views of
+    (B, S, H, D) projections, the chunk scan at mamba2's (B=4, S=2048, H=48,
+    P=64, N=128, chunk 128).  Each forward against the plain version at the
+    serving bars, each gradient of a seeded scalar against the plain
+    version's own within ``GRAD_WIRING_REL`` (flash's plain gradient in four
+    kv-head slices of the whole batch); the forward's call, kernel and bound
+    ms, the backward's ms (the plain version recomputed), the plain
+    forward's ms, and the library's forward and backward (``F.rms_norm``,
+    SDPA with ``is_causal`` and GQA; none for the scan)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ref, rmsnorm as rk, ssd_scan as sk
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(23)
+    bf16 = torch.bfloat16
+    out = {}
+
+    def rnd(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen).to(dev, dtype)
+
+    def leaves_of(ins):
+        return [t.detach().requires_grad_(t.is_floating_point())
+                for t in ins]
+
+    def grad_gap(got, want):
+        return max(float((a.float() - b.float()).abs().max())
+                   / max(float(b.float().abs().max()), 1e-30)
+                   for a, b in zip(got, want))
+
+    def measure(name, shape, call, plain, library, ins, plain_grads, fwd_err,
+                bnd, iters):
+        """``call(*leaves)`` through the Function: its gradient against
+        ``plain_grads(r)``, then the times."""
+        leaves = leaves_of(ins)
+        with torch.enable_grad():
+            y = call(*leaves)
+            y0 = y[0] if isinstance(y, tuple) else y
+            r = torch.randn(y0.shape, generator=gen).to(dev)
+            got = torch.autograd.grad((y0.float() * r).sum(), leaves,
+                                      allow_unused=True)
+        got = [g for g in got if g is not None]
+        want = plain_grads(r)
+        for t, g in zip(leaves, got):
+            check(g.shape == t.shape and g.dtype == t.dtype
+                  and g.stride() == t.stride(),
+                  f"{name}: a gradient's shape, dtype or layout differs from "
+                  f"its input's")
+        gap = grad_gap(got, want)
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              f"{name}: non-finite gradient")
+        check(gap <= GRAD_WIRING_REL, f"{name}: gradient through the "
+              f"Function {gap} of the plain gradient's scale > "
+              f"{GRAD_WIRING_REL}")
+        rec = dict(shape=shape, max_abs_err=fwd_err[0], fwd_err=fwd_err[1],
+                   grad_rel_err=gap, grad_tol=GRAD_WIRING_REL)
+        with torch.enable_grad():
+            rec["call_ms"] = rec["ms"] = time_ms(lambda: call(*leaves), iters)
+            rec["kernel_ms"] = kernel_device_ms(lambda: call(*leaves),
+                                                symbol_of(name), iters)
+            y = call(*leaves)
+            y0 = y[0] if isinstance(y, tuple) else y
+            g_out = torch.randn(y0.shape, generator=gen).to(dev, y0.dtype)
+            used = [t for t, g in zip(leaves, torch.autograd.grad(
+                y0, leaves, g_out, retain_graph=True, allow_unused=True))
+                if g is not None]
+            rec["bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+                y0, used, g_out, retain_graph=True), max(3, iters // 4), 1)
+            del y, y0
+        with torch.no_grad():
+            rec["plain_ms"] = time_ms(lambda: plain(*ins), max(3, iters // 4))
+        rec["library_ms"] = rec["library_bwd_ms"] = None
+        if library is not None:
+            lv = leaves_of(ins)
+            with torch.enable_grad():
+                rec["library_ms"] = time_ms(lambda: library(*lv), iters)
+                ly = library(*lv)
+                rec["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+                    ly, lv, g_out, retain_graph=True), iters, 1)
+                del ly
+        rec.update(bnd)
+        return rec
+
+    # ---- the norm: h2o-danube's rows, mamba2's gated norm
+    subs = {}
+    for arch, R, D in (("h2o-danube-1.8b", TRAIN_BATCH * TRAIN_SEQ,
+                        LLM_D_MODEL),
+                       ("mamba2-780m", TRAIN_BATCH * SSM_TRAIN_SEQ,
+                        2 * 1536)):
+        x = rnd(R, D)
+        w = (1.0 + 0.1 * rnd(D, dtype=torch.float32)).to(bf16)
+        want = ref.rmsnorm(x.float(), w.float())
+        with torch.no_grad():
+            y = rk.rmsnorm(x, w)
+        e = float(((y.float() - want).abs() / want.abs().clamp_min(1e-6))
+                  .max())
+        check(e <= BF16_NORM_REL, f"rmsnorm R={R} D={D}: rel err {e}")
+
+        def plain_grads(r, x=x, w=w):
+            lv = leaves_of([x, w])
+            with torch.enable_grad():
+                return torch.autograd.grad(
+                    (ref.rmsnorm(*lv).float() * r).sum(), lv)
+        subs[f"training {arch}"] = measure(
+            "rmsnorm", f"R={R} D={D} bf16, x and w requiring grad ({arch})",
+            rk.rmsnorm, ref.rmsnorm,
+            lambda x, w, D=D: F.rms_norm(x, (D,), w, 1e-6), [x, w],
+            plain_grads, (float((y.float() - want).abs().max()), e),
+            rmsnorm_bound(R, D, 2, 2), 20)
+        subs[f"training {arch}"]["fwd_err_kind"] = "rel"
+    out["rmsnorm"] = subs
+
+    # ---- flash: h2o-danube's training attention
+    B, Hq, Hkv, S, D = TRAIN_BATCH, LLM_HQ, LLM_HKV, TRAIN_SEQ, LLM_HEAD_DIM
+    kw = dict(causal=True, window=LLM_WINDOW)
+    q = rnd(B, S, Hq, D).transpose(1, 2)
+    k = rnd(B, S, Hkv, D).transpose(1, 2)
+    v = rnd(B, S, Hkv, D).transpose(1, 2)
+    with torch.no_grad():
+        y = fk.flash_attention(q, k, v, **kw)
+        want = by_heads(ref.flash_attention, 4, q.float(), k.float(),
+                        v.float(), **kw)
+    ok, e, row = attn_passes(y, want)
+    check(ok, f"flash at the training shape: max_abs_err {e}, row err {row}")
+    del want
+
+    def flash_plain_grads(r):
+        """The plain version's gradient over the whole batch, in four
+        slices of the kv heads (with their query heads)."""
+        G, n = Hq // Hkv, Hkv // 4
+        gq, gk, gv = (torch.empty_like(t) for t in (q, k, v))
+        for h in range(0, Hkv, n):
+            qs, hs = slice(h * G, (h + n) * G), slice(h, h + n)
+            lv = leaves_of([q[:, qs], k[:, hs], v[:, hs]])
+            with torch.enable_grad():
+                o = ref.flash_attention(*lv, **kw)
+                gs = torch.autograd.grad((o.float() * r[:, qs]).sum(), lv)
+            gq[:, qs], gk[:, hs], gv[:, hs] = gs
+            del o, gs, lv
+        return gq, gk, gv
+    out["flash_attention"] = {"training h2o-danube-1.8b": measure(
+        "flash_attention",
+        f"B={B} Hq={Hq} Hkv={Hkv} Sq=Skv={S} D={D} window={LLM_WINDOW} "
+        f"bf16, q k v requiring grad (h2o-danube-1.8b)",
+        lambda q, k, v: fk.flash_attention(q, k, v, **kw),
+        lambda q, k, v: by_heads(ref.flash_attention, 4, q, k, v, **kw),
+        lambda q, k, v: _sdpa(q, k, v, None, causal=True), [q, k, v],
+        flash_plain_grads, (e, row),
+        flash_bound(B, Hq, Hkv, S, S, D, 2, flash_pairs(S, S, True,
+                                                        LLM_WINDOW)), 5)}
+    out["flash_attention"]["training h2o-danube-1.8b"][
+        "fwd_err_kind"] = "row"
+    del q, k, v, y
+    torch.cuda.empty_cache()
+
+    # ---- the chunk scan: mamba2's training scan
+    H, P, N, L = MAMBA2_SCAN
+    ins = list(ssd_inputs(gen, dev, TRAIN_BATCH, SSM_TRAIN_SEQ, H, P, N,
+                          bf16))
+    with torch.no_grad():
+        got = sk.ssd_scan(*ins, chunk=L)
+        want = ref.ssd_scan(*[t.float() for t in ins], chunk=L)
+    ok, y_err, h_err = ssd_passes(got, want, ins[1], ins[2], L)
+    check(ok, f"ssd_scan at the training shape: y row err {y_err}, state "
+          f"rel err {h_err}")
+    del got, want
+
+    def ssd_plain_grads(r):
+        lv = leaves_of(ins)
+        with torch.enable_grad():
+            y, _ = ref.ssd_scan(*lv, chunk=L)
+            return torch.autograd.grad((y.float() * r).sum(), lv)
+    out["ssd_scan"] = {"training mamba2-780m": measure(
+        "ssd_scan",
+        f"B={TRAIN_BATCH} S={SSM_TRAIN_SEQ} H={H} P={P} N={N} chunk={L} bf16 "
+        f"x/B/C, f32 dt/A/D, all requiring grad (mamba2-780m)",
+        lambda *a: sk.ssd_scan(*a, chunk=L),
+        lambda *a: ref.ssd_scan(*a, chunk=L), None, ins, ssd_plain_grads,
+        (y_err, h_err),
+        ssd_bound_tc(TRAIN_BATCH, SSM_TRAIN_SEQ, H, P, N, L, 2), 10)}
+    out["ssd_scan"]["training mamba2-780m"]["fwd_err_kind"] = "row/state"
+    for name, subs in out.items():
+        for key, r in subs.items():
+            log(f"[2] {name} ({key}) {r['shape']}: forward {r['call_ms']:.4f}"
+                f" ms a call ({r['kernel_ms']:.4f} ms on the device), "
+                f"backward (the plain version) {r['bwd_ms']:.4f} ms, plain "
+                f"forward {r['plain_ms']:.4f} ms, library forward "
+                f"{r['library_ms']} and backward {r['library_bwd_ms']} ms, "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); forward "
+                f"err {r['fwd_err']:.3g} ({r['fwd_err_kind']}), gradient "
+                f"{r['grad_rel_err']:.3g} of its scale (bar "
+                f"{GRAD_WIRING_REL})")
+    return out
+
+
+def train_launches_per_step(cfg):
+    """The kernel launches of one train step: each layer step's kernels
+    twice (the forward and remat's recomputation in the backward; the
+    backward itself runs the plain versions), the final norm once.  A dense
+    layer has two norms and one attention, a mamba layer the gated norm and
+    one chunk scan."""
+    per = 2 if cfg.remat != "none" else 1
+    if cfg.family == "ssm":
+        return {"rmsnorm": per * cfg.n_layers + 1,
+                "ssd_scan": per * cfg.n_layers}
+    check(cfg.family == "dense" and not cfg.post_norm,
+          f"no training count for the {cfg.family} family")
+    return {"rmsnorm": per * 2 * cfg.n_layers + 1,
+            "flash_attention": per * cfg.n_layers}
+
+
+@contextlib.contextmanager
+def init_conditioned(condition):
+    """Within the block ``DecoderLM.init`` returns its params conditioned
+    in place by ``condition(params, cfg)`` (phase 9's ``mamba2_conditioned``),
+    so ``train()`` starts from them."""
+    from repro_torch.models.transformer import DecoderLM
+    init = DecoderLM.init
+
+    def conditioned(self, *args, **kw):
+        return condition(init(self, *args, **kw), self.cfg)
+    DecoderLM.init = conditioned
+    try:
+        yield
+    finally:
+        DecoderLM.init = init
+
+
+def training(device, cfg, tc, tag, condition=None):
+    """``train_loop.train(cfg, tc)`` on the card, from params conditioned by
+    ``condition`` (``init_conditioned``) where one is given, logging every
+    step: each
+    step's loss, grad norm and lr, the step times (step 1, with the init,
+    apart; p50 and max of the steps before the profiled ones), tokens a
+    second, peak memory, and the last ``PROFILED_STEPS`` steps under the
+    profiler (device busy share, top device ops).  Checks: every loss and
+    grad norm finite, the mean loss of the last three steps below step
+    1's, every param leaf moved from its init; the launch counts are the
+    caller's to hold (``expect``)."""
+    import numpy as np
+    import torch
+    from repro_torch.models.params import param_count, tree_leaves
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.train_loop import train
+    _free_card(device)
+    model = build_model(cfg)
+    n_params = param_count(model.specs())
+    marks, prof = [], {}
+
+    def on_log(msg):
+        marks.append(time.perf_counter())       # metrics read: synced
+        log(f"{tag} {msg}")
+        if len(marks) == tc.steps - PROFILED_STEPS:
+            prof["p"] = profile_start(device, cpu=False)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with (init_conditioned(condition) if condition
+          else contextlib.nullcontext()):
+        params, hist = train(cfg, tc, log=on_log, device=device)
+    t_stop = time.perf_counter()
+    busy = profile_stop(prof["p"], device)
+    parse_s = time.perf_counter() - t_stop
+    launches = {k: v for k, v in launch_counts().items() if v}
+    peak = _peak(device)
+    check(len(hist) == tc.steps == len(marks)
+          and [h["step"] for h in hist] == list(range(1, tc.steps + 1)),
+          f"{tag} history steps {[h['step'] for h in hist]}")
+    losses = [h["loss"] for h in hist]
+    check(all(np.isfinite([h[k] for h in hist for k in ("loss",
+                                                        "grad_norm")])),
+          f"{tag} a non-finite loss or grad norm: {hist}")
+    check(np.mean(losses[-3:]) < losses[0], f"{tag} the last three steps' "
+          f"mean loss {np.mean(losses[-3:])} is not below step 1's "
+          f"{losses[0]}")
+    steps_s = np.diff(marks[:tc.steps - PROFILED_STEPS])
+    # every leaf moved from the init train() started from, but a leaf that
+    # bf16 cannot move at this lr (the reference keeps no float32 master
+    # copy: a norm gain at 1.0 stays there)
+    lr_max = max(h["lr"] for h in hist)
+    with (init_conditioned(condition) if condition
+          else contextlib.nullcontext()):
+        init = model.init(tc.seed, torch.float32, device)
+    still, stuck = [], []
+    for (path, a), (_, b) in zip(tree_leaves(params), tree_leaves(init)):
+        if torch.equal(a, b.to(a.dtype)):
+            (stuck if bf16_stuck(a, lr_max) else still).append(
+                "/".join(path))
+    check(not still, f"{tag} param leaves that did not move: {still}")
+    log(f"{tag} every leaf moved but {len(stuck)} that bf16 cannot move by "
+        f"steps of lr_max = {lr_max:.3g}: {stuck}")
+    del init, params
+    tokens = tc.global_batch * tc.seq_len
+    rec = {"params": n_params, "steps": tc.steps, "batch": tc.global_batch,
+           "seq": tc.seq_len, "losses": losses,
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "lrs": [h["lr"] for h in hist],
+           "step1_with_init_s": marks[0] - t0,
+           "step_ms_p50": float(np.median(steps_s)) * 1e3,
+           "step_ms_max": float(steps_s.max()) * 1e3,
+           "tokens_per_s": tokens / float(np.median(steps_s)),
+           "peak_gib": peak / 2 ** 30,
+           "profiled_step_ms": busy["wall_ms"] / PROFILED_STEPS,
+           "busy_share": busy["busy_share"],
+           "device_ms_per_step": busy["device_ms"] / PROFILED_STEPS,
+           "top_ops": top_names(busy["by_name"], 8),
+           "device_events_per_step": busy["n_kernels"] / PROFILED_STEPS,
+           "profile_parse_s": parse_s, "launches": launches,
+           "expect": {k: v * tc.steps for k, v in
+                      train_launches_per_step(cfg).items()}}
+    log(f"{tag} {cfg.name} ({n_params:,} params, {cfg.n_layers} layers) "
+        f"B={tc.global_batch} S={tc.seq_len}: losses {losses}; step 1 with "
+        f"the init {rec['step1_with_init_s']:.2f} s, steps 2-"
+        f"{tc.steps - PROFILED_STEPS} p50 {rec['step_ms_p50']:.1f} ms, max "
+        f"{rec['step_ms_max']:.1f} ms, {rec['tokens_per_s']:.0f} tokens/s; "
+        f"peak {rec['peak_gib']:.2f} GiB; profiled steps "
+        f"{rec['profiled_step_ms']:.1f} ms a step, device busy "
+        f"{rec['busy_share']:.2%}, {rec['device_events_per_step']:.0f} "
+        f"device events a step (the profile parsed in {parse_s:.1f} s); "
+        f"device time by name {rec['top_ops']}")
+    return rec
+
+
+def bf16_stuck(w, lr):
+    """Whether no element of the bf16 leaf ``w`` can move by an AdamW step
+    of lr (1 + 0.1 |w|) (|mhat / sqrt(nhat)| at most 1, as at the first
+    step, plus the weight decay): half the gap to each element's nearer
+    bf16 neighbour -- 2^(e-8) for |w| in (2^e, 2^(e+1)), 2^(e-9) at 2^e --
+    exceeds that step everywhere, so rounding takes every update back."""
+    import torch
+    a = w.detach().float().abs()
+    e = torch.floor(torch.log2(a.clamp_min(1e-30)))
+    half_gap = torch.exp2(e - 8 - (a == torch.exp2(e)).float())
+    return bool(((a > 0) & (half_gap > lr * (1 + 0.1 * a))).all())
+
+
+def raw_init_grad_norm(device, cfg, seed=0, tag="[17]"):
+    """One loss and global grad norm at the JAX package's own init (no
+    conditioning) in bf16, on ``train()``'s first batch: why phases 17
+    and 18 (a) train from ``well_conditioned`` params.  Logged, not held
+    to a bar."""
+    import torch
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.params import tree_map
+    from repro_torch.models.registry import build_model
+    _free_card(device)
+    model = build_model(cfg)
+    params = tree_map(lambda t: t.to(torch.bfloat16),
+                      model.init(seed, torch.float32, device))
+    batch = SyntheticLMData(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=seed,
+                            device=device).batch_at(0)
+    loss, grads = loss_and_grads(model, params, batch)
+    gnorm = sum(float(g.float().square().sum()) for g in grads.values()) ** 0.5
+    log(f"{tag} at the JAX package's init (attention at fan-in H, no "
+        f"conditioning): loss {float(loss):.6f}, global grad norm "
+        f"{gnorm:.6g}")
+    del params, grads
+    return {"loss": float(loss), "grad_norm": gnorm}
+
+
+def loss_and_grads(model, params, batch):
+    """(loss, {path: gradient}) of ``model.loss`` over every param leaf,
+    as ``launch/steps.py``'s train step takes them."""
+    import torch
+    from repro_torch.models.params import tree_leaves
+    paths, leaves = zip(*tree_leaves(params))
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        loss, _ = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    return loss.detach(), dict(zip(paths, grads))
+
+
+def training_checks(device, cfg, tag="[18]", rows=TRAIN_BATCH,
+                    seq=TRAIN_SEQ):
+    """h2o-danube-1.8b cut to ``RESTART_LAYERS`` layers at full width: (a)
+    one step's loss and gradients with the kernels against the plain
+    versions on the same params (``well_conditioned``, as the serving
+    phases hold engines) and batch: the loss gap, the global grad norm gap
+    and the cosine of the flattened gradients to their bars; (b) ``train``
+    with checkpoints every ``RESTART_EVERY`` steps and a failure injected
+    at step ``RESTART_FAIL_AT``, then the same run without the failure:
+    both end at step ``RESTART_STEPS``; the resumed run's step-6
+    checkpoint loaded into fresh buffers equals its arrays on disk bit for
+    bit; the two runs' losses, final params and last checkpoints (params,
+    moments, step counter) are equal bit for bit, and the uninterrupted
+    run's last checkpoint holds its params."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_loop import TrainConfig, train
+    _free_card(device)
+    model = build_model(cfg)
+    per_step = train_launches_per_step(cfg)
+    # (a) the kernels against the plain versions, one step
+    params = well_conditioned(model.init(0, torch.float32, device), cfg)
+    params = tree_map(lambda t: t.to(torch.bfloat16), params)
+    batch = SyntheticLMData(cfg.vocab, seq, rows, device=device).batch_at(0)
+    reset_launch_counts()
+    lk, gk = loss_and_grads(model, params, batch)
+    launches_a = {k: v for k, v in launch_counts().items() if v}
+    check(device.type != "cuda" or launches_a == per_step,
+          f"{tag} (a) launches {launches_a} != {per_step}")
+    zero = [p for p, g in gk.items() if not bool(g.any())
+            or not bool(torch.isfinite(g).all())]
+    check(not zero, f"{tag} (a) zero or non-finite gradients: {zero}")
+    with plain_versions():
+        lp, gp = loss_and_grads(model, params, batch)
+    dot = nk = np_ = 0.0
+    for path, a in gk.items():
+        a, b = a.float(), gp[path].float()
+        dot += float((a * b).sum())
+        nk += float((a * a).sum())
+        np_ += float((b * b).sum())
+    cos = dot / (nk * np_) ** 0.5
+    loss_gap = abs(float(lk - lp)) / abs(float(lp))
+    gnorm_gap = abs(nk ** 0.5 - np_ ** 0.5) / np_ ** 0.5
+    log(f"{tag} (a) {cfg.name} at {cfg.n_layers} layers, B={rows} "
+        f"S={seq}: loss {float(lk):.6f} (kernels) against "
+        f"{float(lp):.6f} (plain), gap {loss_gap:.3g} (bar "
+        f"{TRAIN_LOSS_REL}); global grad norm {nk ** 0.5:.6g} against "
+        f"{np_ ** 0.5:.6g}, gap {gnorm_gap:.3g} (bar {TRAIN_GNORM_REL}); "
+        f"cosine of the flattened gradients {cos:.6f} (bar "
+        f"{TRAIN_GRAD_COS})")
+    check(loss_gap <= TRAIN_LOSS_REL and gnorm_gap <= TRAIN_GNORM_REL
+          and cos >= TRAIN_GRAD_COS, f"{tag} (a) kernels against plain: "
+          f"loss gap {loss_gap}, grad norm gap {gnorm_gap}, cosine {cos}")
+    del params, gk, gp
+    # (b) the restart
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_",
+                                     dir=ROOT / "build"))
+    try:
+        tc = TrainConfig(steps=RESTART_STEPS, global_batch=rows,
+                         seq_len=seq, ckpt_every=RESTART_EVERY,
+                         ckpt_dir=str(ckpt_dir), log_every=1)
+        lines = []
+
+        def on_log(msg):
+            lines.append(msg)
+            log(f"{tag} {msg}")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        params1, hist = train(cfg, tc, fail_at={RESTART_FAIL_AT},
+                              log=on_log, device=device)
+        failed_s = time.perf_counter() - t0
+
+        def fresh_state():
+            fresh = tree_map(lambda t: t.to(torch.bfloat16),
+                             model.init(1, torch.float32, device))
+            return fresh, adamw_init(fresh, AdamWConfig())
+
+        # the resumed run's step-6 checkpoint into fresh buffers, against
+        # the file
+        (p6, o6), step = load_checkpoint(ckpt_dir, fresh_state(), step=6)
+        got = [t for tree in (p6, o6) for _, t in tree_leaves(tree)]
+        with np.load(ckpt_dir / "step_6" / "arrays.npz") as data:
+            check(len(data.files) == len(got), f"{tag} (b) step 6 holds "
+                  f"{len(data.files)} leaves, the state {len(got)}")
+            for i, t in enumerate(got):
+                t = t.cpu()
+                a = (t.view(torch.int16).numpy().view(np.uint16)
+                     if t.dtype == torch.bfloat16 else t.numpy())
+                check(np.array_equal(a, data[f"a{i}"]),
+                      f"{tag} (b) step 6 leaf {i} differs from the file")
+        check(all(t.device == device for t in got),
+              f"{tag} (b) a restored leaf off the card")
+        ckpt_bytes = sum(f.stat().st_size for f in
+                         (ckpt_dir / "step_6").iterdir())
+        del p6, o6, got
+        # the resumed run's last checkpoint (params, moments, step), kept
+        # on the card for the uninterrupted run's
+        state1, step1 = load_checkpoint(ckpt_dir, fresh_state())
+        shutil.rmtree(ckpt_dir)
+        ckpt_dir.mkdir()
+        t0 = time.perf_counter()
+        params, hist2 = train(cfg, tc, log=lambda m: log(f"{tag} {m}"),
+                              device=device)
+        clean_s = time.perf_counter() - t0
+        launches_b = {k: v for k, v in launch_counts().items() if v}
+        resumed = [s for s in lines if "resumed at step" in s]
+        check(resumed == [f"[train] resumed at step "
+                          f"{RESTART_FAIL_AT - RESTART_FAIL_AT % RESTART_EVERY}"],
+              f"{tag} (b) resume lines {resumed}")
+        check(hist[-1]["step"] == hist2[-1]["step"] == RESTART_STEPS,
+              f"{tag} (b) the runs end at steps {hist[-1]['step']} and "
+              f"{hist2[-1]['step']}")
+        # a step the failure made run twice keeps its last (resumed) entry
+        losses1 = {h["step"]: h["loss"] for h in hist}
+        losses2 = {h["step"]: h["loss"] for h in hist2}
+        gap = abs(hist[-1]["loss"] - hist2[-1]["loss"]) / abs(
+            hist2[-1]["loss"])
+        check(losses1 == losses2, f"{tag} (b) losses {losses1} (resumed) "
+              f"against {losses2} (uninterrupted)")
+        state2, step2 = load_checkpoint(ckpt_dir, fresh_state())
+        check(step1 == step2 == RESTART_STEPS,
+              f"{tag} (b) last checkpoints at steps {step1} and {step2}")
+        n_state = sum(1 for part in state1 for _ in tree_leaves(part))
+        differ = [f"{'params' if part == 0 else 'opt'}/{path}"
+                  for part in range(2) for (path, a), (_, b) in
+                  zip(tree_leaves(state1[part]), tree_leaves(state2[part]))
+                  if not torch.equal(a, b)]
+        check(not differ, f"{tag} (b) the last checkpoints differ in "
+              f"{differ[:8]}")
+        check(all(torch.equal(a, b) for (_, a), (_, b) in
+                  zip(tree_leaves(state2[0]), tree_leaves(params))),
+              f"{tag} (b) the step-{step2} checkpoint's params differ from "
+              f"the run's")
+        param_gap = max(float((a.float() - b.float()).abs().max())
+                        for (_, a), (_, b) in zip(tree_leaves(params1),
+                                                  tree_leaves(params)))
+        check(param_gap == 0, f"{tag} (b) the runs' params differ by up "
+              f"to {param_gap}")
+        del params1, params, state1, state2
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    n_steps = RESTART_FAIL_AT + (RESTART_STEPS - (
+        RESTART_FAIL_AT - RESTART_FAIL_AT % RESTART_EVERY)) + RESTART_STEPS
+    rec = {"layers": cfg.n_layers, "loss_gap": loss_gap,
+           "grad_norm_gap": gnorm_gap, "grad_cos": cos,
+           "loss_kernels": float(lk), "loss_plain": float(lp),
+           "failed_run_losses": [h["loss"] for h in hist],
+           "clean_run_losses": [h["loss"] for h in hist2],
+           "final_loss_gap": gap, "param_gap": param_gap,
+           "failed_run_s": failed_s,
+           "clean_run_s": clean_s, "checkpoint_bytes": ckpt_bytes,
+           "launches": {k: launches_a.get(k, 0) + launches_b.get(k, 0)
+                        for k in per_step},
+           "expect": {k: v * (1 + n_steps) for k, v in per_step.items()}}
+    log(f"{tag} (b) fail at step {RESTART_FAIL_AT}, resumed from step "
+        f"{RESTART_FAIL_AT - RESTART_FAIL_AT % RESTART_EVERY}: final loss "
+        f"{hist[-1]['loss']:.6f} against the uninterrupted run's "
+        f"{hist2[-1]['loss']:.6f} (gap {gap:.3g}; bar: every loss equal), "
+        f"the largest param difference {param_gap:.3g} (bar 0); the "
+        f"step-{RESTART_STEPS} checkpoints' {n_state} leaves (params, "
+        f"moments, step) equal; runs {failed_s:.1f} s and {clean_s:.1f} s; "
+        f"a checkpoint {ckpt_bytes:,} B; the resumed run's step 6 loaded bit "
+        f"for bit")
+    return rec
+
+
+def profile_start(device, cpu=True):
     """Start ``torch.profiler`` (CPU, and CUDA on the card) over a window of
-    ticks; the host clock starts with it."""
+    ticks; the host clock starts with it.  ``cpu=False`` records the
+    device's activity alone (a train step's tens of thousands of host op
+    events take the profiler tens of seconds to parse)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU]
+    acts = [ProfilerActivity.CPU] if cpu or device.type != "cuda" else []
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
         torch.cuda.synchronize(device)
@@ -4798,7 +5409,12 @@ def profile_stop(prof, device):
 
 
 def top_names(by_name, k=6):
-    return dict(sorted(((n[:60], round(v, 4)) for n, v in by_name.items()),
+    """The ``k`` names (cut to 60 characters, the times of names that cut
+    to the same summed) with the most time."""
+    merged = {}
+    for n, v in by_name.items():
+        merged[n[:60]] = merged.get(n[:60], 0.0) + v
+    return dict(sorted(((n, round(v, 4)) for n, v in merged.items()),
                        key=lambda kv: -kv[1])[:k])
 
 
@@ -4831,6 +5447,8 @@ def main() -> int:
                                mutants["attn_lstm_seq"], mutants["lstm_seq"])
     records.update(llm_kernels_vs_plain(mutants))
     records.update(ssm_kernels_vs_plain(mutants["ssd_scan"]))
+    for name, subs in training_kernels_vs_plain().items():
+        records[name].update(subs)
     side_stream_runs()
     lap("2")
 
@@ -4919,6 +5537,39 @@ def main() -> int:
     check(serve_encdec["params"] == 981_530_624,
           f"seamless-m4t-medium has {serve_encdec['params']} parameters")
     lap("16")
+    # phases 17-19: training through train_loop.train on the card, from
+    # the serving phases' conditioning: at the JAX package's init
+    # (attention at fan-in H) the full-width dense net's global grad norm
+    # is astronomically large (raw_init_grad_norm logs it), clipping to 1
+    # then sends every other gradient below Adam's eps, and the loss does
+    # not move
+    from repro_torch.training.train_loop import TrainConfig
+    dense_cfg = get_config("h2o-danube-1.8b")
+    check(train_launches_per_step(dense_cfg) == {"rmsnorm": 97,
+                                                 "flash_attention": 48},
+          f"h2o-danube-1.8b's train step: {train_launches_per_step(dense_cfg)}")
+    raw_init = raw_init_grad_norm(device, dense_cfg)
+    train_dense = training(device, dense_cfg, TrainConfig(
+        steps=TRAIN_STEPS, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        ckpt_dir=None, log_every=1), "[17]", condition=well_conditioned)
+    train_dense["raw_init"] = raw_init
+    check(train_dense["params"] == 1_835_133_440,
+          f"h2o-danube-1.8b has {train_dense['params']} parameters")
+    lap("17")
+    train_checks = training_checks(device, dense_cfg.replace(
+        n_layers=RESTART_LAYERS))
+    lap("18")
+    ssm_cfg = get_config("mamba2-780m")
+    check(train_launches_per_step(ssm_cfg) == {"rmsnorm": 97,
+                                               "ssd_scan": 96},
+          f"mamba2-780m's train step: {train_launches_per_step(ssm_cfg)}")
+    train_ssm = training(device, ssm_cfg, TrainConfig(
+        steps=SSM_TRAIN_STEPS, global_batch=TRAIN_BATCH,
+        seq_len=SSM_TRAIN_SEQ, ckpt_dir=None, log_every=1), "[19]",
+        condition=mamba2_conditioned)
+    check(train_ssm["params"] == 781_328_640,
+          f"mamba2-780m has {train_ssm['params']} parameters")
+    lap("19")
     launches = {}
     for tag, phase in (("[3] closed loop", loop), ("[4] plane", plane),
                        ("[4] lstm_cell lane", lane),
@@ -4947,7 +5598,10 @@ def main() -> int:
                        ("[13] zamba2 serving", serve_hybrid),
                        ("[14] pixtral-12b vision prefix", serve_vision),
                        ("[15] llama3-405b int8 serving", serve_int8),
-                       ("[16] seamless-m4t-medium encdec", serve_encdec)):
+                       ("[16] seamless-m4t-medium encdec", serve_encdec),
+                       ("[17] h2o-danube-1.8b training", train_dense),
+                       ("[18] training checks", train_checks),
+                       ("[19] mamba2-780m training", train_ssm)):
         got, want = phase.pop("launches"), phase.pop("expect")
         log(f"{tag} launches {got}, the path's count {want}")
         check(got == want, f"{tag} launches {got} != {want}")
@@ -4970,7 +5624,8 @@ def main() -> int:
               "autotune_edge": tune_edge, "serving_moe": serve_moe,
               "serving_hybrid": serve_hybrid, "serving_vision": serve_vision,
               "serving_int8": serve_int8, "serving_encdec": serve_encdec,
-              "phase_seconds": laps}
+              "training_dense": train_dense, "training_checks": train_checks,
+              "training_ssm": train_ssm, "phase_seconds": laps}
     log(f"[summary] {json.dumps(phases)}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f} s")
 

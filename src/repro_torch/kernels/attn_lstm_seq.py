@@ -50,6 +50,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels._autograd import plain_grads
 from repro_torch.kernels.lstm_seq import (_MAX_GRID_Y, _MAX_SMEM,
                                           launch_config)
 
@@ -432,14 +433,9 @@ class _GroupedAttnSeq(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        need = ctx.needs_input_grad[1:]
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(n)
-                      for t, n in zip(ctx.saved_tensors, need)]
-            out = ref.attn_lstm_seq_grouped(*inputs)
-            wanted = [t for t, n in zip(inputs, need) if n]
-            grads = iter(torch.autograd.grad(out, wanted, grad_out))
-        return (None,) + tuple(next(grads) if n else None for n in need)
+        return (None,) + plain_grads(ref.attn_lstm_seq_grouped,
+                                     ctx.saved_tensors,
+                                     ctx.needs_input_grad[1:], grad_out)
 
 
 def _grouped(name, *args):

@@ -56,6 +56,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels._autograd import plain_grads
 
 # launches of the CUDA kernels, one count per public wrapper and one per
 # path (the cell's launches count here by path too)
@@ -523,14 +524,9 @@ class _GroupedSeq(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        need = ctx.needs_input_grad[1:]
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(n)
-                      for t, n in zip(ctx.saved_tensors, need)]
-            out = ref.lstm_seq_grouped(*inputs)
-            wanted = [t for t, n in zip(inputs, need) if n]
-            grads = iter(torch.autograd.grad(out, wanted, grad_out))
-        return (None,) + tuple(next(grads) if n else None for n in need)
+        return (None,) + plain_grads(ref.lstm_seq_grouped,
+                                     ctx.saved_tensors,
+                                     ctx.needs_input_grad[1:], grad_out)
 
 
 def _grouped(name, Wx, Wh, b, Wo, bo, xs):

@@ -10,7 +10,12 @@ alignment alone) picks the kernel: the vector kernel, one warp a row in
 16-byte loads, where every load is 16-byte aligned and D a multiple of 8;
 the general kernel for every other shape.  ``LAUNCHES`` counts the
 launches, ``PATH_LAUNCHES`` splits them by kernel (``vector``,
-``general``).  The decoder serves, so there is no backward.
+``general``).  On the card, where a gradient is wanted (grad enabled and
+x or w requiring it), the call goes through ``_RMSNormFn``: its forward is
+the kernel's launch, its backward ``_autograd.plain_grads`` (autograd
+through the plain version recomputed on the saved x and w), as the LSTM
+kernels' backward is; without one the call never builds the Function.
+On the CPU autograd runs through the plain version directly.
 
 The call is on the decode step's path 49 times a step, where the kernel
 takes a few microseconds, so the CUDA branch keeps its host work to a few
@@ -26,6 +31,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels._autograd import plain_grads
 
 LAUNCHES = {"rmsnorm": 0}
 PATH_LAUNCHES = {"vector": 0, "general": 0}
@@ -104,6 +110,23 @@ def _check(x, w):
         raise ValueError("rmsnorm needs unit stride along D")
 
 
+class _RMSNormFn(torch.autograd.Function):
+    """Forward: the wrapper's call (the kernel on the card).  Backward:
+    autograd through the plain version on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return rmsnorm(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return plain_grads(lambda x, w: ref.rmsnorm(x, w, ctx.eps),
+                           ctx.saved_tensors, ctx.needs_input_grad[:2],
+                           grad_out) + (None,)
+
+
 def rmsnorm(x, w, eps=1e-6):
     """x (R, D), w (D,) -> (R, D) in x's dtype."""
     try:                    # a few attribute reads where all is well
@@ -114,14 +137,18 @@ def rmsnorm(x, w, eps=1e-6):
         fast = (code is not None and idx >= 0 and x1 == 1
                 and w.shape == (D,) and w.stride() == (1,)
                 and w.get_device() == idx)
+        grad = (x.requires_grad or w.requires_grad) \
+            and torch.is_grad_enabled()
     except (AttributeError, TypeError, ValueError):   # _check raises
-        fast = False
-    if not fast:
+        fast = grad = False
+    if grad or not fast:
         _check(x, w)
         if x.device.type == "cpu":
             return ref.rmsnorm(x, w, eps)
         if x.device.type != "cuda":
             raise ValueError(f"rmsnorm runs on CUDA or CPU, not {x.device}")
+        if grad:
+            return _RMSNormFn.apply(x, w, eps)
         R, D = x.shape
         xs = x.stride(0)
         idx, code = x.get_device(), PAIR_CODES[(x.dtype, w.dtype)]

@@ -13,8 +13,11 @@ the card the dtype picks the path: bfloat16 runs the chunk-parallel
 tensor-core path (four launches: C.B^T, the chunk states, their ordered
 hand-off, y; its scratch allocated here, in one piece), float32 the exact
 CUDA-core kernel.  ``LAUNCHES`` counts the calls that launch, ``PATH_LAUNCHES``
-splits them by path (``tensor_core``: bf16; ``cuda_core``: f32).  The
-model serves, so there is no backward.
+splits them by path (``tensor_core``: bf16; ``cuda_core``: f32).  On the
+card, where a gradient is wanted, the call goes through ``_SSDScanFn``: its
+forward is the kernels' launch, its backward ``_autograd.plain_grads``
+(autograd through the plain version recomputed on the saved inputs), for
+y and the final state (a loss that reads only y sends no gradient for the state).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels._autograd import plain_grads
 
 LAUNCHES = {"ssd_scan": 0}
 PATH_LAUNCHES = {"tensor_core": 0, "cuda_core": 0}
@@ -164,6 +168,27 @@ def launch(lib, x, dt, A, Bm, Cm, D, chunk, h0):
     return y, hf
 
 
+class _SSDScanFn(torch.autograd.Function):
+    """Forward: the wrapper's call (the kernels on the card).  Backward:
+    autograd through the plain version on the saved inputs, for both
+    outputs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, D, h0, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, D, h0)
+        ctx.chunk = chunk
+        return ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk, h0=h0)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_h):
+        return plain_grads(
+            lambda x, dt, A, Bm, Cm, D, h0: ref.ssd_scan(
+                x, dt, A, Bm, Cm, D, chunk=ctx.chunk, h0=h0),
+            ctx.saved_tensors, ctx.needs_input_grad[:7],
+            (grad_y, grad_h)) + (None,)
+
+
 def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk=128, h0=None):
     """x (B, S, H, P), dt (B, S, H), A (H,), Bm/Cm (B, S, N), D (H,), h0
     (B, H, N, P) or None -> (y (B, S, H, P), h_final (B, H, N, P)).  S must
@@ -173,6 +198,10 @@ def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk=128, h0=None):
         return ref.ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk, h0=h0)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on CUDA or CPU, not {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, Bm, Cm, D, h0)):
+        return _SSDScanFn.apply(x, dt, A, Bm, Cm, D, h0, chunk)
     out = launch(_lib(), x, dt, A, Bm, Cm, D, chunk, h0)
     if x.numel():
         LAUNCHES["ssd_scan"] += 1

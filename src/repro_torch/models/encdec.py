@@ -1,5 +1,5 @@
 """Encoder-decoder LM (the seamless-m4t backbone), the JAX package's
-``models/encdec.py`` for inference.
+``models/encdec.py``.
 
 The encoder takes precomputed frame embeddings (B, S_src, d_model): the
 audio frontend is a stub in both packages.  Encoder layers are pre-norm
@@ -16,9 +16,12 @@ codes and scales, and len).  ``decode_step`` writes one self-attention row
 a slot and layer in place.  The cross-attention goes through ``attention``
 (the flash kernel) even in a decode step, at one query a row, as the
 reference's ``cross_sublayer`` does; the self-attention through
-``decode_attention``.  Not ported here: ``loss`` (it needs
-``layers.cross_entropy``, a training piece) and ``encdec_cache_axes``
-(mesh metadata).
+``decode_attention``.  ``encode`` and ``loss`` differentiate where grad is
+enabled, each encoder and decoder layer rematerialised as ``cfg.remat``
+says (``transformer.remat``); the decoder's training body is causal
+self-attention, cross-attention over the encoder output on the flash
+kernel, and the MLP.  Not ported here: ``encdec_cache_axes`` (mesh
+metadata).
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ from repro_torch.models.params import Spec, init_params
 from repro_torch.models.transformer import (_dt, _layer, _proj, _stack,
                                             attn_cache, attn_specs,
                                             attn_sublayer, mlp_specs_full,
-                                            mlp_sublayer)
+                                            mlp_sublayer, remat)
 
 
 def cross_attn_specs(cfg: ModelConfig) -> dict:
@@ -99,17 +102,43 @@ class EncDecLM:
         return init_params(self.specs(), seed, dtype, device)
 
     # ---------------------------------------------------------- encoder ----
-    @torch.no_grad()
     def encode(self, params, frames):
         """frames (B, S_src, d) -> the normed encoder output (B, S_src, d)
-        in the compute dtype."""
+        in the compute dtype (differentiable where grad is enabled)."""
         cfg = self.cfg
+
+        def body(x, p):
+            x, _ = attn_sublayer(p["attn"], x, cfg, window=None, causal=False)
+            return mlp_sublayer(p["mlp"], x, cfg)
+
+        body = remat(body, cfg.remat)
         x = frames.to(_dt(cfg.compute_dtype))
         for i in range(cfg.n_enc_layers):
-            p = _layer(params["enc_blocks"], i)
-            x, _ = attn_sublayer(p["attn"], x, cfg, window=None, causal=False)
-            x = mlp_sublayer(p["mlp"], x, cfg)
+            x = body(x, _layer(params["enc_blocks"], i))
         return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+    # ------------------------------------------------------------ train ----
+    def loss(self, params, batch):
+        """batch: frames (B, S_src, d), tokens (B, S) and labels (B, S)
+        int, an optional 0/1 ``mask`` -> (ce, {"ce", "aux": 0})."""
+        cfg = self.cfg
+        enc_out = self.encode(params, batch["frames"])
+
+        def body(x, p):
+            x, _ = attn_sublayer(p["attn"], x, cfg, window=None)
+            x = cross_sublayer(p["cross"], x, cfg, enc_out=enc_out)
+            return mlp_sublayer(p["mlp"], x, cfg)
+
+        body = remat(body, cfg.remat)
+        x = L.embed_lookup(params["embed"]["embedding"], batch["tokens"],
+                           _dt(cfg.compute_dtype))
+        for i in range(cfg.n_dec_layers):
+            x = body(x, _layer(params["dec_blocks"], i))
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        logits = L.unembed_logits(params["lm_head"], x, cfg.vocab, None)
+        ce = L.cross_entropy(logits, batch["labels"], batch.get("mask"))
+        return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
+                                                 device=ce.device)}
 
     # ------------------------------------------------------------ decode ---
     @torch.no_grad()

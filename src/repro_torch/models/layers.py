@@ -8,8 +8,8 @@ tensors, its plain version for CPU tensors); it follows the Pallas kernel,
 float32 throughout with one rounding at the end, where the JAX package's
 ``layers.rmsnorm`` rounds the inverse and its products in the activation
 dtype (ROADMAP.md section 3).  The big products stay ``torch.matmul``, as the
-JAX package leaves them to XLA.  The loss and the gradient barrier wait
-for the training slice.
+JAX package leaves them to XLA.  ``cross_entropy`` is the training loss and
+``grad_barrier`` the identity the decoder puts on each layer step's carry.
 """
 from __future__ import annotations
 
@@ -82,9 +82,38 @@ def unembed_logits(emb_or_w: torch.Tensor, x: torch.Tensor, true_vocab: int,
     the dtype's lowest value."""
     logits = torch.matmul(x, emb_or_w.to(x.dtype).t())
     logits = softcap(logits, final_cap)
-    if emb_or_w.shape[0] != true_vocab:
-        logits[..., true_vocab:] = torch.finfo(logits.dtype).min
+    pv = emb_or_w.shape[0]
+    if pv != true_vocab:
+        # out of place, as the reference's jnp.where: autograd keeps the
+        # product's output for its backward
+        pad = torch.arange(pv, device=logits.device) >= true_vocab
+        logits = logits.masked_fill(pad, torch.finfo(logits.dtype).min)
     return logits
+
+
+# ------------------------------------------------------- grad barrier ------
+class _GradBarrier(torch.autograd.Function):
+    """Identity whose backward casts the cotangent to the input's dtype
+    (the reference's ``_gb_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype)
+
+
+def grad_barrier(x: torch.Tensor) -> torch.Tensor:
+    """Identity that forces the cotangent back to x's dtype.  PyTorch's
+    engine already casts a gradient to its input's dtype; the barrier keeps
+    the layer step's structure the reference's (``layers.py:64-86``) and
+    launches nothing.  Without a gradient it is x itself."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GradBarrier.apply(x)
+    return x
 
 
 # ----------------------------------------------------------------- mlp -----
@@ -106,3 +135,29 @@ def mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     dt = x.dtype
     h = _act(act)(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
     return h @ p["w_down"].to(dt)
+
+
+# ---------------------------------------------------------------- loss -----
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """logits (..., V), int labels (...), optional 0/1 mask (...) -> the
+    mean negative log-likelihood in float32 (over the mask's ones where
+    given).  The reference's shifted logsumexp with the max taken without
+    gradient; the gold logit by ``torch.gather``, where the reference sums
+    an iota == label product to keep a vocab-sharded axis sharded: on one
+    device both give the same number (the other terms are exact zeros),
+    and the gather builds no (..., V) mask.  A label outside [0, V), such
+    as -100 padding, matches no column there, so its gold logit is 0 here
+    too (the gather reads a clamped index, then is zeroed)."""
+    logits = logits.to(torch.float32)
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    logz = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+    V = logits.shape[-1]
+    labels = labels.long()
+    gold = torch.gather(logits, -1, labels.clamp(0, V - 1)[..., None])[..., 0]
+    gold = torch.where((labels >= 0) & (labels < V), gold, 0.0)
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

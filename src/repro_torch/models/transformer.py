@@ -16,9 +16,16 @@ lives outside the stacked params; step i runs copy i % n_shared_blocks,
 with an attention cache of its own a step (the cache's ``"shared"`` entry).
 
 Pattern params are stacked along a leading 'layers' dim; the port walks
-that axis in a Python loop (no scan, no remat, no mesh).  Inference only:
-``forward``, ``prefill`` and ``decode_step``; ``forward`` returns the MoE
-family's load-balance aux loss summed over the layers (0 for the others).
+that axis in a Python loop (no scan, no mesh).  ``forward`` (the training
+body) and ``loss`` differentiate: where grad is enabled and ``cfg.remat``
+is not ``"none"`` each pattern step runs under non-reentrant
+``torch.utils.checkpoint`` (``"full"``: nothing of the step saved, the
+reference's ``policy=None``; ``"dots"`` / ``"dots_all"``: the step's
+matmul outputs saved), and ``layers.grad_barrier`` sits on each step's
+carry, where the reference puts it.  ``forward`` returns the MoE family's
+load-balance aux loss summed over the layers (0 for the others); ``loss``
+is cross-entropy + 0.01 aux.  ``prefill`` and ``decode_step`` run without
+gradient.
 The decode cache is the JAX package's pytree -- per attention entry ``k``,
 ``v`` (n_steps, B, max_len, Hkv, D) in bfloat16 whatever the compute dtype
 (or int8, below),
@@ -49,9 +56,11 @@ reference leaves them to XLA.  The encoder-decoder family is
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -272,6 +281,7 @@ def make_block_step(cfg: ModelConfig, mode: str, shared_params=None,
 
     def step(carry, step_params, step_idx, cache_slice):
         x, q_offset = carry
+        x = L.grad_barrier(x)
         aux = 0.0
         new_cache = {}
         for i, kind in enumerate(pattern):
@@ -315,6 +325,42 @@ def make_block_step(cfg: ModelConfig, mode: str, shared_params=None,
 
 def _layer(tree, i):
     return tree_map(lambda a: a[i], tree)
+
+
+# the products whose outputs a selective remat keeps: "dots" those without
+# batch dims (the reference's dots_with_no_batch_dims_saveable), "dots_all"
+# every one (dots_saveable)
+_DOTS = {"dots": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default),
+         "dots_all": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                      torch.ops.aten.bmm.default)}
+
+
+def _saving(ops):
+    def policy(ctx, op, *args, **kwargs):
+        return (ckpt.CheckpointPolicy.MUST_SAVE if op in ops
+                else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+    return policy
+
+
+def remat(fn, policy: str):
+    """``fn`` under non-reentrant activation checkpointing where grad is
+    enabled: ``"full"`` saves only its inputs, ``"dots"`` and
+    ``"dots_all"`` the products' outputs too (``_DOTS``); ``"none"`` (or
+    no grad) runs it plainly."""
+    if policy == "none":
+        return fn
+
+    @functools.wraps(fn)
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        kw = {}
+        if policy != "full":
+            kw["context_fn"] = functools.partial(
+                ckpt.create_selective_checkpoint_contexts,
+                _saving(_DOTS[policy]))
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
 
 
 # ============================================================== caches =====
@@ -445,6 +491,13 @@ class DecoderLM:
                                shared_params=params.get("shared"), embed0=x)
         n_steps = _pattern(self.cfg)[1]
         carry, raws, aux = (x, q_offset), [], 0.0
+        if mode == "train":
+            body = remat(lambda x, sp, i: step((x, q_offset), sp, i, None),
+                         self.cfg.remat)
+            for i in range(n_steps):
+                carry, _, a = body(carry[0], _layer(params["blocks"], i), i)
+                aux = aux + a
+            return carry[0], raws, aux
         for i in range(n_steps):
             csl = _layer(cache, i) if cache is not None else None
             carry, nc, a = step(carry, _layer(params["blocks"], i), i, csl)
@@ -462,17 +515,30 @@ class DecoderLM:
                           for f in raws[0][key]} for key in raws[0]}
         return carry[0], raws, aux
 
-    # ---- forward (inference)
-    @torch.no_grad()
+    # ---- forward (the training body)
     def forward(self, params, tokens, *, extra_embeds=None, q_offset=0):
         """tokens (B, S) and an optional prefix ``extra_embeds`` (B, P, d)
         -> (logits (B, P + S, V), aux): the MoE family's load-balance loss
-        summed over the layers (f32), 0 for the others."""
+        summed over the layers (f32), 0 for the others.  Differentiable
+        where grad is enabled, each layer step rematerialised as
+        ``cfg.remat`` says."""
         x = self._embed_inputs(params, tokens, extra_embeds,
                                _dt(self.cfg.compute_dtype))
         x, _, aux = self._run(params, x, "train", q_offset)
-        return self._head(params, x), torch.as_tensor(aux,
-                                                      dtype=torch.float32)
+        return self._head(params, x), torch.as_tensor(
+            aux, dtype=torch.float32, device=x.device)
+
+    def loss(self, params, batch):
+        """batch: tokens (B, S) and labels (B, S) int, an optional 0/1
+        ``mask`` and an optional prefix ``extra_embeds`` (B, P, d) (the
+        logits of its positions are left out) -> (ce + 0.01 aux, {"ce",
+        "aux"})."""
+        logits, aux = self.forward(params, batch["tokens"],
+                                   extra_embeds=batch.get("extra_embeds"))
+        if batch.get("extra_embeds") is not None:
+            logits = logits[:, -batch["tokens"].shape[1]:]
+        ce = L.cross_entropy(logits, batch["labels"], batch.get("mask"))
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     # ---- prefill: forward pass that also fills a decode cache
     @torch.no_grad()

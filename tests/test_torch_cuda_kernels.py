@@ -1288,3 +1288,173 @@ def test_cuda_arma_fit_matches_sequential_plain(cuda_device, differenced):
     np.testing.assert_allclose(m.eps_T, eps_T.numpy(), rtol=0, atol=1e-5)
     np.testing.assert_allclose(got[2].cpu().numpy(), loss.numpy(), rtol=0,
                                atol=1e-5)
+
+
+# ------------------------------------------ the training path's Functions --
+# a gradient through a Function (the kernel forward, the plain version's
+# backward on the saved inputs) against the plain version's own autograd
+# gradient on the same bf16 inputs: the backward is that plain version, so
+# the two differ only where a matmul takes another algorithm (flash's
+# backward runs a batch row at a time) -- at most one bf16 rounding of an
+# element, held within 1e-2 of the gradient's largest |element|
+GRAD_WIRING_REL = 1e-2
+
+
+def _train_case(kind, dev, seed=0):
+    """(call through the wrapper, the plain version, bf16 inputs that
+    require grad) at a small training shape of each kernel."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*s, dtype=BF16, scale=1.0):
+        return (torch.randn(s, generator=g) * scale).to(dev, dtype)
+    if kind == "rmsnorm":
+        ins = [rnd(300, 2560), (1.0 + 0.1 * torch.randn(2560, generator=g))
+               .to(dev, BF16)]
+        return trms.rmsnorm, tref.rmsnorm, ins, {}
+    if kind == "flash_attention":
+        # (B, H, S, D) views of (B, S, H, D) projections, as the model
+        # hands them over; window and GQA as h2o-danube's
+        ins = [rnd(2, 300, 8, 80).transpose(1, 2),
+               rnd(2, 300, 2, 80).transpose(1, 2),
+               rnd(2, 300, 2, 80).transpose(1, 2)]
+        return (tflash.flash_attention, tref.flash_attention, ins,
+                dict(causal=True, window=128))
+    x, dt, A, Bm, Cm, D = _card_inputs(dev, 2, 256, 4, 64, 128, BF16)
+    return (tssd.ssd_scan, lambda *a, **k: tref.ssd_scan(*a, **k)[0],
+            [x, dt, A, Bm, Cm, D], dict(chunk=128))
+
+
+TRAIN_KERNELS = {"rmsnorm": trms, "flash_attention": tflash,
+                 "ssd_scan": tssd}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(TRAIN_KERNELS))
+def test_cuda_training_function_matches_plain(cuda_device, kind):
+    """Each kernel with inputs that require grad: the forward launches the
+    kernel once (through its ``autograd.Function``) and matches the plain
+    version as the serving bars say (norm 8e-3 relative, flash 2e-2 and
+    1e-2 of each row's scale, the scan's y 1e-2 of each row's scale); the
+    backward launches nothing, and every input's gradient of a seeded
+    scalar matches the plain version's within GRAD_WIRING_REL, in the
+    input's dtype and layout."""
+    fn, plain, ins, kw = _train_case(kind, cuda_device)
+    mod = TRAIN_KERNELS[kind]
+    leaves = [t.detach().requires_grad_(True) for t in ins]
+    mod.reset_launch_counts()
+    out = fn(*leaves, **kw)
+    y = out[0] if kind == "ssd_scan" else out
+    assert type(y.grad_fn).__name__ == {
+        "rmsnorm": "_RMSNormFnBackward", "flash_attention":
+        "_FlashFnBackward", "ssd_scan": "_SSDScanFnBackward"}[kind]
+    want = plain(*[t.detach().float() for t in ins], **kw)
+    if kind == "rmsnorm":
+        assert _norm_err(y.detach(), want) <= 8e-3
+    else:
+        assert _row_err(y.detach(), want) <= 1e-2
+    r = torch.randn(y.shape, generator=torch.Generator().manual_seed(1)).to(
+        cuda_device)
+    grads = torch.autograd.grad((y.float() * r).sum(), leaves)
+    assert sum(mod.LAUNCHES.values()) == 1
+    ref_leaves = [t.detach().requires_grad_(True) for t in ins]
+    ref_grads = torch.autograd.grad(
+        (plain(*ref_leaves, **kw).float() * r).sum(), ref_leaves)
+    for t, a, b in zip(ins, grads, ref_grads):
+        assert a.dtype == t.dtype and a.shape == t.shape
+        assert a.stride() == t.stride()
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= GRAD_WIRING_REL * float(b.float().abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(TRAIN_KERNELS))
+def test_cuda_no_function_without_a_gradient(cuda_device, kind):
+    """Without a gradient -- under ``no_grad``, or inputs that require
+    none -- the call builds no Function and launches once, as the serving
+    path's lean call does."""
+    fn, _, ins, kw = _train_case(kind, cuda_device)
+    mod = TRAIN_KERNELS[kind]
+    outs = []
+    mod.reset_launch_counts()
+    with torch.no_grad():
+        outs.append(fn(*[t.requires_grad_(True) for t in ins], **kw))
+    outs.append(fn(*[t.detach() for t in ins], **kw))
+    assert sum(mod.LAUNCHES.values()) == 2
+    for out in outs:
+        y = out[0] if kind == "ssd_scan" else out
+        assert y.grad_fn is None and not y.requires_grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(TRAIN_KERNELS))
+def test_cuda_launch_error_raises_through_the_function(cuda_device, kind,
+                                                       monkeypatch):
+    """A launch that fails inside a Function's forward raises; the call
+    never gives way to the plain version: the norm's kernel returning an
+    error code, bf16 flash at a head dim off 16, the scan at a chunk its
+    kernels do not take."""
+    g = torch.Generator().manual_seed(0)
+    dev = cuda_device
+    if kind == "rmsnorm":
+        trms._lib()
+        monkeypatch.setattr(trms, "_fns", (lambda *a: 1, lambda *a: 1))
+        x = torch.randn((4, 64), generator=g).to(dev).requires_grad_(True)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            trms.rmsnorm(x, torch.ones(64, device=dev))
+    elif kind == "flash_attention":
+        q = torch.randn((1, 2, 8, 72), generator=g).to(dev, BF16)
+        with pytest.raises(ValueError, match="multiple of 16"):
+            tflash.flash_attention(q.requires_grad_(True), q.detach(),
+                                   q.detach())
+    else:
+        x, dt, A, Bm, Cm, D = _card_inputs(dev, 1, 64, 2, 16, 16, BF16)
+        with pytest.raises(ValueError, match="chunk"):
+            tssd.ssd_scan(x.requires_grad_(True), dt, A, Bm, Cm, D, chunk=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "mamba2-780m"])
+def test_cuda_train_step_matches_plain_model(cuda_device, arch):
+    """A smoke-size model's loss and gradients in bf16 with remat, the
+    kernels' model against the plain versions swapped in: the loss within
+    1e-2 relative, the flattened gradients' cosine above 0.99; the
+    kernels launched twice a layer step (the forward and remat's
+    recomputation) and the final norm once, the backward nothing."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.registry import build_model
+    cfg = smoke_config(arch).replace(remat="full")
+    m = build_model(cfg)
+    params = m.init(0, torch.bfloat16, cuda_device)
+    batch = SyntheticLMData(cfg.vocab, 64, 2, device=cuda_device).batch_at(0)
+    leaves = [t for _, t in tree_leaves(params)]
+
+    def run():
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, _ = m.loss(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        for t in leaves:
+            t.requires_grad_(False)
+        return loss.detach(), torch.cat([g.float().reshape(-1)
+                                         for g in grads])
+
+    for mod in TRAIN_KERNELS.values():
+        mod.reset_launch_counts()
+    loss, g = run()
+    n = cfg.n_layers
+    if arch == "mamba2-780m":
+        want = {"rmsnorm": 2 * n + 1, "ssd_scan": 2 * n}
+    else:
+        want = {"rmsnorm": 2 * 2 * n + 1, "flash_attention": 2 * n}
+    got = {k: v for mod in TRAIN_KERNELS.values()
+           for k, v in mod.LAUNCHES.items() if v}
+    assert got == want
+    wloss, wg = _swapped_plain(run, [(trms, "rmsnorm"),
+                                     (tflash, "flash_attention"),
+                                     (tssd, "ssd_scan")])
+    assert bool(torch.isfinite(g).all())
+    assert abs(float(loss - wloss)) <= 1e-2 * abs(float(wloss))
+    cos = float(g @ wg / (g.norm() * wg.norm()))
+    assert cos > 0.99, cos
