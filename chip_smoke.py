@@ -163,13 +163,30 @@ cell), ``attn_lstm_seq.cu``, ``rmsnorm.cu``, ``flash_attention.cu``,
    the step-6 checkpoint loaded bit for bit;
 19. phase 17 on mamba2-780m (48 layers, B=4, S=2048, 8 steps, from
    ``mamba2_conditioned`` params): every chunk scan and norm on the
-   kernels.
+   kernels;
+20. the distribution layer: (a) on a world-1 NCCL group and its 1 x 1
+   ("data", "model") mesh, phase 18 (b)'s run through ``train(mesh=,
+   rules=)`` (params and moments DTensors by their logical axes, the
+   norm and flash on local shards through ``local_map``), held to phase
+   18 (b)'s unsharded run bit for bit (every logged loss, the final
+   params, the last checkpoint's params, moments and step) with its
+   launches; then mamba2-780m at 2 of its 48 layers, 4 steps, unsharded
+   and on the mesh, bit for bit, the chunk scan on local shards; (b) one
+   step's full-width gradients through the int8 compressed all-reduce
+   over the data group, two rounds, bit for bit against the quantisation
+   computed without the group, the int32 payload's bytes beside the bf16
+   gradients'; (c) after the group is destroyed, ``dryrun.run_cell`` on
+   fake groups of 256 and 512 ranks for h2o-danube-1.8b train_4k on
+   16x16 and 2x16x16, decode_32k on 16x16 and mamba2-780m train_4k on
+   16x16, each beside ``analysis.costs``' terms (records under
+   ``chiprun_out/dryrun/``); (d) phases 17 and 19's step p50 as
+   ``train_mfu`` = 6 N (B S) / (p50 x 989e12), a line each.
 
 Phase 2's training shapes hold each Function's forward and gradient
 against the plain version's at phases 17 and 19's shapes, beside SDPA's
 and ``F.rms_norm``'s forward and backward.
 
-Phases 3 to 19 (and phase 4's lane) each set the launch counts to 0 before
+Phases 3 to 20 (and phase 4's lane) each set the launch counts to 0 before
 they drive their path and read them right after it, before the checks that
 launch kernels of their own; the counts of all eleven wrappers must equal
 what the path needs (a fit forward an epoch, a stacked forecast a
@@ -187,7 +204,10 @@ norms a prefill and a decode step and 48 chunk scans a prefill of mamba2,
 12 flash a decode step of seamless; 2 x 2 x 24 + 1 norms and 2 x 24
 flash a train step of h2o-danube, 2 x 48 + 1 norms and 2 x 48
 chunk scans of mamba2: the layer steps run twice under remat, the
-backward launches nothing), each phase logs its seconds,
+backward launches nothing; phase 20 (a)'s sharded run launches what
+phase 18 (b)'s failed-and-resumed run launched, 9 steps of 2 x 2 x 2 + 1
+norms and 2 x 2 flash, and mamba2 at 2 layers 2 x 2 + 1 norms and 2 x 2
+scans a step in each of its two runs), each phase logs its seconds,
 and each kernel must have launched; phases 3 to 16 and the lane also hold
 both LSTMs' launches by path (``PATH_LAUNCHES``) to the path's.  Any
 failed check raises, so the script exits non-zero.
@@ -5271,6 +5291,7 @@ def training_checks(device, cfg, tag="[18]", rows=TRAIN_BATCH,
         params1, hist = train(cfg, tc, fail_at={RESTART_FAIL_AT},
                               log=on_log, device=device)
         failed_s = time.perf_counter() - t0
+        launches_failed = {k: v for k, v in launch_counts().items() if v}
 
         def fresh_state():
             fresh = tree_map(lambda t: t.to(torch.bfloat16),
@@ -5338,6 +5359,16 @@ def training_checks(device, cfg, tag="[18]", rows=TRAIN_BATCH,
                                                   tree_leaves(params)))
         check(param_gap == 0, f"{tag} (b) the runs' params differ by up "
               f"to {param_gap}")
+        # what phase 20 (a)'s sharded run of the same path is held to: the
+        # failed run's logged losses, final params, last checkpoint and
+        # launches, on the host
+        reference = {
+            "losses": losses1, "launches": launches_failed,
+            "seconds": failed_s,
+            "params": tree_map(lambda t: t.cpu(), params1),
+            "checkpoint": tree_map(lambda t: t.cpu(), state1[0]),
+            "moments": {k: tree_map(lambda t: t.cpu(), v)
+                        for k, v in state1[1].items()}}
         del params1, params, state1, state2
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -5353,7 +5384,8 @@ def training_checks(device, cfg, tag="[18]", rows=TRAIN_BATCH,
            "clean_run_s": clean_s, "checkpoint_bytes": ckpt_bytes,
            "launches": {k: launches_a.get(k, 0) + launches_b.get(k, 0)
                         for k in per_step},
-           "expect": {k: v * (1 + n_steps) for k, v in per_step.items()}}
+           "expect": {k: v * (1 + n_steps) for k, v in per_step.items()},
+           "reference": reference}
     log(f"{tag} (b) fail at step {RESTART_FAIL_AT}, resumed from step "
         f"{RESTART_FAIL_AT - RESTART_FAIL_AT % RESTART_EVERY}: final loss "
         f"{hist[-1]['loss']:.6f} against the uninterrupted run's "
@@ -5364,6 +5396,289 @@ def training_checks(device, cfg, tag="[18]", rows=TRAIN_BATCH,
         f"a checkpoint {ckpt_bytes:,} B; the resumed run's step 6 loaded bit "
         f"for bit")
     return rec
+
+
+# phase 20: the distribution layer on the card
+SHARDED_SSM_LAYERS, SHARDED_SSM_STEPS = 2, 4
+DRYRUN_CELLS = (("h2o-danube-1.8b", "train_4k", False),
+                ("h2o-danube-1.8b", "train_4k", True),
+                ("h2o-danube-1.8b", "decode_32k", False),
+                ("mamba2-780m", "train_4k", False))
+DRYRUN_BUDGET_S = 90.0
+
+
+def nccl_mesh(device):
+    """A world-1 NCCL group on a free localhost port and the 1 x 1
+    ("data", "model") mesh over it (gloo for a CPU rehearsal)."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    cuda = device.type == "cuda"
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1, **({"device_id": device} if cuda
+                                             else {}))
+    return make_mesh((1, 1), ("data", "model"), device.type)
+
+
+def _state_differs(a, b):
+    """Paths of the nested dicts' leaves that are not equal bit for bit
+    (DTensors compared whole, on the host)."""
+    import torch
+    from repro_torch.models.params import tree_leaves
+
+    def host(t):
+        return (t.full_tensor() if hasattr(t, "full_tensor") else t).cpu()
+    return ["/".join(p) for (p, x), (_, y) in
+            zip(tree_leaves(a), tree_leaves(b))
+            if not torch.equal(host(x), host(y))]
+
+
+def sharded_training(device, mesh, cfg, ref, rows=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     tag="[20a]"):
+    """Phase 18 (b)'s run of ``cfg`` (checkpoints every ``RESTART_EVERY``
+    steps, a failure at ``RESTART_FAIL_AT``) through ``train(mesh=,
+    rules=)`` on the 1 x 1 mesh: params and moments DTensors, the kernels
+    on their local shards.  Every logged loss, the final params and the
+    last checkpoint's params, moments and step equal phase 18 (b)'s
+    unsharded run bit for bit (``ref``), and so do the launches."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_loop import TrainConfig, train
+    _free_card(device)
+    rules = rules_for(cfg, mesh, "train")
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_",
+                                     dir=ROOT / "build"))
+    try:
+        tc = TrainConfig(steps=RESTART_STEPS, global_batch=rows,
+                         seq_len=seq, ckpt_every=RESTART_EVERY,
+                         ckpt_dir=str(ckpt_dir), log_every=1)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        params, hist = train(cfg, tc, mesh=mesh, rules=rules,
+                             fail_at={RESTART_FAIL_AT},
+                             log=lambda m: log(f"{tag} {m}"), device=device)
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in launch_counts().items() if v}
+        sharded = sorted({str(t.placements) for _, t in tree_leaves(params)})
+        model = build_model(cfg)
+        fresh = tree_map(lambda t: t.to(torch.bfloat16),
+                         model.init(1, torch.float32, device))
+        (p8, o8), step8 = load_checkpoint(
+            ckpt_dir, (fresh, adamw_init(fresh, AdamWConfig())))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    losses = {h["step"]: h["loss"] for h in hist}
+    diff = {"losses": [s for s in ref["losses"]
+                       if losses.get(s) != ref["losses"][s]],
+            "params": _state_differs(params, ref["params"]),
+            "checkpoint params": _state_differs(p8, ref["checkpoint"]),
+            "checkpoint moments": _state_differs(
+                {k: v for k, v in o8.items() if k != "step"},
+                {k: v for k, v in ref["moments"].items() if k != "step"}),
+            "checkpoint step": [] if torch.equal(
+                o8["step"].cpu(), ref["moments"]["step"]) else ["step"]}
+    log(f"{tag} {cfg.name} at {cfg.n_layers} layers on the 1 x 1 mesh "
+        f"(placements {sharded}): {len(hist)} logged steps, losses "
+        f"{[h['loss'] for h in hist]} against phase 18 (b)'s "
+        f"{list(ref['losses'].values())}; the step-{step8} checkpoint "
+        f"loaded; {seconds:.1f} s against phase 18 (b)'s unsharded "
+        f"{ref['seconds']:.1f} s; differing: {diff}")
+    check(not any(diff.values()), f"{tag} the sharded run is not phase 18 "
+          f"(b)'s bit for bit: {diff}")
+    check(step8 == RESTART_STEPS, f"{tag} last checkpoint at {step8}")
+    check(launches == ref["launches"], f"{tag} launches {launches} against "
+          f"phase 18 (b)'s {ref['launches']}")
+    return {"seconds": seconds, "unsharded_seconds": ref["seconds"],
+            "losses": [h["loss"] for h in hist], "bit_for_bit": True,
+            "placements": sharded, "launches": launches,
+            "expect": ref["launches"]}, params
+
+
+def sharded_ssm_training(device, mesh, cfg=None, rows=TRAIN_BATCH,
+                         seq=SSM_TRAIN_SEQ, tag="[20a]"):
+    """mamba2-780m at ``SHARDED_SSM_LAYERS`` of its 48 layers, full width,
+    ``SHARDED_SSM_STEPS`` steps from ``mamba2_conditioned`` params: the
+    unsharded run, then the same through ``train(mesh=, rules=)``, so
+    the chunk scan launches on the mesh's local shards; every logged loss
+    and the final params equal bit for bit, each run's launches the
+    path's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.training.train_loop import TrainConfig, train
+    cfg = cfg or get_config("mamba2-780m").replace(
+        n_layers=SHARDED_SSM_LAYERS)
+    tc = TrainConfig(steps=SHARDED_SSM_STEPS, global_batch=rows,
+                     seq_len=seq, ckpt_dir=None, log_every=1)
+    per_step = train_launches_per_step(cfg)
+    runs = []
+    for mesh_ in (None, mesh):
+        _free_card(device)
+        kw = {} if mesh_ is None else {
+            "mesh": mesh_, "rules": rules_for(cfg, mesh_, "train")}
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with init_conditioned(mamba2_conditioned):
+            params, hist = train(cfg, tc, log=lambda m: log(f"{tag} {m}"),
+                                 device=device, **kw)
+        runs.append({"params": params, "losses": [h["loss"] for h in hist],
+                     "seconds": time.perf_counter() - t0,
+                     "launches": {k: v for k, v in launch_counts().items()
+                                  if v}})
+    plain, shard = runs
+    want = {k: v * tc.steps for k, v in per_step.items()}
+    differ = _state_differs(shard["params"], plain["params"])
+    log(f"{tag} {cfg.name} at {cfg.n_layers} layers: losses "
+        f"{shard['losses']} (1 x 1 mesh) against {plain['losses']} "
+        f"(unsharded); runs {shard['seconds']:.1f} s and "
+        f"{plain['seconds']:.1f} s; launches {shard['launches']} and "
+        f"{plain['launches']}; params differing: {differ}")
+    check(shard["losses"] == plain["losses"] and not differ,
+          f"{tag} mamba2 sharded against unsharded: losses "
+          f"{shard['losses']} / {plain['losses']}, params {differ}")
+    check(device.type != "cuda"
+          or shard["launches"] == want == plain["launches"],
+          f"{tag} mamba2 launches {shard['launches']} / "
+          f"{plain['launches']} against {want}")
+    return {"seconds": shard["seconds"], "unsharded_seconds":
+            plain["seconds"], "losses": shard["losses"], "bit_for_bit": True,
+            "launches": {k: shard["launches"].get(k, 0)
+                         + plain["launches"].get(k, 0)
+                         for k in want},
+            "expect": {k: 2 * v for k, v in want.items()}}
+
+
+def compressed_allreduce_check(device, mesh, cfg, params, rows=TRAIN_BATCH,
+                               seq=TRAIN_SEQ, tag="[20b]"):
+    """One step's full-width gradients of ``cfg`` on the mesh (the sharded
+    run's final params, ``train()``'s first batch) through
+    ``make_compressed_grad_allreduce`` over the world-1 data group, two
+    rounds (the second with the first's error feedback): per leaf the
+    result and the new error equal, bit for bit, the quantise /
+    requantise / dequantise of g + err computed without the group; the
+    int32 payload's bytes beside the bf16 gradients'."""
+    import torch
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.distributed.collectives import (
+        make_compressed_grad_allreduce, quantize_int8)
+    from repro_torch.distributed.sharding import replicating
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.models.registry import build_model
+    rules = rules_for(cfg, mesh, "train")
+    model = build_model(cfg)
+    batch = SyntheticLMData(cfg.vocab, seq, rows, mesh=mesh, rules=rules,
+                            device=device).batch_at(0)
+    paths, leaves = zip(*tree_leaves(params))
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        loss, _ = model.loss(params, batch, mesh=mesh, rules=rules)
+        with replicating(mesh):                 # the backward
+            grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    grads = {"/".join(p): g.redistribute(t.device_mesh, t.placements)
+             for p, g, t in zip(paths, grads, leaves)}
+    allred = make_compressed_grad_allreduce(mesh)
+    err = tree_map(lambda g: torch.zeros(g.to_local().shape,
+                                         dtype=torch.float32, device=device),
+                   grads)
+    bad, payload, grad_bytes = [], 0, 0
+    t0 = time.perf_counter()
+    for rnd in range(2):
+        out, new_err = allred(grads, err)
+        for k, g in grads.items():
+            x = g.to_local() + err[k]
+            _, scale = quantize_int8(x)
+            q2 = torch.clamp(torch.round(x.float() / scale), -127, 127)
+            mean = q2.to(torch.int32).to(torch.float32) * scale / 1
+            if not (torch.equal(out[k].to_local(), mean.to(g.dtype))
+                    and torch.equal(new_err[k], (x - mean).float())):
+                bad.append(f"{rnd}/{k}")
+            if rnd == 0:
+                payload += q2.numel() * 4
+                grad_bytes += g.to_local().numel() * g.element_size()
+        err = new_err
+    seconds = time.perf_counter() - t0
+    log(f"{tag} {len(grads)} gradient leaves of {cfg.name} at "
+        f"{cfg.n_layers} layers, two rounds over the data group: the int32 "
+        f"payload {payload:,} B a round beside the bf16 gradients' "
+        f"{grad_bytes:,} B (the scales' 4 B a leaf aside); leaves not bit "
+        f"for bit: {bad}; {seconds:.2f} s")
+    check(not bad, f"{tag} compressed all-reduce differs in {bad[:8]}")
+    return {"leaves": len(grads), "int32_payload_bytes": payload,
+            "bf16_grad_bytes": grad_bytes, "seconds": seconds}
+
+
+def production_dryrun(tag="[20c]"):
+    """``dryrun.run_cell`` for ``DRYRUN_CELLS`` on fake groups of 256 and
+    512 ranks (after the NCCL group is gone), each record logged beside
+    ``analytic_cell(...).terms(wire)``; every record ``ok``, the seconds
+    logged against ``DRYRUN_BUDGET_S`` (host work: the card's host sets
+    them)."""
+    from repro_torch.analysis import costs
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import kv_repeat_for
+    out_dir = ROOT / "chiprun_out" / "dryrun"
+    recs = {}
+    t0 = time.perf_counter()
+    for arch, shape, multi in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape, multi, out_dir)
+        check(rec["status"] == "ok", f"{tag} {arch} {shape}: {rec}")
+        cfg = get_config(arch)
+        cfg = cfg.replace(kv_repeat=rec["kv_repeat"])
+        cost = costs.analytic_cell(cfg, SHAPES[shape])
+        chips = 512 if multi else 256
+        terms = cost.terms(rec["collectives"]["wire_bytes_per_device"],
+                           chips=chips)
+        key = f"{arch}__{shape}__{rec['mesh']}"
+        recs[key] = {"argument_bytes": rec["memory"]["argument_bytes_by_part"],
+                     "flops_per_device": rec["cost"]["flops_per_device"],
+                     "analytic_flops_per_device":
+                     cost.executed_flops / chips,
+                     "collectives": rec["collectives"]["comm_debug_counts"],
+                     "wire_bytes_per_device":
+                     rec["collectives"]["wire_bytes_per_device"],
+                     "run_s": rec["run_s"], "terms": terms}
+        log(f"{tag} {key}: {json.dumps(recs[key])}")
+    seconds = time.perf_counter() - t0
+    log(f"{tag} {len(recs)} cells ok in {seconds:.1f} s of host time (budget "
+        f"{DRYRUN_BUDGET_S} s: {'within' if seconds <= DRYRUN_BUDGET_S else 'OVER'})")
+    return {"cells": recs, "seconds": seconds}
+
+
+def train_mfu(smi_line, runs, tag="[20d]"):
+    """Phases 17 and 19's measured step p50 as the whole step's share of
+    the card's bf16 peak: model FLOPs 6 N_active (B S) of
+    ``analysis.costs`` over (p50 x 989e12), a line each."""
+    from repro_torch.analysis import costs
+    from repro_torch.configs.base import ShapeSpec
+    out = {}
+    for cfg, seq, rec in runs:
+        shape = ShapeSpec("measured", seq, rec["batch"], "train")
+        flops = costs.analytic_cell(cfg, shape).model_flops
+        mfu = flops / (rec["step_ms_p50"] / 1e3 * costs.PEAK_FLOPS)
+        out[cfg.name] = {"model_flops": flops, "step_ms_p50":
+                         rec["step_ms_p50"], "train_mfu": mfu}
+        log(f"{tag} train_mfu {cfg.name} B={rec['batch']} S={seq}: "
+            f"{flops:.4e} model FLOPs / ({rec['step_ms_p50']:.1f} ms x "
+            f"{costs.PEAK_FLOPS:.3e}) = {mfu:.4%} on {smi_line}")
+    return out
 
 
 def profile_start(device, cpu=True):
@@ -5570,6 +5885,25 @@ def main() -> int:
     check(train_ssm["params"] == 781_328_640,
           f"mamba2-780m has {train_ssm['params']} parameters")
     lap("19")
+    # phase 20: the distribution layer on a world-1 NCCL group, then the
+    # production dry-run on fake groups and the measured steps' MFU
+    import torch.distributed as dist
+    mesh = nccl_mesh(device)
+    dense_small = dense_cfg.replace(n_layers=RESTART_LAYERS)
+    shard_dense, shard_params = sharded_training(
+        device, mesh, dense_small, train_checks.pop("reference"))
+    shard_ssm = sharded_ssm_training(device, mesh)
+    lap("20a")
+    allreduce = compressed_allreduce_check(device, mesh, dense_small,
+                                           shard_params)
+    del shard_params
+    dist.destroy_process_group()
+    lap("20b")
+    dry = production_dryrun()
+    lap("20c")
+    mfu = train_mfu(smi_line, [(dense_cfg, TRAIN_SEQ, train_dense),
+                               (ssm_cfg, SSM_TRAIN_SEQ, train_ssm)])
+    lap("20d")
     launches = {}
     for tag, phase in (("[3] closed loop", loop), ("[4] plane", plane),
                        ("[4] lstm_cell lane", lane),
@@ -5601,7 +5935,10 @@ def main() -> int:
                        ("[16] seamless-m4t-medium encdec", serve_encdec),
                        ("[17] h2o-danube-1.8b training", train_dense),
                        ("[18] training checks", train_checks),
-                       ("[19] mamba2-780m training", train_ssm)):
+                       ("[19] mamba2-780m training", train_ssm),
+                       ("[20a] h2o-danube-1.8b sharded training",
+                        shard_dense),
+                       ("[20a] mamba2-780m sharded training", shard_ssm)):
         got, want = phase.pop("launches"), phase.pop("expect")
         log(f"{tag} launches {got}, the path's count {want}")
         check(got == want, f"{tag} launches {got} != {want}")
@@ -5625,7 +5962,10 @@ def main() -> int:
               "serving_hybrid": serve_hybrid, "serving_vision": serve_vision,
               "serving_int8": serve_int8, "serving_encdec": serve_encdec,
               "training_dense": train_dense, "training_checks": train_checks,
-              "training_ssm": train_ssm, "phase_seconds": laps}
+              "training_ssm": train_ssm, "sharded_training_dense":
+              shard_dense, "sharded_training_ssm": shard_ssm,
+              "compressed_allreduce": allreduce, "production_dryrun": dry,
+              "train_mfu": mfu, "phase_seconds": laps}
     log(f"[summary] {json.dumps(phases)}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f} s")
 

@@ -12,9 +12,11 @@ uint16 bits under the dtype name ``"bfloat16"``, as the reference stores
 ml_dtypes, so a checkpoint written by either package loads in the other.
 ``treedef`` is a description the loader does not parse (the reference
 writes ``str(treedef)``); a load checks the leaf count, shapes and dtypes'
-sizes against the example tree.  ``AsyncCheckpointer`` copies every leaf
-to host memory before its writer thread starts, so the next step's
-in-place update cannot race the write.
+sizes against the example tree.  A DTensor leaf is saved whole
+(``full_tensor``) and loads back onto its example leaf's mesh and
+placements, each rank keeping its slice.  ``AsyncCheckpointer`` copies
+every leaf to host memory before its writer thread starts, so the next
+step's in-place update cannot race the write.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import is_dtensor
 
 _NATIVE = set("bool int8 int16 int32 int64 uint8 uint16 uint32 uint64 "
               "float16 float32 float64 complex64 complex128".split())
@@ -59,11 +63,16 @@ def _unflatten(tree, leaves):
     return next(leaves)
 
 
+def _whole(x):
+    """A DTensor's full value as a plain tensor; any other leaf itself."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
 def _to_numpy(x) -> tuple[np.ndarray, str]:
     """A leaf as a savable numpy array and its dtype name (bfloat16 as its
     uint16 bits)."""
     if isinstance(x, torch.Tensor):
-        x = x.detach().cpu()
+        x = _whole(x).detach().cpu()
         if x.dtype == torch.bfloat16:
             return x.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         a = x.numpy()
@@ -84,6 +93,11 @@ def _to_tensor(a: np.ndarray, dtype_name: str, like) -> torch.Tensor:
         t = torch.from_numpy(np.array(a, copy=True))
     else:
         raise TypeError(f"cannot restore a {dtype_name} leaf")
+    if is_dtensor(like):
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(
+            t.to(device=like.device, dtype=like.dtype), like.device_mesh,
+            like.placements, src_data_rank=None)
     if isinstance(like, torch.Tensor):
         return t.to(device=like.device, dtype=like.dtype)
     return t
@@ -172,7 +186,7 @@ class AsyncCheckpointer:
     def save(self, step: int, tree):
         leaves, _ = _flatten(tree)
         # a copy, on the CPU too, that the next step cannot touch
-        host = [x.detach().to("cpu", copy=True)
+        host = [_whole(x).detach().to("cpu", copy=True)
                 if isinstance(x, torch.Tensor) else np.array(x, copy=True)
                 for x in leaves]
         host_tree = _unflatten(tree, iter(host))

@@ -20,8 +20,10 @@ reference's ``cross_sublayer`` does; the self-attention through
 enabled, each encoder and decoder layer rematerialised as ``cfg.remat``
 says (``transformer.remat``); the decoder's training body is causal
 self-attention, cross-attention over the encoder output on the flash
-kernel, and the MLP.  Not ported here: ``encdec_cache_axes`` (mesh
-metadata).
+kernel, and the MLP.  On a mesh (``mesh`` / ``rules`` on every entry) the
+sublayers take the decoder's sharding sites and the kernels run on local
+shards, as in ``models/transformer.py``; ``encdec_cache_axes`` names the
+decode cache's logical axes.
 """
 from __future__ import annotations
 
@@ -30,13 +32,14 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import replicating
 from repro_torch.models import layers as L
 from repro_torch.models.attention import attention
-from repro_torch.models.params import Spec, init_params
+from repro_torch.models.params import Spec, abstract_params, init_params
 from repro_torch.models.transformer import (_dt, _layer, _proj, _stack,
                                             attn_cache, attn_specs,
                                             attn_sublayer, mlp_specs_full,
-                                            mlp_sublayer, remat)
+                                            mlp_sublayer, remat, repeat_kv)
 
 
 def cross_attn_specs(cfg: ModelConfig) -> dict:
@@ -70,12 +73,12 @@ def _cross_kv(p, enc_out, cfg):
     dtype."""
     k, v = _proj(enc_out, p["w_k"]), _proj(enc_out, p["w_v"])
     if cfg.kv_repeat > 1:
-        k = k.repeat_interleave(cfg.kv_repeat, dim=2)
-        v = v.repeat_interleave(cfg.kv_repeat, dim=2)
+        k, v = repeat_kv(k, cfg.kv_repeat), repeat_kv(v, cfg.kv_repeat)
     return k, v
 
 
-def cross_sublayer(p, x, cfg, *, enc_out=None, kv=None):
+def cross_sublayer(p, x, cfg, *, enc_out=None, kv=None, mesh=None,
+                   rules=None):
     """Pre-norm cross-attention residual sublayer over ``kv`` (decode) or
     the k, v of ``enc_out``: non-causal, no window, no cap."""
     xn = L.rmsnorm(p["ln"], x, cfg.norm_eps)
@@ -87,6 +90,21 @@ def cross_sublayer(p, x, cfg, *, enc_out=None, kv=None):
     Hq, Dh, d = p["w_o"].shape
     return x + o.reshape(B, S, Hq * Dh) @ p["w_o"].reshape(Hq * Dh,
                                                            d).to(x.dtype)
+
+
+def encdec_cache_axes(cfg: ModelConfig) -> dict:
+    """Logical-axes tree mirroring ``EncDecLM.init_dec_cache``."""
+    self_ax = {"k": ("layers", "batch", "kv_seq", "act_kv_heads", None),
+               "v": ("layers", "batch", "kv_seq", "act_kv_heads", None),
+               "len": ("layers", "batch")}
+    if cfg.kv_cache_dtype == "int8":
+        self_ax["k_scale"] = ("layers", "batch", "kv_seq", "act_kv_heads",
+                              None)
+        self_ax["v_scale"] = ("layers", "batch", "kv_seq", "act_kv_heads",
+                              None)
+    return {"cross_k": ("layers", "batch", None, "act_kv_heads", None),
+            "cross_v": ("layers", "batch", None, "act_kv_heads", None),
+            "self": self_ax}
 
 
 @dataclasses.dataclass
@@ -101,44 +119,56 @@ class EncDecLM:
         one)."""
         return init_params(self.specs(), seed, dtype, device)
 
+    def abstract(self, dtype=torch.bfloat16, mesh=None, rules=None):
+        """The params as ``meta`` tensors (DTensors over meta shards on a
+        mesh): ``params.abstract_params``."""
+        return abstract_params(self.specs(), dtype, mesh, rules)
+
     # ---------------------------------------------------------- encoder ----
-    def encode(self, params, frames):
+    def encode(self, params, frames, *, mesh=None, rules=None):
         """frames (B, S_src, d) -> the normed encoder output (B, S_src, d)
         in the compute dtype (differentiable where grad is enabled)."""
         cfg = self.cfg
 
         def body(x, p):
-            x, _ = attn_sublayer(p["attn"], x, cfg, window=None, causal=False)
-            return mlp_sublayer(p["mlp"], x, cfg)
+            with replicating(mesh):          # remat's recomputation too
+                x, _ = attn_sublayer(p["attn"], x, cfg, window=None,
+                                     causal=False, mesh=mesh, rules=rules)
+                return mlp_sublayer(p["mlp"], x, cfg, mesh=mesh, rules=rules)
 
         body = remat(body, cfg.remat)
-        x = frames.to(_dt(cfg.compute_dtype))
-        for i in range(cfg.n_enc_layers):
-            x = body(x, _layer(params["enc_blocks"], i))
-        return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+        with replicating(mesh):
+            x = frames.to(_dt(cfg.compute_dtype))
+            for i in range(cfg.n_enc_layers):
+                x = body(x, _layer(params["enc_blocks"], i))
+            return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
     # ------------------------------------------------------------ train ----
-    def loss(self, params, batch):
+    def loss(self, params, batch, *, mesh=None, rules=None):
         """batch: frames (B, S_src, d), tokens (B, S) and labels (B, S)
         int, an optional 0/1 ``mask`` -> (ce, {"ce", "aux": 0})."""
         cfg = self.cfg
-        enc_out = self.encode(params, batch["frames"])
+        enc_out = self.encode(params, batch["frames"], mesh=mesh, rules=rules)
 
         def body(x, p):
-            x, _ = attn_sublayer(p["attn"], x, cfg, window=None)
-            x = cross_sublayer(p["cross"], x, cfg, enc_out=enc_out)
-            return mlp_sublayer(p["mlp"], x, cfg)
+            with replicating(mesh):
+                x, _ = attn_sublayer(p["attn"], x, cfg, window=None,
+                                     mesh=mesh, rules=rules)
+                x = cross_sublayer(p["cross"], x, cfg, enc_out=enc_out,
+                                   mesh=mesh, rules=rules)
+                return mlp_sublayer(p["mlp"], x, cfg, mesh=mesh, rules=rules)
 
         body = remat(body, cfg.remat)
-        x = L.embed_lookup(params["embed"]["embedding"], batch["tokens"],
-                           _dt(cfg.compute_dtype))
-        for i in range(cfg.n_dec_layers):
-            x = body(x, _layer(params["dec_blocks"], i))
-        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        logits = L.unembed_logits(params["lm_head"], x, cfg.vocab, None)
-        ce = L.cross_entropy(logits, batch["labels"], batch.get("mask"))
-        return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
-                                                 device=ce.device)}
+        with replicating(mesh):
+            x = L.embed_lookup(params["embed"]["embedding"],
+                               batch["tokens"], _dt(cfg.compute_dtype))
+            for i in range(cfg.n_dec_layers):
+                x = body(x, _layer(params["dec_blocks"], i))
+            x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+            logits = L.unembed_logits(params["lm_head"], x, cfg.vocab, None)
+            ce = L.cross_entropy(logits, batch["labels"], batch.get("mask"))
+            return ce, {"ce": ce, "aux": torch.zeros(
+                (), dtype=torch.float32, device=ce.device)}
 
     # ------------------------------------------------------------ decode ---
     @torch.no_grad()
@@ -156,22 +186,24 @@ class EncDecLM:
                                    enc_out.device)}
 
     @torch.no_grad()
-    def decode_step(self, params, cache, tokens):
+    def decode_step(self, params, cache, tokens, *, mesh=None, rules=None):
         """tokens (B, 1) -> (logits (B, 1, V), cache); the self cache is
         updated in place (one row a slot and layer, len + 1) and the cache
         returned."""
         cfg = self.cfg
-        x = L.embed_lookup(params["embed"]["embedding"], tokens,
-                           _dt(cfg.compute_dtype))
-        for i in range(cfg.n_dec_layers):
-            p = _layer(params["dec_blocks"], i)
-            x, nc = attn_sublayer(p["attn"], x, cfg, window=None,
-                                  cache=_layer(cache["self"], i),
-                                  mode="decode")
-            cache["self"]["len"][i] = nc["len"]
-            x = cross_sublayer(p["cross"], x, cfg,
-                               kv=(cache["cross_k"][i], cache["cross_v"][i]))
-            x = mlp_sublayer(p["mlp"], x, cfg)
-        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        return L.unembed_logits(params["lm_head"], x, cfg.vocab,
-                                None), cache
+        with replicating(mesh):
+            x = L.embed_lookup(params["embed"]["embedding"], tokens,
+                               _dt(cfg.compute_dtype))
+            for i in range(cfg.n_dec_layers):
+                p = _layer(params["dec_blocks"], i)
+                x, nc = attn_sublayer(p["attn"], x, cfg, window=None,
+                                      cache=_layer(cache["self"], i),
+                                      mode="decode", mesh=mesh, rules=rules)
+                cache["self"]["len"][i] = nc["len"]
+                x = cross_sublayer(p["cross"], x, cfg, kv=(
+                    cache["cross_k"][i], cache["cross_v"][i]), mesh=mesh,
+                    rules=rules)
+                x = mlp_sublayer(p["mlp"], x, cfg, mesh=mesh, rules=rules)
+            x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+            return L.unembed_logits(params["lm_head"], x, cfg.vocab,
+                                    None), cache

@@ -18,6 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import is_dtensor, on_shards
 from repro_torch.kernels import rmsnorm as rmsnorm_kernel
 from repro_torch.models.params import Spec
 
@@ -31,9 +32,15 @@ def padded_vocab(vocab: int) -> int:
 # ---------------------------------------------------------------- norms ----
 def rmsnorm(w: torch.Tensor, x: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
-    """x (..., D) normalised over D and scaled by w (D,), in x's dtype."""
-    return rmsnorm_kernel.rmsnorm(x.reshape(-1, x.shape[-1]), w,
-                                  eps).reshape(x.shape)
+    """x (..., D) normalised over D and scaled by w (D,), in x's dtype.  A
+    DTensor x (or w) runs the kernel on its local rows, D made whole."""
+    def norm(x, w):
+        return rmsnorm_kernel.rmsnorm(x.reshape(-1, x.shape[-1]), w,
+                                      eps).reshape(x.shape)
+    if not (is_dtensor(x) or is_dtensor(w)):
+        return norm(x, w)
+    rows = {i: i for i in range(x.ndim - 1)}
+    return on_shards(norm, [x, w], [rows, {}], rows)
 
 
 # ----------------------------------------------------------------- rope ----
@@ -72,8 +79,16 @@ def embed_specs(vocab: int, d: int) -> dict:
 
 def embed_lookup(emb: torch.Tensor, tokens: torch.Tensor,
                  compute_dtype) -> torch.Tensor:
-    # a gather; tokens lie below the true vocab <= padded rows
-    return emb[tokens.long()].to(compute_dtype)
+    """A gather of rows; tokens lie below the true vocab <= padded rows.  On
+    DTensors it runs on each rank's batch rows with the table whole
+    (``on_shards``), as plain indexing and its backward: DTensor's rules
+    for ``index`` / ``index_put`` differ across PyTorch releases."""
+    def look(tokens, emb):
+        return emb[tokens.long()].to(compute_dtype)
+    if not (is_dtensor(emb) or is_dtensor(tokens)):
+        return look(tokens, emb)
+    rows = {i: i for i in range(tokens.ndim)}
+    return on_shards(look, [tokens, emb], [rows, {}], rows)
 
 
 def unembed_logits(emb_or_w: torch.Tensor, x: torch.Tensor, true_vocab: int,
@@ -138,6 +153,18 @@ def mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- loss -----
+def _nll(logits, labels):
+    """-log softmax(logits)[label] per row, in float32."""
+    logits = logits.to(torch.float32)
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    logz = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+    V = logits.shape[-1]
+    labels = labels.long()
+    gold = torch.gather(logits, -1, labels.clamp(0, V - 1)[..., None])[..., 0]
+    gold = torch.where((labels >= 0) & (labels < V), gold, 0.0)
+    return logz - gold
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None) -> torch.Tensor:
     """logits (..., V), int labels (...), optional 0/1 mask (...) -> the
@@ -148,15 +175,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     device both give the same number (the other terms are exact zeros),
     and the gather builds no (..., V) mask.  A label outside [0, V), such
     as -100 padding, matches no column there, so its gold logit is 0 here
-    too (the gather reads a clamped index, then is zeroed)."""
-    logits = logits.to(torch.float32)
-    m = logits.detach().amax(dim=-1, keepdim=True)
-    logz = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
-    V = logits.shape[-1]
-    labels = labels.long()
-    gold = torch.gather(logits, -1, labels.clamp(0, V - 1)[..., None])[..., 0]
-    gold = torch.where((labels >= 0) & (labels < V), gold, 0.0)
-    nll = logz - gold
+    too (the gather reads a clamped index, then is zeroed).  On DTensors
+    each row's negative log-likelihood comes from the rank's rows with the
+    vocab whole (``on_shards``), and the mean is a DTensor reduction."""
+    if is_dtensor(logits) or is_dtensor(labels):
+        rows = {i: i for i in range(labels.ndim)}
+        nll = on_shards(_nll, [logits, labels], [rows, rows], rows)
+    else:
+        nll = _nll(logits, labels)
     if mask is not None:
         mask = mask.to(torch.float32)
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -12,13 +12,21 @@ products (batched matmuls over the experts).
 Ties: the top-k takes a stable descending sort of the probabilities, so of
 two equal probabilities the lower expert id ranks first, as
 ``lax.top_k`` ranks it (``torch.topk`` promises no order).  Equal logits
-give the reference's routing bit for bit.  ``mesh`` / ``rules`` (expert
-and tensor parallelism) wait for the distributed slice.
+give the reference's routing bit for bit.
+
+On a mesh (DTensors) the routing, the dispatch and the combine run on each
+rank's batch rows (``sharding.on_shards``): DTensor has no sharding rule
+for the sorts, the searchsorted and the scatters, and a row is routed on
+its own anyway.  The dispatched tokens and the expert outputs take the
+placements of ("batch", "act_experts", None, None), the reference's two
+constraints, and the expert products run on DTensors.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import (is_dtensor, on_shards,
+                                              shard_activation)
 from repro_torch.models.layers import _act
 from repro_torch.models.params import Spec
 
@@ -160,16 +168,24 @@ def combine(expert_out, idx, wgt, S: int):
     return out[0] if row else out
 
 
-def moe_block(p, x, cfg):
+def moe_block(p, x, cfg, mesh=None, rules=None):
     """x (B, S, d) -> (out (B, S, d) in x's dtype, the Switch load-balance
     aux loss (f32 scalar))."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     cap = _capacity(S, k, E, cfg.capacity_factor)
     logits = x @ p["w_router"].to(x.dtype)                  # (B, S, E)
-    probs = route_probs(logits)
 
-    ein, idx, wgt = route_and_dispatch(x, logits, k, cap, E, probs)
+    def route(x, logits):
+        probs = route_probs(logits)
+        return (*route_and_dispatch(x, logits, k, cap, E, probs), probs)
+    sharded = is_dtensor(x) or is_dtensor(logits)
+    b = {"b": 0}
+    ein, idx, wgt, probs = (on_shards(route, [x, logits], [b, b], [b] * 4)
+                            if sharded else route(x, logits))
+    if mesh is not None and rules is not None:
+        ein = shard_activation(ein, ("batch", "act_experts", None, None),
+                               rules, mesh)
     # the expert products as batched matmuls over E on (E, B*C, .) views
     ein = ein.transpose(0, 1).reshape(E, B * cap, d)
     act = _act(cfg.mlp_act)
@@ -177,13 +193,19 @@ def moe_block(p, x, cfg):
     h = h * torch.bmm(ein, p["w_up"].to(x.dtype))
     eout = torch.bmm(h, p["w_down"].to(x.dtype))
     eout = eout.view(E, B, cap, d).transpose(0, 1)          # (B, E, C, d)
+    if mesh is not None and rules is not None:
+        eout = shard_activation(eout, ("batch", "act_experts", None, None),
+                                rules, mesh)
 
-    out = combine(eout, idx, wgt, S)
+    out = (on_shards(lambda e, i, w: combine(e, i, w, S), [eout, idx, wgt],
+                     [b, b, b], b) if sharded else combine(eout, idx, wgt, S))
 
     # Switch-style load-balance aux loss
     me = probs.mean(dim=(0, 1))                             # (E,)
     top1 = torch.argmax(logits, dim=-1)
-    ce = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
-        0, top1.reshape(-1), torch.ones(B * S, device=x.device)) / (B * S)
+    # each expert's share of the rows' top-1 picks: integer counts (exact in
+    # float32), through ops DTensor shards
+    ce = (top1[..., None] == torch.arange(E, device=x.device)).to(
+        torch.float32).sum(dim=(0, 1)) / (B * S)
     aux = E * torch.sum(me * ce)
     return out.to(x.dtype), aux

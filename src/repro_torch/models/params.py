@@ -1,17 +1,22 @@
-"""Parameter spec DSL: one declaration drives init and the parameter count.
+"""Parameter spec DSL: one declaration drives init, abstract shapes, the
+parameter count and sharding.
 
 A model defines ``param_specs(cfg) -> nested dict of Spec`` (the JAX
 package's ``models/params.py``).  From that single source the port derives
 
-* ``init_params``  -- seeded tensors (one ``torch.Generator``, leaves in
-                      sorted-key order) on a given device and dtype,
+* ``init_params``      -- seeded tensors (one ``torch.Generator``, leaves in
+                          sorted-key order) on a given device and dtype,
+* ``abstract_params``  -- tensors without storage (``meta``, or fake ones
+                          under ``FakeTensorMode``), on a mesh DTensors over
+                          such local shards, for the dry-run,
 * ``param_count`` / ``param_bytes`` -- exact sizes,
+* ``tree_axes``        -- the logical axes, from which
+                          ``distributed.sharding`` lays params, moments and
+                          checkpoints out on a mesh (``shard_tree``),
 
 and ``params_from_numpy`` / ``params_to_numpy`` carry the JAX package's
 nested parameter dict (as numpy) into the port and back, so both packages
-can run the same weights.  Sharding specs, abstract shapes and logical
-axes wait for the distributed slice; ``axes`` is kept so the specs stay
-field for field the JAX package's.
+can run the same weights.
 """
 from __future__ import annotations
 
@@ -98,6 +103,43 @@ def init_params(specs, seed: int = 0, dtype=torch.float32, device=None):
             node = node.setdefault(k, {})
         node[path[-1]] = init_one(gen, spec, dtype, device)
     return out
+
+
+def abstract_params(specs, dtype=torch.bfloat16, mesh=None, rules=None,
+                    device="meta"):
+    """Each Spec as a tensor of its shape and dtype (a Spec's own dtype wins)
+    without storage: on ``device`` "meta", or a fake tensor where the call
+    runs under ``FakeTensorMode``.  With a mesh and rules, a DTensor with
+    the placements of ``sharding.named_sharding`` over a local shard of the
+    rank's shape."""
+    def one(s: Spec):
+        dt = _dtype(s.dtype or dtype)
+        if mesh is None or rules is None:
+            return torch.empty(s.shape, dtype=dt, device=device)
+        return abstract_dtensor(s.shape, dt, s.axes, mesh, rules, device)
+    return tree_map(one, specs)
+
+
+def abstract_dtensor(shape, dtype, axes, mesh, rules, device="meta"):
+    """A DTensor of ``shape`` laid out by its logical ``axes`` over an empty
+    local shard (``meta`` or fake)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import local_shape, named_sharding
+    _, placements = named_sharding(axes, shape, rules, mesh)
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.insert(0, acc)
+        acc *= n
+    return DTensor.from_local(
+        torch.empty(local_shape(shape, mesh, placements), dtype=dtype,
+                    device=device), mesh, placements, run_check=False,
+        shape=torch.Size(shape), stride=tuple(stride))
+
+
+def tree_axes(specs):
+    """Tree of logical-axes tuples (for optimizer-state sharding etc.)."""
+    return tree_map(lambda s: s.axes, specs)
 
 
 def param_count(specs) -> int:

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import is_dtensor, on_shards
 from repro_torch.kernels import ssd_scan as ssd_kernel
 from repro_torch.models import layers as L
 from repro_torch.models.params import Spec
@@ -52,7 +53,18 @@ def mamba_specs(cfg) -> dict:
 def causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
                           state: torch.Tensor | None = None):
     """x (B, S, C), w (K, C): depthwise causal conv + silu.  With state
-    (B, K-1, C) (decode) it is prepended; returns (y, new_state)."""
+    (B, K-1, C) (decode) it is prepended; returns (y, new_state).  DTensors
+    run it on their local batch rows and channels, S whole
+    (``on_shards``)."""
+    if any(is_dtensor(t) for t in (x, w, state)):
+        bc = {"b": 0, "c": 2}
+        return on_shards(_conv, [x, w, state],
+                         [bc, {"c": 1}, None if state is None else bc],
+                         [bc, bc])
+    return _conv(x, w, state)
+
+
+def _conv(x, w, state):
     S = x.shape[1]
     K = w.shape[0]
     if state is None:
@@ -98,6 +110,20 @@ def _gated_out(p, y, z, cfg, u_dtype):
     return y @ p["w_out"].to(u_dtype)
 
 
+def _scan(x, dt, A, Bm, Cm, D, chunk, h0):
+    """The chunk-scan kernel; DTensors run it on their local batch rows and
+    heads, S, P and N whole."""
+    def scan(x, dt, A, Bm, Cm, D, h0):
+        return ssd_kernel.ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk, h0=h0)
+    args = [x, dt, A, Bm, Cm, D, h0]
+    if not any(is_dtensor(t) for t in args):
+        return scan(*args)
+    bh, b = {"b": 0, "h": 2}, {"b": 0}
+    return on_shards(scan, args, [bh, bh, {"h": 0}, b, b, {"h": 0},
+                                  None if h0 is None else {"b": 0, "h": 1}],
+                     [bh, {"b": 0, "h": 1}])
+
+
 def mamba_block(p, u, cfg, cache=None):
     """u (B, S, d).  cache: None (a prefill from scratch) or a dict with
     'conv_x', 'conv_B', 'conv_C' (B, K-1, .) and 'state' (B, H, P, N) for a
@@ -119,8 +145,8 @@ def mamba_block(p, u, cfg, cache=None):
     h0 = c.get("state")
     if h0 is not None:                       # (B, H, P, N) -> (B, H, N, P)
         h0 = h0.float().transpose(-1, -2).contiguous()
-    y, h = ssd_kernel.ssd_scan(xh, dt, A, Bm, Cm, p["D"].float().contiguous(),
-                               chunk=cfg.ssm_chunk, h0=h0)
+    y, h = _scan(xh, dt, A, Bm, Cm, p["D"].float().contiguous(),
+                 cfg.ssm_chunk, h0)
     y = y[:, :S].reshape(B, S, cfg.d_inner)
     out = _gated_out(p, y, z, cfg, u.dtype)
     new_cache = {"conv_x": cs_x, "conv_B": cs_B, "conv_C": cs_C,

@@ -16,7 +16,7 @@ lives outside the stacked params; step i runs copy i % n_shared_blocks,
 with an attention cache of its own a step (the cache's ``"shared"`` entry).
 
 Pattern params are stacked along a leading 'layers' dim; the port walks
-that axis in a Python loop (no scan, no mesh).  ``forward`` (the training
+that axis in a Python loop (no scan).  ``forward`` (the training
 body) and ``loss`` differentiate: where grad is enabled and ``cfg.remat``
 is not ``"none"`` each pattern step runs under non-reentrant
 ``torch.utils.checkpoint`` (``"full"``: nothing of the step saved, the
@@ -52,6 +52,17 @@ kernels (``models/attention``, ``models/layers``, ``models/ssm``); the MoE
 routing and expert products are plain PyTorch (``models/moe``), as the
 reference leaves them to XLA.  The encoder-decoder family is
 ``models/encdec.py``.
+
+On a mesh (``mesh`` / ``rules`` on ``forward``, ``loss``, ``prefill`` and
+``decode_step``) the params are DTensors laid out by their logical axes
+and the model runs under DTensor's implicit replication
+(``sharding.replicating``).  Activations take the reference's placements
+at its sites (q, k, v; the MLP's output; each layer step's carry; the
+embedded input of ``forward``; the MoE's dispatched tokens and expert
+outputs), the kernels run on local shards (``sharding.on_shards``), and
+``decode_cache_axes`` lays the cache out: a decode step writes its row
+and a prefill its rows into each rank's local shards, in place.  A 1 x 1
+mesh changes no number.
 """
 from __future__ import annotations
 
@@ -64,11 +75,15 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (is_dtensor, local_box,
+                                              local_like, replicating,
+                                              shard_activation, shard_tree)
 from repro_torch.models import layers as L
 from repro_torch.models import moe
 from repro_torch.models import ssm
 from repro_torch.models.attention import attention, decode_attention
-from repro_torch.models.params import Spec, init_params, tree_map
+from repro_torch.models.params import (Spec, abstract_params, init_params,
+                                      tree_map)
 
 KV_CACHE_DTYPE = torch.bfloat16
 
@@ -174,20 +189,35 @@ def _qkv(p, x, cfg):
         k = k + p["b_k"].to(x.dtype)
         v = v + p["b_v"].to(x.dtype)
     if cfg.kv_repeat > 1:
-        k = k.repeat_interleave(cfg.kv_repeat, dim=2)
-        v = v.repeat_interleave(cfg.kv_repeat, dim=2)
+        k, v = repeat_kv(k, cfg.kv_repeat), repeat_kv(v, cfg.kv_repeat)
     return q, k, v
 
 
+def repeat_kv(k, r: int):
+    """k (B, S, H, D) -> (B, S, H r, D), each head r times in a row
+    (``repeat_interleave``'s copies), through expand and a reshape, which
+    DTensor shards on every PyTorch release."""
+    B, S, H, D = k.shape
+    return k[:, :, :, None].expand(B, S, H, r, D).reshape(B, S, H * r, D)
+
+
 def attn_sublayer(p, x, cfg, *, window, q_offset=0, cache=None, mode="train",
-                  causal=True):
+                  causal=True, mesh=None, rules=None):
     """Pre-norm attention residual sublayer.  cache: None (prefill) or one
     layer's {'k', 'v', 'len'} for a decode append (written in place).
     Returns (x_out, new_cache); in prefill mode new_cache = {'k', 'v'}
-    (post-rope) for the decode cache."""
+    (post-rope) for the decode cache.  On a mesh q, k and v take the
+    placements of their logical axes (heads on 'model')."""
     B, S = x.shape[:2]
     xn = L.rmsnorm(p["ln"], x, cfg.norm_eps)
     q, k, v = _qkv(p, xn, cfg)
+    if mesh is not None:
+        q = shard_activation(q, ("batch", None, "act_heads", None), rules,
+                             mesh)
+        k = shard_activation(k, ("batch", None, "act_kv_heads", None), rules,
+                             mesh)
+        v = shard_activation(v, ("batch", None, "act_kv_heads", None), rules,
+                             mesh)
     new_cache = None
     if cache is None:
         positions = q_offset + torch.arange(S, device=x.device)
@@ -220,12 +250,30 @@ def _row_update(buf, val, pos):
     """buf (B, S, H, D) <- val (B, T, H, D) written in place at per-row
     positions pos (B,), each clamped to [0, S - T] as
     ``lax.dynamic_update_slice`` clamps it: a slot decoding past the cache
-    end rewrites its last row."""
+    end rewrites its last row.  A DTensor buf is written on its local
+    shard, in place: val and pos are laid out as its slots and heads
+    first, and where the sequence is sharded (one row a slot, T = 1) a
+    slot whose row lies on another rank rewrites one of its own rows with
+    the value it holds."""
     S, T = buf.shape[1], val.shape[1]
     start = pos.long().clamp(0, S - T)
+    n_seq = S
+    if is_dtensor(buf):
+        (_, off, _, _), (_, n_seq, _, _) = local_box(buf)
+        val = local_like(val, buf, {0: 0, 2: 2, 3: 3})
+        start = local_like(start, buf, {0: 0}) - off
+        buf = buf.to_local()
     idx = start[:, None] + torch.arange(T, device=buf.device)[None, :]
     rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
-    buf[rows, idx] = val.to(buf.dtype)
+    val = val.to(buf.dtype)
+    if n_seq < S:
+        if T != 1:
+            raise ValueError(f"a sequence-sharded cache takes one row a "
+                             f"slot, not {T}")
+        mine = (idx >= 0) & (idx < n_seq)
+        idx = idx.clamp(0, n_seq - 1)
+        val = torch.where(mine[:, :, None, None], val, buf[rows, idx])
+    buf[rows, idx] = val
 
 
 def _quant_kv(k):
@@ -259,22 +307,25 @@ def _cache_append(cache, k, v, cfg):
             _dequant_kv(cache["v"], cache["v_scale"], v.dtype))
 
 
-def mlp_sublayer(p, x, cfg):
+def mlp_sublayer(p, x, cfg, mesh=None, rules=None):
     xn = L.rmsnorm(p["ln"], x, cfg.norm_eps)
     h = L.mlp(p, xn, cfg.mlp_act)
     if cfg.post_norm:
         h = L.rmsnorm(p["ln_post"], h, cfg.norm_eps)
+    if mesh is not None:
+        h = shard_activation(h, ("batch", None, "embed"), rules, mesh)
     return x + h
 
 
 # ============================================================ block step ===
-def make_block_step(cfg: ModelConfig, mode: str, shared_params=None,
-                    embed0=None):
+def make_block_step(cfg: ModelConfig, mode: str, mesh=None, rules=None,
+                    shared_params=None, embed0=None):
     """Returns step(carry, step_params, step_idx, cache_slice) -> (carry,
     new_cache_slice, aux).  carry = (x, q_offset); mode: 'train' |
     'prefill' | 'decode'.  The hybrid family's shared blocks
     (``shared_params``, stacked) read ``embed0``: the prompt's embedding in
-    a prefill, the new token's in a decode step."""
+    a prefill, the new token's in a decode step.  On a mesh the carry takes
+    the placements of ("batch", "resid_seq", "embed")."""
     pattern, _ = _pattern(cfg)
     window_for = {"local": cfg.sliding_window, "global": None,
                   "block": cfg.sliding_window}
@@ -282,6 +333,9 @@ def make_block_step(cfg: ModelConfig, mode: str, shared_params=None,
     def step(carry, step_params, step_idx, cache_slice):
         x, q_offset = carry
         x = L.grad_barrier(x)
+        if mesh is not None:
+            x = shard_activation(x, ("batch", "resid_seq", "embed"), rules,
+                                 mesh)
         aux = 0.0
         new_cache = {}
         for i, kind in enumerate(pattern):
@@ -297,24 +351,27 @@ def make_block_step(cfg: ModelConfig, mode: str, shared_params=None,
                 new_cache[ckey] = nc
                 continue
             x, nc = attn_sublayer(p["attn"], x, cfg, window=window_for[kind],
-                                  q_offset=q_offset, cache=csl, mode=mode)
+                                  q_offset=q_offset, cache=csl, mode=mode,
+                                  mesh=mesh, rules=rules)
             if nc is not None:
                 new_cache[ckey] = nc
             if cfg.family == "moe":
                 xn = L.rmsnorm(p["ln_moe"], x, cfg.norm_eps)
-                dx, a = moe.moe_block(p["moe"], xn, cfg)
+                dx, a = moe.moe_block(p["moe"], xn, cfg, mesh=mesh,
+                                      rules=rules)
                 x = x + dx
                 aux = aux + a
             else:
-                x = mlp_sublayer(p["mlp"], x, cfg)
+                x = mlp_sublayer(p["mlp"], x, cfg, mesh=mesh, rules=rules)
         if cfg.family == "hybrid":
             sel = _layer(shared_params,
                          step_idx % max(cfg.n_shared_blocks, 1))
             xi = torch.cat([x, embed0], dim=-1) @ sel["w_in"].to(x.dtype)
             csl = cache_slice.get("shared") if mode == "decode" else None
             h, nc = attn_sublayer(sel["attn"], xi, cfg, window=None,
-                                  q_offset=q_offset, cache=csl, mode=mode)
-            h = mlp_sublayer(sel["mlp"], h, cfg)
+                                  q_offset=q_offset, cache=csl, mode=mode,
+                                  mesh=mesh, rules=rules)
+            h = mlp_sublayer(sel["mlp"], h, cfg, mesh=mesh, rules=rules)
             x = x + (h - xi)      # residual contribution of the shared block
             if nc is not None:
                 new_cache["shared"] = nc
@@ -409,42 +466,103 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
+def _put_slots(dst, a, rows, seq=None):
+    """dst (n, slots, ...) <- a (n, len(rows), ...), or the number ``a``,
+    in place at the slots ``rows`` (at their rows [0, seq) where ``seq``
+    is given), rounded to dst's dtype.  A DTensor dst is written on its
+    local shard: the slots and rows this rank holds, a laid out as dst on
+    its other dims first."""
+    js, rows = list(range(len(rows))), [int(r) for r in rows]
+    lo, hi = 0, seq
+    if is_dtensor(dst):
+        off, size = local_box(dst)
+        if isinstance(a, torch.Tensor):
+            a = local_like(a, dst, {d: d for d in range(dst.ndim)
+                                    if d != 1 and (seq is None or d != 2)})
+        dst = dst.to_local()
+        mine = [(j, r - off[1]) for j, r in zip(js, rows)
+                if 0 <= r - off[1] < size[1]]
+        js, rows = [j for j, _ in mine], [r for _, r in mine]
+        if seq is not None:
+            lo, hi = off[2], min(seq, off[2] + size[2])
+    if not rows or (seq is not None and hi <= lo):
+        return
+    if isinstance(a, torch.Tensor):
+        a = a[:, js].to(dst.dtype)
+        if seq is not None:
+            a = a[:, :, lo:hi]
+    if seq is None:
+        dst[:, rows] = a
+    else:
+        dst[:, rows, :hi - lo] = a
+
+
 def _merge_prefill_cache(cfg, B, S, max_len, raw, *, cache=None, rows=None,
-                         device="cpu"):
+                         device="cpu", mesh=None, rules=None):
     """raw: per pattern entry, stacked over n_steps, either attention's
     {'k', 'v'} (n_steps, B, S, H, D) or mamba's conv and SSM states.
     Writes them, rounded to the cache's dtypes (k and v of an int8 cache as
     codes and scales), into the slots ``rows`` of ``cache`` (in place; a
-    new cache of B slots when None): k and v into rows [0, S), with those
-    slots' len set to S, and the mamba states whole,
-    replacing what the slots held.  The conv states are rounded through
-    bfloat16 on the way, as the reference rounds them into the bfloat16
-    cache of its ``init_ssm_cache`` (its decode steps then carry them in
-    the compute dtype).  Rows past S keep what they held: a slot never
-    reads a row at or past its len."""
+    new cache of B slots when None, on a mesh laid out by
+    ``decode_cache_axes``): k and v into rows [0, S), with those slots'
+    len set to S, and the mamba states whole, replacing what the slots
+    held.  The conv states are rounded through bfloat16 on the way, as
+    the reference rounds them into the bfloat16 cache of its
+    ``init_ssm_cache`` (its decode steps then carry them in the compute
+    dtype).  Rows past S keep what they held: a slot never reads a row at
+    or past its len."""
     if cache is None:
-        cache = init_decode_cache(cfg, B, max_len, prefilled=S, device=device)
-        rows = torch.arange(B, device=device)
-    rows = torch.as_tensor(rows, dtype=torch.long, device=device)
+        cache = shard_tree(init_decode_cache(cfg, B, max_len, prefilled=S,
+                                             device=device),
+                           decode_cache_axes(cfg), rules, mesh)
+        rows = range(B)
     for key, src in raw.items():
         dst = cache[key]
         if "state" in src:
             for f, a in src.items():
-                if f != "state":
-                    a = a.to(KV_CACHE_DTYPE)
-                dst[f][:, rows] = a.to(dst[f].dtype)
+                _put_slots(dst[f], a if f == "state" else
+                           a.to(KV_CACHE_DTYPE), rows)
             continue
         if S > dst["k"].shape[2]:
             raise ValueError(f"a {S}-token prompt does not fit the cache")
         for f in ("k", "v"):
             if cfg.kv_cache_dtype == "int8":
                 q, sc = _quant_kv(src[f])
-                dst[f][:, rows, :S] = q
-                dst[f + "_scale"][:, rows, :S] = sc
+                _put_slots(dst[f], q, rows, S)
+                _put_slots(dst[f + "_scale"], sc, rows, S)
             else:
-                dst[f][:, rows, :S] = src[f].to(KV_CACHE_DTYPE)
-        dst["len"][:, rows] = S
+                _put_slots(dst[f], src[f].to(KV_CACHE_DTYPE), rows, S)
+        _put_slots(dst["len"], S, rows)
     return cache
+
+
+def decode_cache_axes(cfg: ModelConfig) -> dict:
+    """Logical-axes tree mirroring init_decode_cache (for sharding specs)."""
+    pattern, _ = _pattern(cfg)
+
+    def attn_axes():
+        ax = {"k": ("layers", "batch", "kv_seq", "act_kv_heads", None),
+              "v": ("layers", "batch", "kv_seq", "act_kv_heads", None),
+              "len": ("layers", "batch")}
+        if cfg.kv_cache_dtype == "int8":
+            ax["k_scale"] = ("layers", "batch", "kv_seq", "act_kv_heads",
+                             None)
+            ax["v_scale"] = ("layers", "batch", "kv_seq", "act_kv_heads",
+                             None)
+        return ax
+
+    ssm_axes = {
+        "conv_x": ("layers", "batch", None, "act_mlp"),
+        "conv_B": ("layers", "batch", None, None),
+        "conv_C": ("layers", "batch", None, None),
+        "state": ("layers", "batch", "act_heads", None, None),
+    }
+    axes: dict[str, Any] = {}
+    for i, kind in enumerate(pattern):
+        axes[f"s{i}"] = dict(ssm_axes) if kind == "mamba" else attn_axes()
+    if cfg.family == "hybrid":
+        axes["shared"] = attn_axes()
+    return axes
 
 
 # ========================================================== full model =====
@@ -460,6 +578,11 @@ class DecoderLM:
         """Seeded params on ``device`` (None: the card; raises without
         one)."""
         return init_params(self.specs(), seed, dtype, device)
+
+    def abstract(self, dtype=torch.bfloat16, mesh=None, rules=None):
+        """The params as ``meta`` tensors (DTensors over meta shards on a
+        mesh): ``params.abstract_params``."""
+        return abstract_params(self.specs(), dtype, mesh, rules)
 
     # ---- embedding frontend
     def _embed_inputs(self, params, tokens, extra_embeds, cdt):
@@ -480,20 +603,23 @@ class DecoderLM:
                 else params["lm_head"])
         return L.unembed_logits(head, x, cfg.vocab, cfg.final_softcap)
 
-    def _run(self, params, x, mode, q_offset=0, cache=None):
+    def _run(self, params, x, mode, q_offset=0, cache=None, mesh=None,
+             rules=None):
         """The layer loop; returns the final hidden state, in prefill the
         stacked raw per-layer k/v and mamba states, and the aux loss summed
         over the layers (0.0 but for the MoE family).  In decode, the new
         lengths and mamba states go back into ``cache`` (k and v rows were
         written in place by the attention).  ``x`` is the embedded input,
         which the hybrid family's shared blocks read at every step."""
-        step = make_block_step(self.cfg, mode,
+        step = make_block_step(self.cfg, mode, mesh, rules,
                                shared_params=params.get("shared"), embed0=x)
         n_steps = _pattern(self.cfg)[1]
         carry, raws, aux = (x, q_offset), [], 0.0
         if mode == "train":
-            body = remat(lambda x, sp, i: step((x, q_offset), sp, i, None),
-                         self.cfg.remat)
+            def layer(x, sp, i):
+                with replicating(mesh):      # remat's recomputation too
+                    return step((x, q_offset), sp, i, None)
+            body = remat(layer, self.cfg.remat)
             for i in range(n_steps):
                 carry, _, a = body(carry[0], _layer(params["blocks"], i), i)
                 aux = aux + a
@@ -516,55 +642,72 @@ class DecoderLM:
         return carry[0], raws, aux
 
     # ---- forward (the training body)
-    def forward(self, params, tokens, *, extra_embeds=None, q_offset=0):
+    def forward(self, params, tokens, *, extra_embeds=None, q_offset=0,
+                mesh=None, rules=None):
         """tokens (B, S) and an optional prefix ``extra_embeds`` (B, P, d)
         -> (logits (B, P + S, V), aux): the MoE family's load-balance loss
         summed over the layers (f32), 0 for the others.  Differentiable
         where grad is enabled, each layer step rematerialised as
-        ``cfg.remat`` says."""
+        ``cfg.remat`` says.  On a ``mesh`` (with ``rules``) the params are
+        DTensors and the activations take their logical axes' placements."""
+        with replicating(mesh):
+            return self._forward(params, tokens, extra_embeds, q_offset,
+                                 mesh, rules)
+
+    def _forward(self, params, tokens, extra_embeds, q_offset, mesh, rules):
         x = self._embed_inputs(params, tokens, extra_embeds,
                                _dt(self.cfg.compute_dtype))
-        x, _, aux = self._run(params, x, "train", q_offset)
+        if mesh is not None:
+            x = shard_activation(x, ("batch", "seq", "embed"), rules, mesh)
+        x, _, aux = self._run(params, x, "train", q_offset, mesh=mesh,
+                              rules=rules)
         return self._head(params, x), torch.as_tensor(
             aux, dtype=torch.float32, device=x.device)
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, *, mesh=None, rules=None):
         """batch: tokens (B, S) and labels (B, S) int, an optional 0/1
         ``mask`` and an optional prefix ``extra_embeds`` (B, P, d) (the
         logits of its positions are left out) -> (ce + 0.01 aux, {"ce",
         "aux"})."""
-        logits, aux = self.forward(params, batch["tokens"],
-                                   extra_embeds=batch.get("extra_embeds"))
-        if batch.get("extra_embeds") is not None:
-            logits = logits[:, -batch["tokens"].shape[1]:]
-        ce = L.cross_entropy(logits, batch["labels"], batch.get("mask"))
-        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+        with replicating(mesh):
+            logits, aux = self._forward(params, batch["tokens"],
+                                        batch.get("extra_embeds"), 0, mesh,
+                                        rules)
+            if batch.get("extra_embeds") is not None:
+                logits = logits[:, -batch["tokens"].shape[1]:]
+            ce = L.cross_entropy(logits, batch["labels"], batch.get("mask"))
+            return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     # ---- prefill: forward pass that also fills a decode cache
     @torch.no_grad()
     def prefill(self, params, tokens, *, max_len=None, extra_embeds=None,
-                cache=None, rows=None):
+                cache=None, rows=None, mesh=None, rules=None):
         """tokens (B, S) and an optional prefix ``extra_embeds`` (B, P, d)
         -> (logits of the last position (B, 1, V), cache): P + S rows of
         k/v (or the mamba states after them).  With ``cache`` and ``rows``
         (B slot indices) they go into those slots of that cache, in place;
         otherwise into a new cache of B slots and ``max_len`` (default
-        P + S) positions."""
-        x = self._embed_inputs(params, tokens, extra_embeds,
-                               _dt(self.cfg.compute_dtype))
-        B, S = x.shape[:2]
-        x, raw, _ = self._run(params, x, "prefill")
-        cache = _merge_prefill_cache(self.cfg, B, S, max_len or S, raw,
-                                     cache=cache, rows=rows, device=x.device)
-        return self._head(params, x[:, -1:]), cache
+        P + S) positions (on a mesh laid out by ``decode_cache_axes``)."""
+        with replicating(mesh):
+            x = self._embed_inputs(params, tokens, extra_embeds,
+                                   _dt(self.cfg.compute_dtype))
+            B, S = x.shape[:2]
+            x, raw, _ = self._run(params, x, "prefill", mesh=mesh,
+                                  rules=rules)
+            cache = _merge_prefill_cache(
+                self.cfg, B, S, max_len or S, raw, cache=cache, rows=rows,
+                device=x.device, mesh=mesh, rules=rules)
+            return self._head(params, x[:, -1:]), cache
 
     # ---- decode
     @torch.no_grad()
-    def decode_step(self, params, cache, tokens):
+    def decode_step(self, params, cache, tokens, *, mesh=None, rules=None):
         """tokens (B, 1) -> (logits (B, 1, V), cache); the cache is updated
         in place (one row a slot and layer, len + 1; each mamba layer's
         states) and returned."""
-        x = self._embed_inputs(params, tokens, None,
-                               _dt(self.cfg.compute_dtype))
-        x, _, _ = self._run(params, x, "decode", cache=cache)
-        return self._head(params, x), cache
+        with replicating(mesh):
+            x = self._embed_inputs(params, tokens, None,
+                                   _dt(self.cfg.compute_dtype))
+            x, _, _ = self._run(params, x, "decode", cache=cache, mesh=mesh,
+                                rules=rules)
+            return self._head(params, x), cache

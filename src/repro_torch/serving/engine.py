@@ -11,7 +11,10 @@ whole cache.  Inactive slots keep decoding, as in the reference; their
 length grows past ``max_len`` and their writes clamp to the last row.
 
 ``device=None`` means the card (and raises without one); tests pass
-``device="cpu"``, where every kernel runs its plain version.
+``device="cpu"``, where every kernel runs its plain version.  ``mesh`` /
+``rules`` pass on to the model's prefill and decode steps; the cache is
+laid out by ``decode_cache_axes`` and ``params`` are expected as DTensors
+on that mesh.
 """
 from __future__ import annotations
 
@@ -23,7 +26,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.registry import build_model
-from repro_torch.models.transformer import init_decode_cache
+from repro_torch.distributed.sharding import is_dtensor, shard_tree
+from repro_torch.models.transformer import (decode_cache_axes,
+                                            init_decode_cache)
 
 
 @dataclasses.dataclass
@@ -40,7 +45,7 @@ class SlotState:
 class DecodeEngine:
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 8,
                  max_len: int = 512, temperature=0.0, seed: int = 0,
-                 device=None):
+                 mesh=None, rules=None, device=None):
         """``params``: the model's nested dict of tensors, already on
         ``device``."""
         if cfg.family == "encdec":
@@ -56,7 +61,10 @@ class DecodeEngine:
         self.model = build_model(cfg)
         self.temperature = temperature
         self.rng = np.random.default_rng(seed)
-        self.cache = init_decode_cache(cfg, slots, max_len, device=self.device)
+        self.mesh, self.rules = mesh, rules
+        self.cache = shard_tree(
+            init_decode_cache(cfg, slots, max_len, device=self.device),
+            decode_cache_axes(cfg), rules, mesh)
         self.slot_state = [SlotState() for _ in range(slots)]
         self.tokens = torch.zeros((slots, 1), dtype=torch.long,
                                   device=self.device)
@@ -79,7 +87,8 @@ class DecodeEngine:
         toks = torch.as_tensor(np.asarray(prompt, np.int64),
                                device=self.device)[None]
         logits, _ = self.model.prefill(self.params, toks, cache=self.cache,
-                                       rows=[slot])
+                                       rows=[slot], mesh=self.mesh,
+                                       rules=self.rules)
         first = self._select_token(logits[:, -1])[0]
         self.tokens[slot, 0] = int(first)
         st = self.slot_state[slot]
@@ -89,6 +98,8 @@ class DecodeEngine:
         return slot
 
     def _select_token(self, logits):
+        if is_dtensor(logits):
+            logits = logits.full_tensor()
         if self.temperature <= 0:
             return torch.argmax(logits, dim=-1).cpu().numpy()
         g = -np.log(-np.log(self.rng.uniform(size=tuple(logits.shape))))
@@ -101,8 +112,9 @@ class DecodeEngine:
         (request_id, generated_tokens)."""
         if all(not s.active for s in self.slot_state):
             return []
-        logits, self.cache = self.model.decode_step(self.params, self.cache,
-                                                    self.tokens)
+        logits, self.cache = self.model.decode_step(
+            self.params, self.cache, self.tokens, mesh=self.mesh,
+            rules=self.rules)
         nxt = self._select_token(logits[:, 0])
         self.tokens = torch.as_tensor(nxt, dtype=torch.long,
                                       device=self.device)[:, None]

@@ -25,7 +25,16 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
 print(len(names), bad)
+print(" ".join(names))
 """
+
+# the distribution layer and the cost model: each must be among the
+# modules the probe imports
+DISTRIBUTION_MODULES = (
+    "repro_torch.distributed.sharding", "repro_torch.distributed.collectives",
+    "repro_torch.distributed.elastic", "repro_torch.launch.mesh",
+    "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+    "repro_torch.launch.steps", "repro_torch.analysis.costs")
 
 
 def test_import_pulls_in_no_jax_and_no_repro():
@@ -34,9 +43,11 @@ def test_import_pulls_in_no_jax_and_no_repro():
     r = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
                        text=True, timeout=300, env=env)
     assert r.returncode == 0, r.stderr[-3000:]
-    n, bad = r.stdout.split(" ", 1)
+    first, names = r.stdout.split("\n", 1)
+    n, bad = first.split(" ", 1)
     assert int(n) >= 20, r.stdout            # every submodule was imported
     assert bad.strip() == "[]", bad
+    assert set(DISTRIBUTION_MODULES) <= set(names.split()), names
 
 
 def _imported_modules(path: Path) -> list[str]:

@@ -301,8 +301,8 @@ def test_only_the_injected_failure_is_recovered_from(tmp_path,
     make = tloop.make_train_step
     calls = []
 
-    def failing_make(cfg, opt_cfg=None):
-        model, opt_cfg, step_fn = make(cfg, opt_cfg)
+    def failing_make(cfg, opt_cfg=None, **mesh_kw):
+        model, opt_cfg, step_fn = make(cfg, opt_cfg, **mesh_kw)
 
         def step(params, opt_state, batch):
             calls.append(1)
