@@ -60,6 +60,7 @@ from concurrent.futures import TimeoutError as FuturesTimeout
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.evaluator import EvalResult
 from repro_torch.core.forecaster import (LSTMForecaster,
                                          lstm_stack_signature, stack_params,
@@ -1164,6 +1165,10 @@ class ShardedControlPlane:
         whose staleness clocks must not advance.  Rows addressed to a
         crashed shard are buffered so the failover tick can serve them
         reactively (the shard's own window died with the process)."""
+        with tracing.span("plane.observe", key=t):
+            self._observe_batch(t, values, fresh)
+
+    def _observe_batch(self, t: float, values, fresh):
         if isinstance(values, dict):
             rows = np.asarray([values[n] for n in self._names], np.float64)
         else:
@@ -1201,10 +1206,20 @@ class ShardedControlPlane:
         if self._pending is not None:
             raise RuntimeError("previous tick not finished "
                                "(finish_tick barrier missing)")
+        # the tick's span, to finish_tick's return: its start is the
+        # forecast-deadline anchor
+        tick = tracing.span("plane.tick", key=t).open()
+        try:
+            self._begin_tick(t, max_replicas, current_replicas, tick)
+        except BaseException:
+            tick.discard()
+            raise
+        return self
+
+    def _begin_tick(self, t, max_replicas, current_replicas, tick):
         go_async = self._pool is not None and self.async_ticks
         stall = self._stall_s       # one-shot forecaster stall (chaos)
         self._stall_s = 0.0
-        wall0 = time.monotonic()    # forecast-deadline anchor
         if self._engine is not None:
             # device mode: refresh the device weight caches iff the refit
             # epoch moved (between ticks, so no in-flight reader), then
@@ -1219,24 +1234,24 @@ class ShardedControlPlane:
             stale = None
             if res is not None and np.isfinite(res.stale_ttl_s):
                 stale = (t - self._dev_last_seen) > res.stale_ttl_s
-            fut = (self._pool.submit(self._stall_then, stall,
+            fut = (self._pool.submit(self._stall_then, stall, t,
                                      self._engine.forecast, ring_ref,
                                      counts, stale)
                    if go_async
                    else _Immediate(self._stall_then(
-                       stall, self._engine.forecast, ring_ref, counts,
+                       stall, t, self._engine.forecast, ring_ref, counts,
                        stale)))
             self._pending = (t, max_replicas, current_replicas, state,
-                             [fut], [stale], wall0)
-            return self
+                             [fut], [stale], tick)
+            return
         states = [shard.snapshot() for shard in self.shards]
         stales = self._stale_masks(t)
         if self._fused:
             preps = self._prepare_fused(states, stales)
-            fut = (self._pool.submit(self._stall_then, stall,
+            fut = (self._pool.submit(self._stall_then, stall, t,
                                      self._forecast_fused, preps)
                    if go_async
-                   else _Immediate(self._stall_then(stall,
+                   else _Immediate(self._stall_then(stall, t,
                                                     self._forecast_fused,
                                                     preps)))
             futs = [fut]
@@ -1247,15 +1262,14 @@ class ShardedControlPlane:
                     futs.append(_Immediate(None))   # served reactively
                     continue
                 stale_s = None if stales is None else stales[si]
-                futs.append(self._pool.submit(self._stall_then, stall,
+                futs.append(self._pool.submit(self._stall_then, stall, t,
                                               shard.forecast, state,
                                               stale_s)
                             if go_async
                             else _Immediate(self._stall_then(
-                                stall, shard.forecast, state, stale_s)))
+                                stall, t, shard.forecast, state, stale_s)))
         self._pending = (t, max_replicas, current_replicas, states, futs,
-                         stales, wall0)
-        return self
+                         stales, tick)
 
     def finish_tick(self) -> TickResult:
         """The actuation barrier: joins the in-flight forecasts (bounded by
@@ -1265,8 +1279,14 @@ class ShardedControlPlane:
         held) — and installs any finished refit."""
         if self._pending is None:
             raise RuntimeError("no tick in flight (call begin_tick first)")
-        t, max_r, cur_r, states, futs, stales, wall0 = self._pending
-        self._pending = None
+        pending, self._pending = self._pending, None
+        try:
+            return self._finish_tick(*pending)
+        finally:
+            pending[-1].close()
+
+    def _finish_tick(self, t, max_r, cur_r, states, futs, stales, tick):
+        wall0 = tick.start_ns
         res = self._res
         deadline = (res.forecast_deadline_s if res is not None
                     else float("inf"))
@@ -1286,15 +1306,17 @@ class ShardedControlPlane:
                 means_full, cand_full = out
             stale_full = stales[0]
             per_shard = []
-            for (shard, _), idx in zip(self._shard_rows,
-                                       self._shard_cuts):
-                state_s = (last[idx][:, None, :], counts[idx])
-                preds_s = (means_full[idx], None, False, cand_full[idx])
-                rec = shard.decide(
-                    t, state_s, preds_s, _bound_slice(max_r, idx),
-                    _bound_slice(cur_r, idx),
-                    stale=None if stale_full is None else stale_full[idx])
-                per_shard.append((shard, rec))
+            with tracing.span("plane.decide", key=t):
+                for (shard, _), idx in zip(self._shard_rows,
+                                           self._shard_cuts):
+                    state_s = (last[idx][:, None, :], counts[idx])
+                    preds_s = (means_full[idx], None, False, cand_full[idx])
+                    rec = shard.decide(
+                        t, state_s, preds_s, _bound_slice(max_r, idx),
+                        _bound_slice(cur_r, idx),
+                        stale=None if stale_full is None
+                        else stale_full[idx])
+                    per_shard.append((shard, rec))
             self._ticks_done += 1
             if res is not None:
                 self._tick_epilogue()
@@ -1318,22 +1340,24 @@ class ShardedControlPlane:
                 preds_list.append(out)
         per_shard = []
         deadline_reactive = 0
-        for si, ((shard, idx), state) in enumerate(zip(self._shard_rows,
-                                                       states)):
-            if self._crash_left[si] > 0:
-                per_shard.append(
-                    (shard, self._crash_decide(si, shard, t, max_r, cur_r,
-                                               idx)))
-                continue
-            preds = preds_list[si]
-            if preds is None:   # forecast missed the deadline -> reactive
-                preds = self._reactive_preds_for(shard)
-                deadline_reactive += len(shard.names)
-            rec = shard.decide(t, state, preds,
-                               _bound_slice(max_r, idx),
-                               _bound_slice(cur_r, idx),
-                               stale=None if stales is None else stales[si])
-            per_shard.append((shard, rec))
+        with tracing.span("plane.decide", key=t):
+            for si, ((shard, idx), state) in enumerate(
+                    zip(self._shard_rows, states)):
+                if self._crash_left[si] > 0:
+                    per_shard.append(
+                        (shard, self._crash_decide(si, shard, t, max_r,
+                                                   cur_r, idx)))
+                    continue
+                preds = preds_list[si]
+                if preds is None:   # forecast missed the deadline
+                    preds = self._reactive_preds_for(shard)
+                    deadline_reactive += len(shard.names)
+                rec = shard.decide(t, state, preds,
+                                   _bound_slice(max_r, idx),
+                                   _bound_slice(cur_r, idx),
+                                   stale=None if stales is None
+                                   else stales[si])
+                per_shard.append((shard, rec))
         if deadline_hit:
             self._deg["deadline_skips"] += 1
             self._deg["deadline_reactive"] += deadline_reactive
@@ -1354,27 +1378,31 @@ class ShardedControlPlane:
         return [shard.stale_mask(t) for shard in self.shards]
 
     @staticmethod
-    def _stall_then(stall: float, fn, *args):
-        """Run ``fn`` after an injected forecaster stall (chaos STALL
-        events model a hiccuping inference service; zero stall is the
-        permanent no-op fast path)."""
+    def _stall_then(stall: float, t: float, fn, *args):
+        """Run ``fn``, the forecast of tick ``t`` (a ``plane.forecast``
+        span), after an injected forecaster stall (chaos STALL events model
+        a hiccuping inference service; zero stall is the permanent no-op
+        fast path)."""
         if stall > 0.0:
             time.sleep(stall)
-        return fn(*args)
+        with tracing.span("plane.forecast", key=t, parent="plane.tick"):
+            return fn(*args)
 
     @staticmethod
-    def _join(fut, wall0: float, deadline: float):
-        """Join a forecast future against the tick's wall-clock deadline;
-        returns None when the budget is spent (the caller serves the tick
-        reactively — the forecast result is discarded, exactly what a
-        control loop that cannot wait must do)."""
+    def _join(fut, wall0: int, deadline: float):
+        """Join a forecast future against the tick's wall-clock deadline
+        (``wall0``: the tick's start, ``tracing.now_ns``); returns None when
+        the budget is spent (the caller serves the tick reactively — the
+        forecast result is discarded, exactly what a control loop that
+        cannot wait must do)."""
         if not np.isfinite(deadline):
             return fut.result()
         if isinstance(fut, _Immediate):   # sync mode: work already done
             return (fut.result()
-                    if time.monotonic() - wall0 <= deadline else None)
+                    if (tracing.now_ns() - wall0) * 1e-9 <= deadline
+                    else None)
         try:
-            left = deadline - (time.monotonic() - wall0)
+            left = deadline - (tracing.now_ns() - wall0) * 1e-9
             return fut.result(timeout=max(left, 0.0))
         except FuturesTimeout:
             return None
@@ -1467,6 +1495,8 @@ class ShardedControlPlane:
         without actuating (the forecast future is abandoned; shard windows
         were snapshotted at begin so nothing is torn).  The next
         begin_tick starts clean — crash-safety for the staged loop."""
+        if self._pending is not None:
+            self._pending[-1].discard()
         self._pending = None
 
     def degraded_stats(self) -> dict:

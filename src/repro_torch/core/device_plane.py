@@ -80,7 +80,9 @@ class DevicePlaneEngine:
     keeps shapes fixed across ticks.
 
     ``h2d_bytes`` / ``d2h_bytes`` count the bytes copied between the host
-    and a CUDA device (rows and weights up, predictions down).
+    and a CUDA device (rows and weights up, predictions down);
+    ``forecast_failures`` counts the forecasts whose launch raised, each
+    one a tick that sent every target down the reactive path.
     """
 
     def __init__(self, Z: int, window: int, residual: bool, *, devices,
@@ -126,6 +128,7 @@ class DevicePlaneEngine:
         self._valid = np.zeros(self.Z, bool)
         self.h2d_bytes = 0
         self.d2h_bytes = 0
+        self.forecast_failures = 0
 
     # ----------------------------------------------------- ring updates --
     def _upload(self, host: np.ndarray, device) -> torch.Tensor:
@@ -242,7 +245,8 @@ class DevicePlaneEngine:
         try:
             out = self.forward(ring_ref)
         except Exception:
-            # robust: a failed launch -> every target reactive
+            # robust: a failed launch -> every target reactive, counted
+            self.forecast_failures += 1
             return np.full((self.Z, N_METRICS), np.nan, np.float32), \
                 np.zeros(self.Z, bool)
         if cand.all():

@@ -26,6 +26,7 @@ import ctypes
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels._autograd import plain_grads
 from repro_torch.kernels.lstm_seq import _MAX_SMEM
@@ -165,7 +166,7 @@ def launch(lib, q, k, v, *, causal=True, window=None, cap=None, q_offset=0,
 class _FlashFn(torch.autograd.Function):
     """Forward: the wrapper's call (the kernel on the card).  Backward:
     autograd through the plain version on the saved inputs, one batch row
-    at a time."""
+    at a time, a ``flash.backward`` device span."""
 
     @staticmethod
     def forward(ctx, q, k, v, kw):
@@ -175,6 +176,11 @@ class _FlashFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
+        with tracing.device_span("flash.backward", device=grad_out.device):
+            return _FlashFn._backward(ctx, grad_out)
+
+    @staticmethod
+    def _backward(ctx, grad_out):
         need = ctx.needs_input_grad[:3]
         saved = ctx.saved_tensors
         # empty_like keeps a dense view's strides: (B, H, S, D) views of

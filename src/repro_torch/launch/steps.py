@@ -19,8 +19,11 @@ cell, every argument an abstract DTensor (``launch/specs.py``,
 """
 from __future__ import annotations
 
+import itertools
+
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.distributed.sharding import is_dtensor, replicating
 from repro_torch.launch import specs as SP
@@ -60,11 +63,19 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None, *,
                     mesh=None, rules=None):
     model = build_model(cfg)
     opt_cfg = opt_cfg or AdamWConfig(moments_dtype=cfg.opt_moments_dtype)
+    step_no = itertools.count(1)
 
     def train_step(params, opt_state, batch):
         """-> (params, opt_state, {"loss", "ce", "aux", "lr",
-        "grad_norm"}): the params and state updated in place."""
+        "grad_norm"}): the params and state updated in place.  The whole
+        step is a ``train.step`` device span, the update a ``train.adamw``
+        one, keyed by this step function's own count of its calls."""
         paths, leaves = zip(*tree_leaves(params))
+        n, dev = next(step_no), leaves[0].device
+        with tracing.device_span("train.step", key=n, device=dev):
+            return _step(params, opt_state, batch, paths, leaves, n, dev)
+
+    def _step(params, opt_state, batch, paths, leaves, n, dev):
         for p in leaves:
             p.requires_grad_(True)
         try:
@@ -89,8 +100,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None, *,
                 if is_dtensor(g) else g for p, g in zip(leaves, grads)])
             loss = loss.detach()
             metrics = {k: v.detach() for k, v in metrics.items()}
-            params, opt_state, om = adamw_update_(grads, opt_state, params,
-                                                  opt_cfg)
+            with tracing.device_span("train.adamw", key=n, device=dev):
+                params, opt_state, om = adamw_update_(grads, opt_state,
+                                                      params, opt_cfg)
         out = {"loss": loss, **metrics, **om}
         return params, opt_state, {
             k: v.full_tensor() if is_dtensor(v) else v

@@ -7,6 +7,7 @@ from collections import deque
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core.metrics import Snapshot
 from repro_torch.serving.engine import DecodeEngine
 
@@ -19,6 +20,7 @@ class Request:
     arrival: float = 0.0
     completed: float = float("nan")
     output: list | None = None
+    queued_ns: int = 0           # tracing.now_ns() at submit
 
 
 class ContinuousBatcher:
@@ -31,6 +33,7 @@ class ContinuousBatcher:
         self.t = 0.0
 
     def submit(self, req: Request):
+        req.queued_ns = tracing.now_ns()
         self.queue.append(req)
         self._window_reqs += 1
 
@@ -40,6 +43,8 @@ class ContinuousBatcher:
             self.t = t
         while self.queue and self.engine.free_slots():
             req = self.queue.popleft()
+            tracing.record("batcher.queued", req.queued_ns, tracing.now_ns(),
+                           key=req.request_id)
             self.engine.insert(req.request_id, req.prompt, req.max_new)
             self._inflight[req.request_id] = req
         for rid, toks in self.engine.step():

@@ -23,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.registry import build_model
@@ -80,22 +81,23 @@ class DecodeEngine:
 
     def insert(self, request_id: int, prompt: np.ndarray, max_new: int) -> int:
         """Prefill a prompt into a free slot of the live cache."""
-        free = self.free_slots()
-        if not free:
-            raise RuntimeError("no free slot")
-        slot = free[0]
-        toks = torch.as_tensor(np.asarray(prompt, np.int64),
-                               device=self.device)[None]
-        logits, _ = self.model.prefill(self.params, toks, cache=self.cache,
-                                       rows=[slot], mesh=self.mesh,
-                                       rules=self.rules)
-        first = self._select_token(logits[:, -1])[0]
-        self.tokens[slot, 0] = int(first)
-        st = self.slot_state[slot]
-        st.request_id = request_id
-        st.remaining = max_new
-        st.generated = [int(first)]
-        return slot
+        with tracing.span("engine.prefill", key=request_id):
+            free = self.free_slots()
+            if not free:
+                raise RuntimeError("no free slot")
+            slot = free[0]
+            toks = torch.as_tensor(np.asarray(prompt, np.int64),
+                                   device=self.device)[None]
+            logits, _ = self.model.prefill(self.params, toks, cache=self.cache,
+                                           rows=[slot], mesh=self.mesh,
+                                           rules=self.rules)
+            first = self._select_token(logits[:, -1])[0]
+            self.tokens[slot, 0] = int(first)
+            st = self.slot_state[slot]
+            st.request_id = request_id
+            st.remaining = max_new
+            st.generated = [int(first)]
+            return slot
 
     def _select_token(self, logits):
         if is_dtensor(logits):
@@ -112,21 +114,27 @@ class DecodeEngine:
         (request_id, generated_tokens)."""
         if all(not s.active for s in self.slot_state):
             return []
-        logits, self.cache = self.model.decode_step(
-            self.params, self.cache, self.tokens, mesh=self.mesh,
-            rules=self.rules)
-        nxt = self._select_token(logits[:, 0])
-        self.tokens = torch.as_tensor(nxt, dtype=torch.long,
-                                      device=self.device)[:, None]
-        self.steps += 1
-        finished = []
-        for i, st in enumerate(self.slot_state):
-            if not st.active:
-                continue
-            st.generated.append(int(nxt[i]))
-            st.remaining -= 1
-            self.tokens_out += 1
-            if st.remaining <= 0:
-                finished.append((st.request_id, st.generated))
-                self.slot_state[i] = SlotState()
-        return finished
+        n = self.steps + 1
+        with tracing.span("engine.step", key=n):
+            # dispatch: every launch of the step is enqueued, nothing syncs
+            with tracing.span("engine.step.dispatch", key=n):
+                logits, self.cache = self.model.decode_step(
+                    self.params, self.cache, self.tokens, mesh=self.mesh,
+                    rules=self.rules)
+            # wait: the argmax's copy to the host waits for the card
+            with tracing.span("engine.step.wait", key=n):
+                nxt = self._select_token(logits[:, 0])
+            self.tokens = torch.as_tensor(nxt, dtype=torch.long,
+                                          device=self.device)[:, None]
+            self.steps = n
+            finished = []
+            for i, st in enumerate(self.slot_state):
+                if not st.active:
+                    continue
+                st.generated.append(int(nxt[i]))
+                st.remaining -= 1
+                self.tokens_out += 1
+                if st.remaining <= 0:
+                    finished.append((st.request_id, st.generated))
+                    self.slot_state[i] = SlotState()
+            return finished

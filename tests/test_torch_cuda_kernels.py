@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import attn_lstm_seq as tattn
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tflash
@@ -1458,3 +1459,37 @@ def test_cuda_train_step_matches_plain_model(cuda_device, arch):
     assert abs(float(loss - wloss)) <= 1e-2 * abs(float(wloss))
     cos = float(g @ wg / (g.norm() * wg.norm()))
     assert cos > 0.99, cos
+
+
+# ------------------------------------------------------------- spans ----
+@pytest.mark.cuda
+def test_cuda_device_spans_time_the_card(cuda_device):
+    """``device_span`` on the card: its CUDA events agree with a pair
+    recorded around the same work, and the flash Function's backward (on
+    autograd's device thread) records one ``flash.backward`` span whose card
+    time lies inside the step's."""
+    tracing.reset()
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    a = torch.randn(2048, 2048, device=cuda_device, generator=g)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    with tracing.device_span("t.card", device=cuda_device):
+        for _ in range(20):
+            a = torch.tanh(a @ a)
+    e1.record()
+    q, k, v = (torch.randn(2, 8, 512, 64, device=cuda_device, generator=g,
+                           dtype=BF16).requires_grad_(True)
+               for _ in range(3))
+    with tracing.device_span("t.step", device=cuda_device):
+        tflash.flash_attention(q, k, v, causal=True).float().square() \
+            .sum().backward()
+    card = tracing.spans("t.card")
+    torch.cuda.synchronize()
+    ref = e0.elapsed_time(e1)
+    assert 0 < card.device_ms[0] <= ref * 1.001
+    assert card.device_ms[0] >= 0.9 * ref
+    step, bwd = tracing.spans("t.step"), tracing.spans("flash.backward")
+    assert bwd.start.size == 1
+    assert 0 < bwd.device_ms[0] < step.device_ms[0]
+    assert step.start[0] <= bwd.start[0] <= bwd.end[0] <= step.end[0]
+    tracing.reset()

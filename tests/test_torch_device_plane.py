@@ -312,3 +312,32 @@ def test_engine_double_buffer_and_transfers():
     assert np.isnan(means[5]).all() and np.isfinite(means[:5]).all()
     assert eng.h2d_bytes == 0 and eng.d2h_bytes == 0
     assert [sl.stop - sl.start for _, sl in eng.blocks] == [3, 3]
+
+
+def test_failed_forecast_is_counted_and_its_tick_reactive(monkeypatch):
+    """A forecast launch that raises is still swallowed, and counted: the
+    engine's ``forecast_failures`` reads 1, that tick's decisions are all
+    reactive (no forecast), and the next tick forecasts again."""
+    calls = []
+    orig = DevicePlaneEngine.forward
+
+    def forward(self, ring_ref):
+        calls.append(len(calls))
+        if len(calls) == 1:
+            raise RuntimeError("injected launch failure")
+        return orig(self, ring_ref)
+
+    monkeypatch.setattr(DevicePlaneEngine, "forward", forward)
+    plane = tc.ShardedControlPlane(
+        tc.PPAConfig(threshold=100.0, stabilization_s=60.0),
+        _fab_targets(tc, tf), n_shards=S, device_mesh=1)
+    forecast = []
+    for k, rows in enumerate(_rows_seq(W + 3), 1):
+        plane.observe_batch(15.0 * k, rows)
+        res = plane.control_step(15.0 * k, 32, 2)
+        forecast.append([res[n].raw_prediction is not None for n in res])
+    plane.shutdown()
+    assert plane._engine.forecast_failures == 1 and len(calls) == 3
+    # ticks 1..W fill the window; tick W + 1 is the failed one
+    assert not any(any(f) for f in forecast[:W + 1])
+    assert all(all(f) for f in forecast[W + 1:])
