@@ -39,7 +39,11 @@ _MAX_GRID_YZ = 65_535
 # the ticket counters of the (slot, kv head) pairs, one set a (device,
 # stream): zero between launches (the kernel's last CTA of a pair wraps its
 # counter to 0), so the launches of one stream, which run one after
-# another, share them; launches on two streams could overlap and must not
+# another, share them; launches on two streams could overlap and must not.
+# A launch captured into a CUDA graph keeps the address of its capture
+# stream's set, which must exist (zero) before the capture: it is never
+# allocated inside one.  Every replay of the graph then uses that set, and
+# the replays of one graph run one after another on their stream
 _tickets: dict[tuple[torch.device, int], torch.Tensor] = {}
 
 
@@ -117,6 +121,10 @@ def _check(q, k, v):
 def _tickets_for(device, stream, n):
     t = _tickets.get((device, stream))
     if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "decode_attention's tickets for a capturing stream must "
+                "exist before the capture: launch once on the stream first")
         t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _tickets[(device, stream)] = t
     return t

@@ -10,6 +10,22 @@ rows of one slot, a step one row a slot and layer, never a copy of the
 whole cache.  Inactive slots keep decoding, as in the reference; their
 length grows past ``max_len`` and their writes clamp to the last row.
 
+On a CUDA device without a mesh the decode step is a CUDA graph: the first
+step runs eagerly on the engine's capture stream (which builds every
+kernel, cuBLAS's workspace and decode attention's tickets for that
+stream), then captures ``model.decode_step`` for all ``slots`` rows, and
+every later step replays it.  The graph reads and writes fixed addresses,
+so its buffers are static: the params, the cache (written in place by the
+steps and by ``insert``'s prefill, and never rebound), the token buffer
+``tokens`` (slots, 1), which steps and inserts write in place, and the
+logits.  Greedy, the graph also writes the argmax into ``tokens``; with a
+temperature the host samples from the static logits and copies its tokens
+in.  Only the chosen tokens' copy to the host lies outside the graph;
+nothing inside ``decode_step`` waits for the card.  A replay adds the
+captured step's launches to the kernels' ``LAUNCHES`` counters, so that
+they count what the card ran.  On the CPU and on a mesh (DTensor dispatch
+is not captured) every step runs eagerly.
+
 ``device=None`` means the card (and raises without one); tests pass
 ``device="cpu"``, where every kernel runs its plain version.  ``mesh`` /
 ``rules`` pass on to the model's prefill and decode steps; the cache is
@@ -30,6 +46,18 @@ from repro_torch.models.registry import build_model
 from repro_torch.distributed.sharding import is_dtensor, shard_tree
 from repro_torch.models.transformer import (decode_cache_axes,
                                             init_decode_cache)
+
+
+def _launch_counters() -> list[dict]:
+    """Every kernel wrapper's launch counters: its ``LAUNCHES`` and, where
+    it has one, its ``PATH_LAUNCHES``."""
+    from repro_torch.kernels import (attn_lstm_seq, decode_attention,
+                                     flash_attention, lstm_cell, lstm_seq,
+                                     rmsnorm, ssd_scan)
+    mods = (attn_lstm_seq, decode_attention, flash_attention, lstm_cell,
+            lstm_seq, rmsnorm, ssd_scan)
+    return [c for m in mods for c in (m.LAUNCHES, getattr(
+        m, "PATH_LAUNCHES", None)) if c is not None]
 
 
 @dataclasses.dataclass
@@ -71,6 +99,19 @@ class DecodeEngine:
                                   device=self.device)
         self.steps = 0
         self.tokens_out = 0
+        # the step as a CUDA graph, captured at the end of the first step;
+        # every decoder-only family captures (the card's tests hold each
+        # one's replay to its eager step)
+        self.graphed = self.device.type == "cuda" and mesh is None
+        self.graph = None
+        self._stream = torch.cuda.Stream(self.device) if self.graphed \
+            else None
+        self._logits = None              # the graph's static logits
+        self._replay_launches = []       # (counter, {kernel: launches})
+
+    @property
+    def _argmax_on_card(self) -> bool:
+        return self.graphed and self.temperature <= 0
 
     # ------------------------------------------------------------ slots ----
     def free_slots(self) -> list[int]:
@@ -109,23 +150,86 @@ class DecodeEngine:
         return z.argmax(-1)
 
     # ------------------------------------------------------------- step ----
+    def _decode(self):
+        """The step's work on the device: the model's decode step over every
+        slot and, where greedy runs on the card, the argmax written into
+        ``tokens``.  Returns the logits (slots, 1, V)."""
+        logits, _ = self.model.decode_step(self.params, self.cache,
+                                           self.tokens, mesh=self.mesh,
+                                           rules=self.rules)
+        if self._argmax_on_card:
+            self.tokens.copy_(torch.argmax(logits[:, 0], dim=-1,
+                                           keepdim=True))
+        return logits
+
+    def _decode_on_capture_stream(self):
+        cur = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(cur)
+        with torch.cuda.stream(self._stream):
+            logits = self._decode()
+        cur.wait_stream(self._stream)
+        return logits
+
+    def _capture(self, n: int):
+        """Capture ``_decode`` on the capture stream, after a step ran there
+        eagerly.  Capture runs nothing on the card, so the kernels' launch
+        counters are set back to what they were, and what the capture added
+        is added again at each replay."""
+        counters = _launch_counters()
+        before = [dict(c) for c in counters]
+        graph = torch.cuda.CUDAGraph()
+        with tracing.span("engine.graph.capture", key=n):
+            # thread_local: another thread of the process (a plane's pool,
+            # a refit's worker) may allocate on the card meanwhile
+            with torch.cuda.graph(graph, stream=self._stream,
+                                  capture_error_mode="thread_local"):
+                self._logits = self._decode()
+        self._replay_launches = []
+        for c, b in zip(counters, before):
+            added = {k: c[k] - b[k] for k in c if c[k] != b[k]}
+            c.update(b)
+            if added:
+                self._replay_launches.append((c, added))
+        self.graph = graph
+
+    def _replay(self):
+        self.graph.replay()
+        for c, added in self._replay_launches:
+            for k, n in added.items():
+                c[k] += n
+        return self._logits
+
     def step(self) -> list[tuple[int, list[int]]]:
         """One decode step for all slots; returns finished requests as
-        (request_id, generated_tokens)."""
+        (request_id, generated_tokens).  On a CUDA device without a mesh
+        the first step runs eagerly on the capture stream and then captures
+        the step; every later step replays that graph (span
+        ``engine.step.replay``) over the same cache, token and logit
+        buffers, so neither the cache nor ``tokens`` may ever be rebound."""
         if all(not s.active for s in self.slot_state):
             return []
         n = self.steps + 1
         with tracing.span("engine.step", key=n):
             # dispatch: every launch of the step is enqueued, nothing syncs
             with tracing.span("engine.step.dispatch", key=n):
-                logits, self.cache = self.model.decode_step(
-                    self.params, self.cache, self.tokens, mesh=self.mesh,
-                    rules=self.rules)
-            # wait: the argmax's copy to the host waits for the card
+                if self.graph is not None:
+                    with tracing.span("engine.step.replay", key=n):
+                        logits = self._replay()
+                elif self.graphed:
+                    logits = self._decode_on_capture_stream()
+                else:
+                    logits = self._decode()
+            # wait: the chosen tokens' copy to the host waits for the card
             with tracing.span("engine.step.wait", key=n):
-                nxt = self._select_token(logits[:, 0])
-            self.tokens = torch.as_tensor(nxt, dtype=torch.long,
-                                          device=self.device)[:, None]
+                if self._argmax_on_card:
+                    nxt = self.tokens[:, 0].cpu().numpy()
+                else:
+                    nxt = self._select_token(logits[:, 0])
+            if not self._argmax_on_card:
+                self.tokens.copy_(torch.as_tensor(nxt, dtype=torch.long)[
+                    :, None])
+            if self.graphed and self.graph is None:
+                self._capture(n)
             self.steps = n
             finished = []
             for i, st in enumerate(self.slot_state):

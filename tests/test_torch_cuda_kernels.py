@@ -1493,3 +1493,188 @@ def test_cuda_device_spans_time_the_card(cuda_device):
     assert 0 < bwd.device_ms[0] < step.device_ms[0]
     assert step.start[0] <= bwd.start[0] <= bwd.end[0] <= step.end[0]
     tracing.reset()
+
+
+# ----------------------------------------------------- serving graphs ----
+def _engine_pair(cfg, params, dev, slots, max_len):
+    """A ``DecodeEngine`` that captures its step and replays it, and a twin
+    that runs every step eagerly (``graphed`` turned off before its first
+    step), on the same params."""
+    from repro_torch.serving import DecodeEngine
+    graphed = DecodeEngine(cfg, params, slots=slots, max_len=max_len,
+                           device=dev)
+    eager = DecodeEngine(cfg, params, slots=slots, max_len=max_len,
+                         device=dev)
+    eager.graphed = False
+    return graphed, eager
+
+
+def _keep_logits(engine):
+    """Each step's logits, cloned once the step's launches are enqueued:
+    the eager step's, the capture stream's warm-up step's and each
+    replay's (the graph's static logits)."""
+    kept = []
+    names = (("_decode_on_capture_stream", "_replay") if engine.graphed
+             else ("_decode",))
+    for name in names:
+        def wrapped(fn=getattr(engine, name)):
+            logits = fn()
+            kept.append(logits.clone())
+            return logits
+        setattr(engine, name, wrapped)
+    return kept
+
+
+def _serve_both(engines, vocab, steps, prompts, seed=0):
+    """The same requests into each engine, a few admitted before each of
+    ``steps`` steps while slots are free (so inserts fall between
+    replays, and finished slots are reused); returns each engine's finished
+    requests and its token buffer after every step."""
+    rng = np.random.default_rng(seed)
+    reqs = [(rng.integers(0, vocab, int(rng.integers(*prompts))),
+             int(rng.integers(2, 12))) for _ in range(4 * steps)]
+    out = []
+    for eng in engines:
+        done, toks, nxt = {}, [], 0
+        for t in range(steps):
+            for _ in range(int(np.random.default_rng([seed, t]).integers(
+                    0, 4))):
+                if nxt < len(reqs) and eng.free_slots():
+                    eng.insert(nxt, *reqs[nxt])
+                    nxt += 1
+            if eng.utilization() == 0:
+                eng.insert(nxt, *reqs[nxt])
+                nxt += 1
+            for rid, gen in eng.step():
+                done[rid] = list(gen)
+            toks.append(eng.tokens.clone())
+        out.append((done, toks))
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_engine_equals_eager_engine(cuda_device):
+    """h2o-danube-1.8b at full width and 2 layers, 64 slots x 2048: over 24
+    steps with inserts between them the engine that replays its captured
+    step gives the eager engine's tokens, and each step's logits bit for
+    bit (the same kernels and GEMMs on the same inputs, replayed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    cfg = get_config("h2o-danube-1.8b").replace(n_layers=2)
+    params = build_model(cfg).init(0, BF16, cuda_device)
+    graphed, eager = _engine_pair(cfg, params, cuda_device, 64, 2048)
+    kept = [_keep_logits(e) for e in (graphed, eager)]
+    (gd, gt), (ed, et) = _serve_both((graphed, eager), cfg.vocab, 24,
+                                     (5, 600))
+    assert graphed.graph is not None and eager.graph is None
+    assert gd == ed and len(gd) > 10
+    assert all(torch.equal(a, b) for a, b in zip(gt, et))
+    assert len(kept[0]) == len(kept[1]) == 24
+    for i, (a, b) in enumerate(zip(*kept)):
+        assert torch.equal(a, b), i
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_engine_clamps_idle_slots_like_eager(cuda_device):
+    """Slots decoding past ``max_len`` (three idle ones from length 0, one
+    active from a prompt of 20) rewrite their last row, in the replayed
+    step as in the eager one: after 40 steps at max_len 32 both caches'
+    k, v and lengths (past 32) are equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    cfg = get_config("h2o-danube-1.8b").replace(n_layers=2)
+    params = build_model(cfg).init(1, BF16, cuda_device)
+    graphed, eager = _engine_pair(cfg, params, cuda_device, 4, 32)
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab, 20)
+    for eng in (graphed, eager):
+        eng.insert(0, prompt, 100)
+        for _ in range(40):
+            eng.step()
+    assert graphed.graph is not None
+    lens = graphed.cache["s0"]["len"]
+    assert int(lens.min()) == 40 and int(lens.max()) == 60
+    for f in ("k", "v", "len"):
+        assert torch.equal(graphed.cache["s0"][f], eager.cache["s0"][f]), f
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_engine_samples_like_eager(cuda_device):
+    """With a temperature the host samples from the graph's static logits
+    and copies its tokens in: the same seed gives the eager engine's
+    tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving import DecodeEngine
+    cfg = get_config("h2o-danube-1.8b").replace(n_layers=2)
+    params = build_model(cfg).init(0, BF16, cuda_device)
+    engines = [DecodeEngine(cfg, params, slots=8, max_len=256,
+                            temperature=1.0, seed=3, device=cuda_device)
+               for _ in range(2)]
+    engines[1].graphed = False
+    (gd, gt), (ed, et) = _serve_both(engines, cfg.vocab, 12, (5, 100))
+    assert engines[0].graph is not None and engines[1].graph is None
+    assert gd == ed and len(gd) > 4
+    assert all(torch.equal(a, b) for a, b in zip(gt, et))
+
+
+@pytest.mark.cuda
+def test_cuda_replay_counts_an_eager_steps_launches(cuda_device):
+    """What a replay adds to the kernels' launch counters equals what an
+    eager step counts: two norms a layer and the final norm (all on the
+    vector kernel), one decode attention a layer; the capture itself
+    counts nothing."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import _launch_counters
+    cfg = get_config("h2o-danube-1.8b").replace(n_layers=2)
+    params = build_model(cfg).init(0, BF16, cuda_device)
+    graphed, eager = _engine_pair(cfg, params, cuda_device, 8, 256)
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab, 30)
+
+    def counts():
+        return [dict(c) for c in _launch_counters()]
+
+    def zero():
+        for c in _launch_counters():
+            for k in c:
+                c[k] = 0
+
+    got = {}
+    for name, eng in (("graphed", graphed), ("eager", eager)):
+        eng.insert(0, prompt, 10)
+        zero()
+        eng.step()                       # the graphed engine captures here
+        got[name + "1"] = counts()
+        zero()
+        eng.step()
+        got[name + "2"] = counts()
+    assert graphed.graph is not None
+    assert got["graphed1"] == got["eager1"] == got["graphed2"] \
+        == got["eager2"]
+    assert trms.LAUNCHES["rmsnorm"] == trms.PATH_LAUNCHES["vector"] == 5
+    assert tdec.LAUNCHES["decode_attention"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-780m",
+                                  "zamba2-2.7b"])
+def test_cuda_graphed_engine_by_family(cuda_device, arch):
+    """The MoE, ssm and hybrid smoke configs capture their step too (the
+    MoE routing's sort, scatters and gather included): the replaying
+    engine gives the eager engine's tokens and logits bit for bit over 16
+    steps with inserts between them."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.registry import build_model
+    cfg = smoke_config(arch)
+    params = build_model(cfg).init(0, getattr(torch, cfg.param_dtype),
+                                   cuda_device)
+    graphed, eager = _engine_pair(cfg, params, cuda_device, 8, 256)
+    kept = [_keep_logits(e) for e in (graphed, eager)]
+    (gd, gt), (ed, et) = _serve_both((graphed, eager), cfg.vocab, 16,
+                                     (40, 120), seed=1)
+    assert graphed.graph is not None
+    assert gd == ed and len(gd) > 4
+    assert all(torch.equal(a, b) for a, b in zip(gt, et))
+    assert len(kept[0]) == len(kept[1]) == 16
+    for i, (a, b) in enumerate(zip(*kept)):
+        assert torch.equal(a, b), i

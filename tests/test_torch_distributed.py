@@ -474,7 +474,10 @@ for arch in args["archs"]:
             for rid, toks in eng.step():
                 done[rid] = [int(t) for t in toks]
         out.append(done)
+        assert not eng.graphed and eng.graph is None
     RESULT[arch] = out
+from repro_torch import tracing
+RESULT["replayed"] = int(tracing.spans("engine.step.replay").start.size)
 """
 
 
@@ -536,10 +539,12 @@ def test_sharded_engine_greedy_tokens_equal_unsharded(tmp_path):
     """``DecodeEngine(mesh=, rules=)`` on a (2, 2) mesh of 4 ranks: the
     prompts prefilled into slots of the sharded cache (batch on 'data',
     kv heads on 'model'), greedy decode steps writing one row a slot, the
-    same tokens as the unsharded engine, float32, dense and ssm."""
+    same tokens as the unsharded engine, float32, dense and ssm; on a mesh
+    (as on the CPU) every step runs eagerly, and none replays a graph."""
     got = run_ranks(_ENGINE_BODY, 4, tmp_path,
                     {"archs": ["h2o-danube-1.8b", "mamba2-780m"]},
                     timeout=240)
+    assert [got[r].pop("replayed") for r in range(4)] == [0] * 4
     for arch, (plain, sharded) in got[0].items():
         assert sorted(plain) == ["0", "1", "2"], (arch, plain)
         assert sharded == plain, arch

@@ -220,6 +220,37 @@ def test_sampling_is_seeded():
     assert outs[0] == outs[1]
 
 
+@pytest.mark.parametrize("arch,temperature", [
+    ("h2o-danube-1.8b", 0.0), ("h2o-danube-1.8b", 1.0),
+    ("granite-moe-1b-a400m", 0.0), ("mamba2-780m", 0.0),
+    ("zamba2-2.7b", 0.0)])
+def test_cpu_engine_never_captures(arch, temperature):
+    """On the CPU every step runs eagerly: no graph, no replay or capture
+    span, and the token buffer is the one the engine made, written in
+    place (the step and the inserts), holding each slot's newest token."""
+    from repro_torch import tracing
+    cfg = smoke_config(arch)
+    params = build_model(cfg).init(0, device="cpu")
+    e = DecodeEngine(cfg, params, slots=3, max_len=96,
+                     temperature=temperature, device="cpu")
+    buf = e.tokens
+    tracing.reset()
+    b = ContinuousBatcher(e)
+    rng = np.random.default_rng(4)
+    for i in range(5):
+        b.submit(Request(i, rng.integers(0, cfg.vocab, 40), 3))
+    b.step()
+    last = [s.generated[-1] for s in e.slot_state]
+    assert e.tokens[:, 0].tolist() == last
+    done = b.drain()
+    assert len(done) == 5 and e.steps > 0
+    assert not e.graphed and e.graph is None and e.tokens is buf
+    assert tracing.spans("engine.step").start.size == e.steps
+    for name in ("engine.step.replay", "engine.graph.capture"):
+        assert tracing.spans(name).start.size == 0, name
+    tracing.reset()
+
+
 def test_engine_needs_a_device_or_the_cpu():
     cfg = smoke_config(ARCH)
     params = build_model(cfg).init(0, device="cpu")
