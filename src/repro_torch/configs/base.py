@@ -2,6 +2,12 @@
 
 ``get_config(arch_id)`` returns the full published config;
 ``smoke_config(arch_id)`` returns a CPU-runnable reduction of the same family.
+``list_archs()`` lists the archs the JAX package defines too (its parity
+tests walk those); an arch of the port's own (``PORT_ONLY``) is reached by
+name.  ``ModelConfig``'s
+fields are the JAX package's, field for field; the hybrid MoE family's
+own settings are fields of ``HybridMoEConfig`` and plain class defaults
+(today's behaviour) on every other config.
 Input-shape cells (train_4k / prefill_32k / decode_32k / long_500k) are shared
 by all LM archs; applicability is encoded per arch (see DESIGN.md §4).
 """
@@ -10,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal
 
-Family = Literal["dense", "moe", "ssm", "hybrid", "encdec"]
+Family = Literal["dense", "moe", "ssm", "hybrid", "hybrid_moe", "encdec"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +89,20 @@ class ModelConfig:
                                             # cache seq dim over 'data' (batch=1
                                             # leaves that axis idle)
 
+    # HybridMoEConfig's fields, as class defaults: no shared expert, every
+    # expert held, no conv bias, no layer pattern of its own, multipliers 1,
+    # the softmax scale 1/sqrt(D), RoPE
+    d_ff_shared = 0
+    n_experts_held = 0
+    expert_first = 0
+    ssm_conv_bias = False
+    layer_pattern = ()
+    embed_mult = 1.0
+    residual_mult = 1.0
+    logits_div = 1.0
+    attn_scale = None
+    use_rope = True
+
     @property
     def q_dim(self) -> int:
         return self.n_heads * self.head_dim
@@ -95,8 +115,33 @@ class ModelConfig:
     def d_inner(self) -> int:  # ssm inner width
         return self.ssm_expand * self.d_model
 
+    @property
+    def experts_held(self) -> int:
+        return self.n_experts_held or self.n_experts
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridMoEConfig(ModelConfig):
+    """The hybrid MoE family (granite-4.0-h): a period of Mamba-2 and
+    attention layers, each a pre-norm mixer and then a pre-norm MoE FFN
+    beside a shared expert, every sublayer's output times
+    ``residual_mult``."""
+    family: Family = "hybrid_moe"
+    layer_pattern: tuple[str, ...] = ()     # "mamba" / "attn", one period
+    d_ff_shared: int = 0                    # the shared expert's width
+    # this device's experts of a layer's n_experts: [expert_first,
+    # expert_first + n_experts_held); 0 holds them all
+    n_experts_held: int = 0
+    expert_first: int = 0
+    ssm_conv_bias: bool = False
+    embed_mult: float = 1.0                 # the embedding's multiplier
+    residual_mult: float = 1.0              # every sublayer's output's
+    logits_div: float = 1.0                 # the logits' divisor
+    attn_scale: float | None = None         # softmax scale; None 1/sqrt(D)
+    use_rope: bool = True                   # False: no positions (NoPE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +160,8 @@ SHAPES: dict[str, ShapeSpec] = {
 }
 
 _REGISTRY: dict[str, "tuple"] = {}
+# archs of the port alone: the JAX package has no config to hold them to
+PORT_ONLY = ("granite-4.0-h-small",)
 
 
 def register(arch_id: str, full_fn, smoke_fn):
@@ -134,8 +181,9 @@ def smoke_config(arch_id: str) -> ModelConfig:
 
 
 def list_archs() -> list[str]:
+    """The archs the JAX package defines as well (not ``PORT_ONLY``)."""
     _ensure_loaded()
-    return sorted(_REGISTRY)
+    return sorted(a for a in _REGISTRY if a not in PORT_ONLY)
 
 
 def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
@@ -159,6 +207,6 @@ def _ensure_loaded():
     for mod in (
         "zamba2_2p7b", "h2o_danube_1p8b", "llama3_405b", "codeqwen15_7b",
         "gemma2_9b", "phi35_moe", "granite_moe_1b", "mamba2_780m",
-        "seamless_m4t_medium", "pixtral_12b",
+        "seamless_m4t_medium", "pixtral_12b", "granite_4_h_small",
     ):
         importlib.import_module(f"repro_torch.configs.{mod}")

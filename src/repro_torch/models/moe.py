@@ -20,25 +20,80 @@ for the sorts, the searchsorted and the scatters, and a row is routed on
 its own anyway.  The dispatched tokens and the expert outputs take the
 placements of ("batch", "act_experts", None, None), the reference's two
 constraints, and the expert products run on DTensors.
+
+An expert share: where ``cfg.n_experts_held`` is set the layer holds the
+weights of experts [``expert_first``, ``expert_first`` + held) only.  The
+router keeps all ``n_experts`` outputs and its top-k; the dispatch keeps
+the (token, expert) pairs routed to held experts, over the held experts
+alone, and the layer returns their part of the result (what the other
+experts would add is computed where they are held; no exchange runs here).
+A shared expert (``cfg.d_ff_shared``, granite-4.0-h) is a SiLU-GLU every
+token passes through, added to the routed experts' sum; the hybrid MoE
+family's router runs in float32.
+
+``ROUTES`` counts, by the caller's mode ("prefill", "decode", "train"),
+the (token, held expert) pairs routed and the expert rows computed (held
+experts x capacity x batch rows): a (2,) int64 tensor a mode and device,
+summed on the device with no host synchronisation, so a replayed decode
+graph keeps counting (``route_counts`` reads, ``reset_route_counts``
+zeroes in place); only plain tensors on a real device are counted, not
+DTensors on a mesh or the dry-run's fake and meta tensors.  A span
+``moe.block`` covers each layer (``repro_torch.tracing``).
 """
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
+from repro_torch import tracing
 from repro_torch.distributed.sharding import (is_dtensor, on_shards,
                                               shard_activation)
-from repro_torch.models.layers import _act
+from repro_torch.models.layers import _act, mlp, mlp_specs
 from repro_torch.models.params import Spec
+
+# (mode, device) -> int64 (2,): [held pairs routed, expert rows computed]
+ROUTES: dict = {}
+
+
+def _device_key(device) -> str:
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return str(d)
+
+
+def route_counter(mode: str, device) -> torch.Tensor:
+    key = (mode, _device_key(device))
+    c = ROUTES.get(key)
+    if c is None:
+        c = ROUTES[key] = torch.zeros(2, dtype=torch.int64, device=device)
+    return c
+
+
+def route_counts(mode: str, device) -> tuple[int, int]:
+    """(held pairs routed, expert rows computed) of ``mode`` on ``device``
+    so far; reading them waits for the device."""
+    c = ROUTES.get((mode, _device_key(device)))
+    return (0, 0) if c is None else tuple(int(v) for v in c.tolist())
+
+
+def reset_route_counts():
+    for c in ROUTES.values():
+        c.zero_()
 
 
 def moe_specs(cfg) -> dict:
     d, E, ff = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
-    return {
+    Eh = cfg.experts_held
+    sp = {
         "w_router": Spec((d, E), ("fsdp", None)),
-        "w_gate": Spec((E, d, ff), ("experts", "fsdp", "expert_mlp")),
-        "w_up": Spec((E, d, ff), ("experts", "fsdp", "expert_mlp")),
-        "w_down": Spec((E, ff, d), ("experts", "expert_mlp", "fsdp")),
+        "w_gate": Spec((Eh, d, ff), ("experts", "fsdp", "expert_mlp")),
+        "w_up": Spec((Eh, d, ff), ("experts", "fsdp", "expert_mlp")),
+        "w_down": Spec((Eh, ff, d), ("experts", "expert_mlp", "fsdp")),
     }
+    if cfg.d_ff_shared:
+        sp["shared"] = mlp_specs(d, cfg.d_ff_shared)
+    return sp
 
 
 def _capacity(tokens: int, top_k: int, n_experts: int, factor: float) -> int:
@@ -107,12 +162,15 @@ def top_k_routes(logits: torch.Tensor, top_k: int, probs=None):
 
 
 def route_and_dispatch(x_row, logits_row, top_k: int, capacity: int, E: int,
-                       probs=None):
+                       probs=None, held=None, counter=None):
     """x_row (S, d), logits_row (S, E) -> expert_in (E, C, d), idx (E, C)
     int32 (token S pads an empty slot), wgt (E, C) f32.  Batched: x (B, S,
     d) and logits (B, S, E) route each row on its own and give (B, E, C,
     d), (B, E, C), (B, E, C).  ``probs``: ``route_probs(logits)`` if the
-    caller has it."""
+    caller has it.  ``held`` (first, n): dispatch over experts [first,
+    first + n) alone, the outputs' E being n; ``counter``: a (2,) int64
+    tensor whose first entry gains the (token, held expert) pairs
+    routed."""
     row = x_row.dim() == 2
     x = x_row[None] if row else x_row
     logits = logits_row[None] if row else logits_row
@@ -133,8 +191,18 @@ def route_and_dispatch(x_row, logits_row, top_k: int, capacity: int, E: int,
     # position within the expert's segment
     pos_in_e = (torch.arange(S * top_k, device=dev)
                 - torch.searchsorted(se, se, side="left"))
-    slot = torch.where(pos_in_e < capacity, se * capacity + pos_in_e,
-                       E * capacity)                        # drop sink
+    if held is None:
+        slot = torch.where(pos_in_e < capacity, se * capacity + pos_in_e,
+                           E * capacity)                    # drop sink
+        if counter is not None:
+            counter[0] += B * S * top_k
+    else:
+        first, E = held
+        mine = (se >= first) & (se < first + E)
+        slot = torch.where(mine & (pos_in_e < capacity),
+                           (se - first) * capacity + pos_in_e, E * capacity)
+        if counter is not None:
+            counter[0] += mine.sum()
 
     idx = torch.full((B, E * capacity + 1), S, dtype=torch.int32, device=dev)
     wgt = torch.zeros((B, E * capacity + 1), dtype=torch.float32, device=dev)
@@ -168,31 +236,49 @@ def combine(expert_out, idx, wgt, S: int):
     return out[0] if row else out
 
 
-def moe_block(p, x, cfg, mesh=None, rules=None):
+def moe_block(p, x, cfg, mesh=None, rules=None, mode="train"):
     """x (B, S, d) -> (out (B, S, d) in x's dtype, the Switch load-balance
-    aux loss (f32 scalar))."""
+    aux loss (f32 scalar)): the held experts' part, plus the shared
+    expert's output where the layer has one.  ``mode`` keys the
+    ``ROUTES`` counter."""
+    with tracing.span("moe.block"):
+        return _moe_block(p, x, cfg, mesh, rules, mode)
+
+
+def _moe_block(p, x, cfg, mesh, rules, mode):
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
+    Eh = cfg.experts_held
+    held = (cfg.expert_first, Eh) if Eh != E else None
     cap = _capacity(S, k, E, cfg.capacity_factor)
-    logits = x @ p["w_router"].to(x.dtype)                  # (B, S, E)
+    if cfg.family == "hybrid_moe":
+        logits = x.float() @ p["w_router"].float()          # (B, S, E)
+    else:
+        logits = x @ p["w_router"].to(x.dtype)
+    sharded = is_dtensor(x) or is_dtensor(logits)
+    counter = (None if sharded or isinstance(x, FakeTensor)
+               or x.device.type == "meta" else route_counter(mode, x.device))
 
     def route(x, logits):
         probs = route_probs(logits)
-        return (*route_and_dispatch(x, logits, k, cap, E, probs), probs)
-    sharded = is_dtensor(x) or is_dtensor(logits)
+        return (*route_and_dispatch(x, logits, k, cap, E, probs, held,
+                                    counter), probs)
     b = {"b": 0}
     ein, idx, wgt, probs = (on_shards(route, [x, logits], [b, b], [b] * 4)
                             if sharded else route(x, logits))
     if mesh is not None and rules is not None:
         ein = shard_activation(ein, ("batch", "act_experts", None, None),
                                rules, mesh)
-    # the expert products as batched matmuls over E on (E, B*C, .) views
-    ein = ein.transpose(0, 1).reshape(E, B * cap, d)
+    if counter is not None:
+        counter[1] += B * Eh * cap
+    # the expert products as batched matmuls over the held experts on (Eh,
+    # B*C, .) views
+    ein = ein.transpose(0, 1).reshape(Eh, B * cap, d)
     act = _act(cfg.mlp_act)
     h = act(torch.bmm(ein, p["w_gate"].to(x.dtype)))
     h = h * torch.bmm(ein, p["w_up"].to(x.dtype))
     eout = torch.bmm(h, p["w_down"].to(x.dtype))
-    eout = eout.view(E, B, cap, d).transpose(0, 1)          # (B, E, C, d)
+    eout = eout.view(Eh, B, cap, d).transpose(0, 1)         # (B, Eh, C, d)
     if mesh is not None and rules is not None:
         eout = shard_activation(eout, ("batch", "act_experts", None, None),
                                 rules, mesh)
@@ -208,4 +294,7 @@ def moe_block(p, x, cfg, mesh=None, rules=None):
     ce = (top1[..., None] == torch.arange(E, device=x.device)).to(
         torch.float32).sum(dim=(0, 1)) / (B * S)
     aux = E * torch.sum(me * ce)
-    return out.to(x.dtype), aux
+    out = out.to(x.dtype)
+    if cfg.d_ff_shared:
+        out = out + mlp(p["shared"], x, cfg.mlp_act)
+    return out, aux

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import is_dtensor, on_shards
 from repro_torch.kernels import ssd_scan as ssd_kernel
@@ -32,7 +33,7 @@ from repro_torch.models.params import Spec
 def mamba_specs(cfg) -> dict:
     d, di, H, N = cfg.d_model, cfg.d_inner, cfg.ssm_heads, cfg.ssm_state
     cw = cfg.ssm_conv
-    return {
+    sp = {
         "w_z": Spec((d, di), ("fsdp", "mlp")),
         "w_x": Spec((d, di), ("fsdp", "mlp")),
         "w_B": Spec((d, N), ("fsdp", None)),
@@ -47,24 +48,31 @@ def mamba_specs(cfg) -> dict:
         "norm": Spec((di,), ("mlp",), init="ones"),
         "w_out": Spec((di, d), ("mlp", "fsdp")),
     }
+    if cfg.ssm_conv_bias:
+        sp["conv_x_b"] = Spec((di,), ("mlp",), init="zeros")
+        sp["conv_B_b"] = Spec((N,), (None,), init="zeros")
+        sp["conv_C_b"] = Spec((N,), (None,), init="zeros")
+    return sp
 
 
 # ------------------------------------------------------------ primitives ---
 def causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
-                          state: torch.Tensor | None = None):
-    """x (B, S, C), w (K, C): depthwise causal conv + silu.  With state
-    (B, K-1, C) (decode) it is prepended; returns (y, new_state).  DTensors
-    run it on their local batch rows and channels, S whole
-    (``on_shards``)."""
-    if any(is_dtensor(t) for t in (x, w, state)):
+                          state: torch.Tensor | None = None,
+                          bias: torch.Tensor | None = None):
+    """x (B, S, C), w (K, C), an optional bias (C,): depthwise causal conv
+    + silu.  With state (B, K-1, C) (decode) it is prepended; returns (y,
+    new_state).  DTensors run it on their local batch rows and channels, S
+    whole (``on_shards``)."""
+    if any(is_dtensor(t) for t in (x, w, state, bias)):
         bc = {"b": 0, "c": 2}
-        return on_shards(_conv, [x, w, state],
-                         [bc, {"c": 1}, None if state is None else bc],
+        return on_shards(_conv, [x, w, state, bias],
+                         [bc, {"c": 1}, None if state is None else bc,
+                          None if bias is None else {"c": 0}],
                          [bc, bc])
-    return _conv(x, w, state)
+    return _conv(x, w, state, bias)
 
 
-def _conv(x, w, state):
+def _conv(x, w, state, bias=None):
     S = x.shape[1]
     K = w.shape[0]
     if state is None:
@@ -75,6 +83,8 @@ def _conv(x, w, state):
     y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for k in range(K):
         y = y + xp[:, k:k + S].float() * w[k].float()
+    if bias is not None:
+        y = y + bias.float()
     new_state = xp[:, -(K - 1):] if K > 1 else xp[:, :0]
     return F.silu(y).to(x.dtype), new_state
 
@@ -124,17 +134,29 @@ def _scan(x, dt, A, Bm, Cm, D, chunk, h0):
                      [bh, {"b": 0, "h": 1}])
 
 
+def _convs(p, x, Bm, Cm, c):
+    """The three causal convs (and their biases, where the block has
+    them) with the cache's conv states ``c`` (empty: from zeros)."""
+    out = []
+    for f, t in (("conv_x", x), ("conv_B", Bm), ("conv_C", Cm)):
+        out += causal_depthwise_conv(t, p[f], c.get(f), p.get(f + "_b"))
+    return out
+
+
 def mamba_block(p, u, cfg, cache=None):
     """u (B, S, d).  cache: None (a prefill from scratch) or a dict with
     'conv_x', 'conv_B', 'conv_C' (B, K-1, .) and 'state' (B, H, P, N) for a
     chunked continuation; returns (out, new_cache)."""
+    with tracing.span("ssm.mixer"):
+        return _mamba_block(p, u, cfg, cache)
+
+
+def _mamba_block(p, u, cfg, cache):
     B, S, _ = u.shape
     H, P = cfg.ssm_heads, cfg.ssm_head_dim
     z, x, Bm, Cm, dt = _proj_ssm_inputs(p, u)
     c = cache or {}
-    x, cs_x = causal_depthwise_conv(x, p["conv_x"], c.get("conv_x"))
-    Bm, cs_B = causal_depthwise_conv(Bm, p["conv_B"], c.get("conv_B"))
-    Cm, cs_C = causal_depthwise_conv(Cm, p["conv_C"], c.get("conv_C"))
+    x, cs_x, Bm, cs_B, Cm, cs_C = _convs(p, x, Bm, Cm, c)
     # pad S to a chunk multiple; dt = 0 on the tail makes the padded steps
     # an exact identity on the state (decay exp(0 A) = 1, contribution 0)
     pad = (-S) % cfg.ssm_chunk
@@ -156,12 +178,15 @@ def mamba_block(p, u, cfg, cache=None):
 
 def mamba_decode(p, u, cfg, cache):
     """u (B, 1, d): one token; cache as for ``mamba_block``."""
+    with tracing.span("ssm.mixer"):
+        return _mamba_decode(p, u, cfg, cache)
+
+
+def _mamba_decode(p, u, cfg, cache):
     B = u.shape[0]
     H, P = cfg.ssm_heads, cfg.ssm_head_dim
     z, x, Bm, Cm, dt = _proj_ssm_inputs(p, u)
-    x, cs_x = causal_depthwise_conv(x, p["conv_x"], cache["conv_x"])
-    Bm, cs_B = causal_depthwise_conv(Bm, p["conv_B"], cache["conv_B"])
-    Cm, cs_C = causal_depthwise_conv(Cm, p["conv_C"], cache["conv_C"])
+    x, cs_x, Bm, cs_B, Cm, cs_C = _convs(p, x, Bm, Cm, cache)
     A = -torch.exp(p["A_log"].float())
     y, h = ssd_decode_step(x[:, 0].reshape(B, H, P), dt[:, 0], A, Bm[:, 0],
                            Cm[:, 0], p["D"].float(), cache["state"])

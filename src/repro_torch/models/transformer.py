@@ -1,6 +1,7 @@
 """Decoder-only LM: the dense family (gemma2 and qwen1.5 features
 included), the MoE family (granite-moe, phi3.5-moe), the ssm family
-(mamba2) and the hybrid family (zamba2).
+(mamba2), the hybrid family (zamba2) and the hybrid MoE family
+(granite-4.0-h).
 
 Depth is ``n_steps`` repetitions of a per-arch *pattern*, as in the JAX
 package's ``models/transformer.py``:
@@ -9,6 +10,15 @@ package's ``models/transformer.py``:
     gemma2          : ("local", "global")         n_steps = n_layers // 2
     ssm             : ("mamba",)                  n_steps = n_layers
     hybrid (zamba2) : ("mamba", "mamba", SHARED)  n_steps = n_layers // 2
+    hybrid_moe      : cfg.layer_pattern           n_steps = n_layers // period
+                      (granite-4.0-h: 5 x "mamba", "attn", 4 x "mamba")
+
+A hybrid MoE layer is h = x + r mixer(norm(x)), then x' = h + r (MoE(
+norm(h)) + shared(norm(h))), r = ``cfg.residual_mult``; its attention has
+no positions where ``cfg.use_rope`` is off and takes ``cfg.attn_scale`` as
+its softmax scale; the embedding is scaled by ``cfg.embed_mult`` and the
+logits divided by ``cfg.logits_div``.  Its caches sit side by side, a
+mamba entry or an attention entry a pattern position.
 
 Zamba2's SHARED transformer block (``n_shared_blocks`` alternating copies,
 applied after every pattern step on concat(hidden, the input embedding))
@@ -120,6 +130,8 @@ def mlp_specs_full(cfg: ModelConfig) -> dict:
 
 
 def _pattern(cfg: ModelConfig) -> tuple[list[str], int]:
+    if cfg.layer_pattern:
+        return list(cfg.layer_pattern), cfg.n_layers // len(cfg.layer_pattern)
     if cfg.family == "ssm":
         return ["mamba"], cfg.n_layers
     if cfg.family == "hybrid":
@@ -131,6 +143,13 @@ def _pattern(cfg: ModelConfig) -> tuple[list[str], int]:
 
 
 def _sub_specs(cfg: ModelConfig, kind: str) -> dict:
+    if cfg.family == "hybrid_moe":       # a pre-norm mixer, a pre-norm MoE
+        sp = ({"ln": Spec((cfg.d_model,), ("norm",), init="ones"),
+               "mamba": ssm.mamba_specs(cfg)} if kind == "mamba"
+              else {"attn": attn_specs(cfg)})
+        sp["ln_moe"] = Spec((cfg.d_model,), ("norm",), init="ones")
+        sp["moe"] = moe.moe_specs(cfg)
+        return sp
     if kind == "mamba":
         return {"mamba": ssm.mamba_specs(cfg)}
     sp = {"attn": attn_specs(cfg)}
@@ -201,13 +220,21 @@ def repeat_kv(k, r: int):
     return k[:, :, :, None].expand(B, S, H, r, D).reshape(B, S, H * r, D)
 
 
+def _residual(x, dx, cfg):
+    """x + dx, dx times ``cfg.residual_mult`` where that is not 1."""
+    if cfg.residual_mult == 1.0:
+        return x + dx
+    return x + dx * cfg.residual_mult
+
+
 def attn_sublayer(p, x, cfg, *, window, q_offset=0, cache=None, mode="train",
                   causal=True, mesh=None, rules=None):
     """Pre-norm attention residual sublayer.  cache: None (prefill) or one
     layer's {'k', 'v', 'len'} for a decode append (written in place).
     Returns (x_out, new_cache); in prefill mode new_cache = {'k', 'v'}
     (post-rope) for the decode cache.  On a mesh q, k and v take the
-    placements of their logical axes (heads on 'model')."""
+    placements of their logical axes (heads on 'model').  Without
+    ``cfg.use_rope`` q and k carry no positions."""
     B, S = x.shape[:2]
     xn = L.rmsnorm(p["ln"], x, cfg.norm_eps)
     q, k, v = _qkv(p, xn, cfg)
@@ -220,21 +247,25 @@ def attn_sublayer(p, x, cfg, *, window, q_offset=0, cache=None, mode="train",
                              mesh)
     new_cache = None
     if cache is None:
-        positions = q_offset + torch.arange(S, device=x.device)
-        q = L.apply_rope(q, positions[None, :], cfg.rope_theta)
-        k = L.apply_rope(k, positions[None, :], cfg.rope_theta)
+        if cfg.use_rope:
+            positions = q_offset + torch.arange(S, device=x.device)
+            q = L.apply_rope(q, positions[None, :], cfg.rope_theta)
+            k = L.apply_rope(k, positions[None, :], cfg.rope_theta)
         o = attention(q, k, v, impl=cfg.attn_impl, causal=causal,
-                      window=window, cap=cfg.attn_softcap, q_offset=q_offset)
+                      window=window, cap=cfg.attn_softcap, q_offset=q_offset,
+                      scale=cfg.attn_scale)
         if mode == "prefill":
             new_cache = {"k": k, "v": v}
     else:
         pos = cache["len"]                            # (B,) per-slot lengths
-        positions = pos[:, None] + torch.arange(S, device=x.device)[None, :]
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
+        if cfg.use_rope:
+            positions = pos[:, None] + torch.arange(S, device=x.device)[
+                None, :]
+            q = L.apply_rope(q, positions, cfg.rope_theta)
+            k = L.apply_rope(k, positions, cfg.rope_theta)
         ck, cv = _cache_append(cache, k, v, cfg)
         o = decode_attention(q, ck, cv, kv_valid=pos + 1, window=window,
-                             cap=cfg.attn_softcap)
+                             cap=cfg.attn_softcap, scale=cfg.attn_scale)
         # the reference's P.V einsum on the cache yields the cache's dtype
         o = o.to(cv.dtype).to(x.dtype)
         new_cache = dict(cache)
@@ -243,7 +274,7 @@ def attn_sublayer(p, x, cfg, *, window, q_offset=0, cache=None, mode="train",
     o = o.reshape(B, S, Hq * Dh) @ p["w_o"].reshape(Hq * Dh, d).to(x.dtype)
     if cfg.post_norm:
         o = L.rmsnorm(p["ln_post"], o, cfg.norm_eps)
-    return x + o, new_cache
+    return _residual(x, o, cfg), new_cache
 
 
 def _row_update(buf, val, pos):
@@ -328,7 +359,8 @@ def make_block_step(cfg: ModelConfig, mode: str, mesh=None, rules=None,
     the placements of ("batch", "resid_seq", "embed")."""
     pattern, _ = _pattern(cfg)
     window_for = {"local": cfg.sliding_window, "global": None,
-                  "block": cfg.sliding_window}
+                  "block": cfg.sliding_window, "attn": None}
+    hybrid_moe = cfg.family == "hybrid_moe"
 
     def step(carry, step_params, step_idx, cache_slice):
         x, q_offset = carry
@@ -342,24 +374,30 @@ def make_block_step(cfg: ModelConfig, mode: str, mesh=None, rules=None,
             p = step_params[f"s{i}_{kind}"]
             ckey = f"s{i}"
             csl = cache_slice.get(ckey) if mode == "decode" else None
-            if kind == "mamba":              # no pre-norm, as in the JAX model
+            if kind == "mamba":
+                # no pre-norm in the ssm and hybrid families, as in the JAX
+                # model
+                xn = L.rmsnorm(p["ln"], x, cfg.norm_eps) if hybrid_moe else x
                 if mode == "decode":
-                    dx, nc = ssm.mamba_decode(p["mamba"], x, cfg, csl)
+                    dx, nc = ssm.mamba_decode(p["mamba"], xn, cfg, csl)
                 else:
-                    dx, nc = ssm.mamba_block(p["mamba"], x, cfg)
-                x = x + dx
+                    dx, nc = ssm.mamba_block(p["mamba"], xn, cfg)
+                x = _residual(x, dx, cfg)
                 new_cache[ckey] = nc
-                continue
-            x, nc = attn_sublayer(p["attn"], x, cfg, window=window_for[kind],
-                                  q_offset=q_offset, cache=csl, mode=mode,
-                                  mesh=mesh, rules=rules)
-            if nc is not None:
-                new_cache[ckey] = nc
-            if cfg.family == "moe":
+                if not hybrid_moe:
+                    continue
+            else:
+                x, nc = attn_sublayer(p["attn"], x, cfg,
+                                      window=window_for[kind],
+                                      q_offset=q_offset, cache=csl, mode=mode,
+                                      mesh=mesh, rules=rules)
+                if nc is not None:
+                    new_cache[ckey] = nc
+            if cfg.family in ("moe", "hybrid_moe"):
                 xn = L.rmsnorm(p["ln_moe"], x, cfg.norm_eps)
                 dx, a = moe.moe_block(p["moe"], xn, cfg, mesh=mesh,
-                                      rules=rules)
-                x = x + dx
+                                      rules=rules, mode=mode)
+                x = _residual(x, dx, cfg)
                 aux = aux + a
             else:
                 x = mlp_sublayer(p["mlp"], x, cfg, mesh=mesh, rules=rules)
@@ -589,6 +627,8 @@ class DecoderLM:
         """Token embeddings (scaled where the config says so), after the
         prefix ``extra_embeds`` (B, P, d) where one is given."""
         x = L.embed_lookup(params["embed"]["embedding"], tokens, cdt)
+        if self.cfg.embed_mult != 1.0:
+            x = x * self.cfg.embed_mult
         if self.cfg.embed_scale:
             x = x * torch.sqrt(torch.tensor(float(self.cfg.d_model),
                                             dtype=torch.float32)).to(cdt)
@@ -601,7 +641,8 @@ class DecoderLM:
         x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         head = (params["embed"]["embedding"] if cfg.tie_embeddings
                 else params["lm_head"])
-        return L.unembed_logits(head, x, cfg.vocab, cfg.final_softcap)
+        logits = L.unembed_logits(head, x, cfg.vocab, cfg.final_softcap)
+        return logits if cfg.logits_div == 1.0 else logits / cfg.logits_div
 
     def _run(self, params, x, mode, q_offset=0, cache=None, mesh=None,
              rules=None):

@@ -1678,3 +1678,40 @@ def test_cuda_graphed_engine_by_family(cuda_device, arch):
     assert len(kept[0]) == len(kept[1]) == 16
     for i, (a, b) in enumerate(zip(*kept)):
         assert torch.equal(a, b), i
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_engine_granite_hybrid(cuda_device):
+    """granite-4.0-h-small at full width, one 10-layer period (nine Mamba-2
+    layers, one NoPE attention layer, each with its 18 held experts of 72
+    and the shared expert), 16 slots: the replaying engine gives the eager
+    engine's tokens and logits bit for bit over 16 steps with inserts
+    between them, and a replay adds to the decode route counters what an
+    eager step adds."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.registry import build_model
+    cfg = get_config("granite-4.0-h-small").replace(n_layers=10)
+    params = build_model(cfg).init(0, BF16, cuda_device)
+    graphed, eager = _engine_pair(cfg, params, cuda_device, 16, 512)
+    kept = [_keep_logits(e) for e in (graphed, eager)]
+    routes = []
+    for eng in (graphed, eager):
+        step = eng.step
+
+        def counted(step=step):
+            moe.reset_route_counts()
+            out = step()
+            routes.append(moe.route_counts("decode", cuda_device))
+            return out
+        eng.step = counted
+    (gd, gt), (ed, et) = _serve_both((graphed, eager), cfg.vocab, 16,
+                                     (40, 300), seed=2)
+    assert graphed.graph is not None
+    assert gd == ed and len(gd) > 4
+    assert all(torch.equal(a, b) for a, b in zip(gt, et))
+    assert len(kept[0]) == len(kept[1]) == 16
+    for i, (a, b) in enumerate(zip(*kept)):
+        assert torch.equal(a, b), i
+    assert routes[:16] == routes[16:]
+    assert all(rows == 10 * 16 * 18 * 4 for _, rows in routes)
