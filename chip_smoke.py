@@ -150,8 +150,9 @@ cell), ``attn_lstm_seq.cu``, ``rmsnorm.cu``, ``flash_attention.cu``,
 17. training at full width: ``train_loop.train`` on h2o-danube-1.8b (all
    24 layers, B=4, S=4096, 12 steps, remat full, from phase 8's
    ``well_conditioned`` params), every norm and attention
-   on the kernels through their ``autograd.Function``s (the backward the
-   plain versions recomputed): each step's loss, grad norm and lr, step
+   on the kernels through their ``autograd.Function``s (the norm's
+   backward the plain version recomputed, flash's its bf16 backward
+   kernels): each step's loss, grad norm and lr, step
    times, tokens a second, peak memory and two profiled steps; every loss
    finite, the last three steps' mean below step 1's, every leaf moved
    that bf16 can move at the run's lr;
@@ -204,7 +205,9 @@ norms a prefill and a decode step and 48 chunk scans a prefill of mamba2,
 12 flash a decode step of seamless; 2 x 2 x 24 + 1 norms and 2 x 24
 flash a train step of h2o-danube, 2 x 48 + 1 norms and 2 x 48
 chunk scans of mamba2: the layer steps run twice under remat, the
-backward launches nothing; phase 20 (a)'s sharded run launches what
+backward launches no forward kernel; phases 17, 18 (a) and 19 also hold
+flash's backward calls by path, ``BACKWARD_LAUNCHES``: one a dense layer
+a step on the kernels, none on the plain backward); phase 20 (a)'s sharded run launches what
 phase 18 (b)'s failed-and-resumed run launched, 9 steps of 2 x 2 x 2 + 1
 norms and 2 x 2 flash, and mamba2 at 2 layers 2 x 2 + 1 norms and 2 x 2
 scans a step in each of its two runs), each phase logs its seconds,
@@ -4810,9 +4813,10 @@ PROFILED_STEPS = 2            # the last steps of a run, under the profiler
 # phase 18: h2o-danube-1.8b at 2 of its 24 layers, full width
 RESTART_LAYERS, RESTART_STEPS, RESTART_EVERY, RESTART_FAIL_AT = 2, 8, 2, 5
 # a gradient through a kernel's autograd.Function against the plain
-# version's own autograd gradient on the same bf16 inputs: the backward is
-# that plain version, run a batch row at a time for flash (other cuBLAS
-# algorithms than one whole-batch call), so at most a bf16 rounding of an
+# version's own autograd gradient on the same bf16 inputs: the norm's and
+# the scan's backward is that plain version (other cuBLAS algorithms than
+# the reference's call), flash's its bf16 kernels (P and dS rounded to bf16
+# once each before their products), so at most about a bf16 rounding of an
 # element apart: within 1e-2 of the gradient's largest |element|
 GRAD_WIRING_REL = 1e-2
 # phase 18 (a): one step's loss and gradients, the kernels against the
@@ -4840,8 +4844,9 @@ def training_kernels_vs_plain():
     serving bars, each gradient of a seeded scalar against the plain
     version's own within ``GRAD_WIRING_REL`` (flash's plain gradient in four
     kv-head slices of the whole batch); the forward's call, kernel and bound
-    ms, the backward's ms (the plain version recomputed), the plain
-    forward's ms, and the library's forward and backward (``F.rms_norm``,
+    ms, the backward's ms (through the Function; flash's backward must
+    take its kernel path, and its kernels' device ms stand beside the
+    bound of five and of seven products), the plain forward's ms, and the library's forward and backward (``F.rms_norm``,
     SDPA with ``is_causal`` and GQA; none for the scan)."""
     import torch
     import torch.nn.functional as F
@@ -4865,10 +4870,14 @@ def training_kernels_vs_plain():
                    for a, b in zip(got, want))
 
     def measure(name, shape, call, plain, library, ins, plain_grads, fwd_err,
-                bnd, iters):
+                bnd, iters, bwd_symbol=None):
         """``call(*leaves)`` through the Function: its gradient against
-        ``plain_grads(r)``, then the times."""
+        ``plain_grads(r)``, then the times.  ``bwd_symbol`` (flash) names
+        the backward's own kernels: the gradient must take one backward
+        call on the kernel path and none on the plain one, and those
+        kernels' device time a backward call is recorded by kernel."""
         leaves = leaves_of(ins)
+        reset_launch_counts()
         with torch.enable_grad():
             y = call(*leaves)
             y0 = y[0] if isinstance(y, tuple) else y
@@ -4876,6 +4885,9 @@ def training_kernels_vs_plain():
             got = torch.autograd.grad((y0.float() * r).sum(), leaves,
                                       allow_unused=True)
         got = [g for g in got if g is not None]
+        if bwd_symbol is not None:
+            check(fk.BACKWARD_LAUNCHES == {"kernel": 1, "plain": 0},
+                  f"{name}: backward calls by path {fk.BACKWARD_LAUNCHES}")
         want = plain_grads(r)
         for t, g in zip(leaves, got):
             check(g.shape == t.shape and g.dtype == t.dtype
@@ -4900,8 +4912,15 @@ def training_kernels_vs_plain():
             used = [t for t, g in zip(leaves, torch.autograd.grad(
                 y0, leaves, g_out, retain_graph=True, allow_unused=True))
                 if g is not None]
-            rec["bwd_ms"] = time_ms(lambda: torch.autograd.grad(
-                y0, used, g_out, retain_graph=True), max(3, iters // 4), 1)
+            def bwd():
+                torch.autograd.grad(y0, used, g_out, retain_graph=True)
+            rec["bwd_ms"] = time_ms(bwd, max(3, iters // 4), 1)
+            if bwd_symbol is not None:
+                rec["bwd_kernels_ms"] = kernel_split_ms(
+                    bwd, bwd_symbol, max(3, iters // 4))
+                rec["bwd_kernel_ms"] = sum(rec["bwd_kernels_ms"].values())
+                check(rec["bwd_kernel_ms"] > 0,
+                      f"the profiler saw no {bwd_symbol} launch")
             del y, y0
         with torch.no_grad():
             rec["plain_ms"] = time_ms(lambda: plain(*ins), max(3, iters // 4))
@@ -4983,9 +5002,23 @@ def training_kernels_vs_plain():
         lambda q, k, v: _sdpa(q, k, v, None, causal=True), [q, k, v],
         flash_plain_grads, (e, row),
         flash_bound(B, Hq, Hkv, S, S, D, 2, flash_pairs(S, S, True,
-                                                        LLM_WINDOW)), 5)}
-    out["flash_attention"]["training h2o-danube-1.8b"][
-        "fwd_err_kind"] = "row"
+                                                        LLM_WINDOW)), 5,
+        bwd_symbol="flash_attention_bwd_")}
+    rec = out["flash_attention"]["training h2o-danube-1.8b"]
+    rec["fwd_err_kind"] = "row"
+    # the backward's least time by operations: FlashAttention-2's five
+    # products over the visible pairs (S, P, dP, dV, dK and dQ share them)
+    # and the seven these kernels compute, 2 D operations a product a pair
+    # and query head, over the bf16 tensor-core peak
+    pairs = flash_pairs(S, S, True, LLM_WINDOW)
+    for n in (5, 7):
+        rec[f"bwd_bound_ms_{n}_products"] = (
+            2 * B * Hq * pairs * D * n / BF16_TC_FLOP_PER_S * 1e3)
+    log(f"[2] flash_attention backward kernels {rec['bwd_kernels_ms']} "
+        f"ms a call, {rec['bwd_kernel_ms']:.4f} ms on the device against "
+        f"the bound of 5 products {rec['bwd_bound_ms_5_products']:.4f} ms "
+        f"({100 * rec['bwd_bound_ms_5_products'] / rec['bwd_kernel_ms']:.1f}"
+        f"% of the peak) and of 7 {rec['bwd_bound_ms_7_products']:.4f} ms")
     del q, k, v, y
     torch.cuda.empty_cache()
 
@@ -5019,7 +5052,7 @@ def training_kernels_vs_plain():
         for key, r in subs.items():
             log(f"[2] {name} ({key}) {r['shape']}: forward {r['call_ms']:.4f}"
                 f" ms a call ({r['kernel_ms']:.4f} ms on the device), "
-                f"backward (the plain version) {r['bwd_ms']:.4f} ms, plain "
+                f"backward {r['bwd_ms']:.4f} ms, plain "
                 f"forward {r['plain_ms']:.4f} ms, library forward "
                 f"{r['library_ms']} and backward {r['library_bwd_ms']} ms, "
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); forward "
@@ -5029,10 +5062,24 @@ def training_kernels_vs_plain():
     return out
 
 
+def backward_launches():
+    """flash's backward calls on the card by path (``kernel``, ``plain``)."""
+    from repro_torch.kernels import flash_attention
+    return dict(flash_attention.BACKWARD_LAUNCHES)
+
+
+def train_backward_per_step(cfg):
+    """flash's backward calls of one train step by path: one a dense layer
+    on the bf16 kernels (remat's recomputed forward is differentiated
+    once), none on the plain backward."""
+    return {"kernel": cfg.n_layers if cfg.family == "dense" else 0,
+            "plain": 0}
+
+
 def train_launches_per_step(cfg):
     """The kernel launches of one train step: each layer step's kernels
     twice (the forward and remat's recomputation in the backward; the
-    backward itself runs the plain versions), the final norm once.  A dense
+    backward itself launches no forward kernel), the final norm once.  A dense
     layer has two norms and one attention, a mamba layer the gated norm and
     one chunk scan."""
     per = 2 if cfg.remat != "none" else 1
@@ -5071,7 +5118,8 @@ def training(device, cfg, tc, tag, condition=None):
     second, peak memory, and the last ``PROFILED_STEPS`` steps under the
     profiler (device busy share, top device ops).  Checks: every loss and
     grad norm finite, the mean loss of the last three steps below step
-    1's, every param leaf moved from its init; the launch counts are the
+    1's, every param leaf moved from its init, flash's backward calls by
+    path ``train_backward_per_step`` a step; the launch counts are the
     caller's to hold (``expect``)."""
     import numpy as np
     import torch
@@ -5098,6 +5146,10 @@ def training(device, cfg, tc, tag, condition=None):
     busy = profile_stop(prof["p"], device)
     parse_s = time.perf_counter() - t_stop
     launches = {k: v for k, v in launch_counts().items() if v}
+    bwd_want = {k: v * tc.steps
+                for k, v in train_backward_per_step(cfg).items()}
+    check(backward_launches() == bwd_want, f"{tag} flash's backward calls "
+          f"by path {backward_launches()} != {bwd_want}")
     peak = _peak(device)
     check(len(hist) == tc.steps == len(marks)
           and [h["step"] for h in hist] == list(range(1, tc.steps + 1)),
@@ -5248,6 +5300,9 @@ def training_checks(device, cfg, tag="[18]", rows=TRAIN_BATCH,
     launches_a = {k: v for k, v in launch_counts().items() if v}
     check(device.type != "cuda" or launches_a == per_step,
           f"{tag} (a) launches {launches_a} != {per_step}")
+    bwd_a, bwd_want = backward_launches(), train_backward_per_step(cfg)
+    check(device.type != "cuda" or bwd_a == bwd_want,
+          f"{tag} (a) flash's backward calls by path {bwd_a} != {bwd_want}")
     zero = [p for p, g in gk.items() if not bool(g.any())
             or not bool(torch.isfinite(g).all())]
     check(not zero, f"{tag} (a) zero or non-finite gradients: {zero}")

@@ -1,7 +1,9 @@
-"""The backward every kernel's ``autograd.Function`` shares: the kernel
+"""The plain backward of the kernels' ``autograd.Function``s: the kernel
 runs the forward, and the gradients come from autograd through the plain
 version (``kernels/ref.py``) recomputed on the saved inputs, checkpoint
-style."""
+style.  The norm's, the chunk scan's and the LSTMs' Functions use it for
+every call; flash's only where its backward kernels do not take the call
+(float32, a head dim above 128)."""
 from __future__ import annotations
 
 import torch

@@ -1,6 +1,7 @@
 // Online-softmax (flash) attention with GQA, causal / sliding-window /
 // kv_valid masks and logit soft-cap, for Hopper (sm_90a), bound to PyTorch
-// through a plain C interface (ctypes).  Two kernels, chosen by dtype.
+// through a plain C interface (ctypes).  Two forward kernels, chosen by
+// dtype, and the bf16 backward's three (at the end of the file).
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_attention.py
 // (flash_attention, _kernel): q (B, Hq, Sq, D), k, v (B, Hkv, Skv, D) ->
@@ -65,6 +66,7 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -386,7 +388,11 @@ __device__ __forceinline__ void rescale_rows(float (&acc)[DT][4], float a0,
     }
 }
 
-template <int DP>
+// LSE: also write each query row's logsumexp in the kernel's base-2 domain,
+// lse = m * mul + log2(l) (+inf for a row with no visible key), f32 (B, Hq,
+// Sq) contiguous, so that p = exp2(x * mul - lse) for the backward; only the
+// training forward runs it, the inference call the LSE = false instantiation
+template <int DP, bool LSE>
 __global__ void __launch_bounds__(Tc<DP>::THREADS)
 flash_attention_bf16_tc_kernel(const bf16* __restrict__ q,
                                const bf16* __restrict__ k,
@@ -394,7 +400,7 @@ flash_attention_bf16_tc_kernel(const bf16* __restrict__ q,
                                bf16* __restrict__ o, int G, int Sq, int Skv,
                                int D, Strides st, int causal, int window,
                                float cap, int q_offset, int kv_valid,
-                               float scale) {
+                               float scale, float* __restrict__ lse) {
     using C = Tc<DP>;
     constexpr int BK = C::BK, LD = C::LD, BQ = C::BQ, NTH = C::THREADS;
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -595,26 +601,32 @@ flash_attention_bf16_tc_kernel(const bf16* __restrict__ q,
                     pack_bf16(o_acc[j][2 * rr] * inv,
                               o_acc[j][2 * rr + 1] * inv);
         }
+        if constexpr (LSE) {
+            if ((lane & 3) == 0)
+                lse[((long long)b * gridDim.y + h) * Sq + q0 + r] =
+                    l_r[rr] > 0.0f ? fmaf(m_r[rr], mul, log2f(l_r[rr]))
+                                   : INFINITY;
+        }
     }
 }
 
-template <int DP>
+template <int DP, bool LSE>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
                       int B, int Hq, int G, int Sq, int Skv, int D,
                       const Strides& st, int causal, int window, float cap,
-                      int q_offset, int kv_valid, float scale,
+                      int q_offset, int kv_valid, float scale, float* lse,
                       cudaStream_t stream) {
     const int smem = (int)Tc<DP>::SMEM;
     cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_bf16_tc_kernel<DP>,
+        flash_attention_bf16_tc_kernel<DP, LSE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     constexpr int BQ = Tc<DP>::BQ;
     const dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)Hq, (unsigned)B);
-    flash_attention_bf16_tc_kernel<DP><<<grid, Tc<DP>::THREADS, smem,
-                                         stream>>>(
+    flash_attention_bf16_tc_kernel<DP, LSE><<<grid, Tc<DP>::THREADS, smem,
+                                              stream>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, G, Sq, Skv,
-        D, st, causal, window, cap, q_offset, kv_valid, scale);
+        D, st, causal, window, cap, q_offset, kv_valid, scale, lse);
     return cudaGetLastError();
 }
 
@@ -627,15 +639,23 @@ __host__ int tc_width(int D) {
     return 0;
 }
 
+// lse null: the inference instantiation; else (D <= 128, the backward's
+// widths) it also writes the logsumexp
 cudaError_t dispatch_tc(const void* q, const void* k, const void* v, void* o,
                         int B, int Hq, int G, int Sq, int Skv, int D,
                         const Strides& st, int causal, int window, float cap,
-                        int q_offset, int kv_valid, float scale,
+                        int q_offset, int kv_valid, float scale, float* lse,
                         cudaStream_t s) {
 #define FA_TC(W)                                                          \
     case W:                                                               \
-        return launch_tc<W>(q, k, v, o, B, Hq, G, Sq, Skv, D, st, causal, \
-                            window, cap, q_offset, kv_valid, scale, s)
+        return lse ? launch_tc<W, (W <= 128)>(q, k, v, o, B, Hq, G, Sq,   \
+                                              Skv, D, st, causal, window, \
+                                              cap, q_offset, kv_valid,    \
+                                              scale, lse, s)              \
+                   : launch_tc<W, false>(q, k, v, o, B, Hq, G, Sq, Skv,   \
+                                         D, st, causal, window, cap,      \
+                                         q_offset, kv_valid, scale,       \
+                                         nullptr, s)
     switch (tc_width(D)) {
         FA_TC(16);
         FA_TC(32);
@@ -647,6 +667,561 @@ cudaError_t dispatch_tc(const void* q, const void* k, const void* v, void* o,
             return cudaErrorInvalidValue;
     }
 #undef FA_TC
+}
+
+// ================================== bfloat16 backward, tensor cores
+// FlashAttention-2's backward from the forward's saved per-row logsumexp,
+// three launches a call, no atomics (the gradients are deterministic):
+//   flash_attention_bwd_dsum_kernel: Di = rowsum(dO * O), f32, a warp a row;
+//   flash_attention_bwd_dkdv_kernel: one CTA a 64-key tile of one kv head
+//     (16 keys a warp), looping over the G query heads of its group and the
+//     64-query tiles that see the tile (causal from the diagonal, window,
+//     kv_valid, q_offset); per tile it recomputes S^T = K Q^T and
+//     P^T = exp2(x * mul - lse), dP^T = V dO^T, dS^T = P^T (dP^T - Di)
+//     (times 1 - (x / cap)^2 under a cap), then dV += P^T dO, dK += dS^T Q;
+//     dK and dV are written once;
+//   flash_attention_bwd_dq_kernel: one CTA a 64-query tile of one query
+//     head (16 rows a warp), looping over the visible 64-key tiles:
+//     S = Q K^T, P, dP = dO V^T, dS as above, dQ += dS K; dQ written once.
+// Two products are recomputed against FA2's five (seven in all), the price
+// of writing each gradient once without an f32 dQ scratch.  The products
+// are mma.sync m16n8k16 bf16 -> f32: each 16-row product's accumulator
+// fragments are the A operand of the next one (P^T and dS^T rounded to bf16
+// in registers, as the forward's P), so P and dS never pass through shared
+// memory; B operands come from shared tiles by ldmatrix (.trans where the
+// operand's rows are the reduced dimension).  The streamed tiles (Q, dO,
+// lse and Di; or K and V) take a two-stage cp.async ring.  The scale is
+// applied to dQ and dK once, at the write; lse, Di and every sum are f32.
+// The heaviest tiles launch first: under a causal mask the first key tiles
+// and the last query tiles see the most of the other side.
+
+// DP: the instantiated (padded) head dimension, a multiple of 16, <= 128
+template <int DP> struct Bw {
+    static constexpr int NWARP = 4, NTHR = 32 * NWARP;
+    static constexpr int TILE = 16 * NWARP;   // rows of a CTA's own tile and
+                                              // of each streamed tile
+    static constexpr int STEP = 32;           // columns of S a register step
+    static constexpr int LDS = DP + 8;        // shared row, elements
+    static constexpr int KS = DP / 16, DTL = DP / 8, NTS = STEP / 8;
+    // dK/dV re-reads its K and V fragments from shared memory each step
+    // rather than holding them in registers, which lets three CTAs share an
+    // SM at D <= 80 (at the training shape 8% faster at D = 80, 13% at 64,
+    // bit for bit the same; at 128 the accumulators alone take 128 registers).
+    // The CTAs an SM each kernel's launch bounds ask for; a thread then has
+    // at most 65536 / (NTHR x CTAs) registers.
+    static constexpr int KV_CTAS = DP <= 80 ? 3 : 2;
+    static constexpr int Q_CTAS = DP <= 80 ? 3 : 2;
+    // six tiles (the CTA's two and two stages of two streamed ones), then
+    // two stages of lse and Di (dK/dV)
+    static constexpr long long SMEM = 2LL * LDS * 6 * TILE + 4LL * 4 * TILE;
+};
+
+struct BwdStrides {
+    // (B, H, S) element strides of q, k, v, o, dO, dq, dk, dv
+    long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os, gb, gh, gs,
+        dqb, dqh, dqs, dkb, dkh, dks, dvb, dvh, dvs;
+};
+
+// 4 bytes global -> shared; zero-fills the destination when !ok
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool ok) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(ok ? 4 : 0));
+}
+
+// the padded columns [D, DP) of `rows` shared rows set to zero (the copies
+// never write them)
+template <int DP, int LD, int NTH>
+__device__ __forceinline__ void zero_pad(bf16* s, int rows, int D, int tid) {
+    if (D < DP) {
+        const int pad = DP - D;
+        for (int i = tid; i < rows * pad; i += NTH) {
+            const int r = i / pad;
+            s[r * LD + D + (i - r * pad)] = __float2bfloat16_rn(0.0f);
+        }
+    }
+}
+
+// Di = rowsum(dO * O) in f32 over rows (b, h, i), a warp a row
+__global__ void __launch_bounds__(256)
+flash_attention_bwd_dsum_kernel(const bf16* __restrict__ o,
+                                const bf16* __restrict__ dout,
+                                float* __restrict__ dsum, int Hq, int Sq,
+                                int D, BwdStrides st, long long rows) {
+    const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (row >= rows) return;
+    const long long bh = row / Sq;
+    const int i = (int)(row - bh * Sq), h = (int)(bh % Hq);
+    const long long b = bh / Hq;
+    const bf16* op = o + b * st.ob + h * st.oh + (long long)i * st.os;
+    const bf16* gp = dout + b * st.gb + h * st.gh + (long long)i * st.gs;
+    float acc = 0.0f;
+    for (int d = 2 * lane; d < D; d += 64) {
+        const float2 a = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(op + d));
+        const float2 g = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(gp + d));
+        acc = fmaf(a.x, g.x, fmaf(a.y, g.y, acc));
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+        acc += __shfl_xor_sync(kFull, acc, off);
+    if (lane == 0) dsum[row] = acc;
+}
+
+// the score x (capped where a cap is set) of a raw product s, and the
+// derivative of x by s * scale (1 without a cap)
+__device__ __forceinline__ float capped(float s, float cap, float scale,
+                                        float& dx) {
+    if (cap > 0.0f) {
+        const float x = cap * tanhf(s * scale / cap), t = x / cap;
+        dx = 1.0f - t * t;
+        return x;
+    }
+    dx = 1.0f;
+    return s;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(Bw<DP>::NTHR, Bw<DP>::KV_CTAS)
+flash_attention_bwd_dkdv_kernel(const bf16* __restrict__ q,
+                                const bf16* __restrict__ k,
+                                const bf16* __restrict__ v,
+                                const bf16* __restrict__ dout,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ dsum,
+                                bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                int Hkv, int G, int Sq, int Skv, int D,
+                                BwdStrides st, int causal, int window,
+                                float cap, int q_offset, int kv_valid,
+                                float scale) {
+    using C = Bw<DP>;
+    constexpr int T = C::TILE, LD = C::LDS, NTH = C::NTHR, STEP = C::STEP;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* sK = reinterpret_cast<bf16*>(smem_raw);
+    bf16* sV = sK + T * LD;
+    bf16* sQ = sV + T * LD;                          // [2][T][LD]
+    bf16* sG = sQ + 2 * T * LD;                      // dO, [2][T][LD]
+    float* sL = reinterpret_cast<float*>(sG + 2 * T * LD);   // lse, [2][T]
+    float* sDi = sL + 2 * T;                                 // Di, [2][T]
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int b = blockIdx.x / Hkv, hk = blockIdx.x - b * Hkv, Hq = Hkv * G;
+    const int kb = blockIdx.y * T, nk = min(T, Skv - kb);
+    const int kv_lim = kv_valid >= 0 ? min(Skv, kv_valid) : Skv;
+    const int k_end = min(kb + nk, kv_lim);
+    // the queries that see a key of [kb, k_end): [i_lo, i_hi)
+    const int i_lo = causal ? max(0, kb - q_offset) : 0;
+    const int i_hi = window > 0 ? min(Sq, k_end - 1 + window - q_offset) : Sq;
+    const int n_qt = k_end > kb && i_hi > i_lo ? (i_hi - i_lo + T - 1) / T : 0;
+    const int n_it = G * n_qt;                       // (head, query tile)s
+    const float mul = (cap > 0.0f ? 1.0f : scale) * kLog2e;
+
+    zero_pad<DP, LD, NTH>(sK, 6 * T, D, tid);
+    if (D < DP) __syncthreads();
+
+    auto load_q = [&](int it) {
+        if (it < n_it) {
+            const int g = it / n_qt, i0 = i_lo + (it - g * n_qt) * T;
+            const int h = hk * G + g, n = min(T, Sq - i0), stg = it & 1;
+            load_tile<LD, NTH>(sQ + stg * T * LD,
+                               q + b * st.qb + h * st.qh
+                                   + (long long)i0 * st.qs,
+                               st.qs, n, T, D, tid);
+            load_tile<LD, NTH>(sG + stg * T * LD,
+                               dout + b * st.gb + h * st.gh
+                                   + (long long)i0 * st.gs,
+                               st.gs, n, T, D, tid);
+            const int r = tid & (T - 1);             // NTH = 2 T
+            const long long at = ((long long)b * Hq + h) * Sq + i0
+                                 + (r < n ? r : 0);
+            cp_async4(smem_u32((tid < T ? sL : sDi) + stg * T + r),
+                      (tid < T ? lse : dsum) + at, r < n);
+        }
+        cp_async_commit();
+    };
+    load_tile<LD, NTH>(sK, k + b * st.kb + hk * st.kh + (long long)kb * st.ks,
+                       st.ks, nk, T, D, tid);
+    load_tile<LD, NTH>(sV, v + b * st.vb + hk * st.vh + (long long)kb * st.vs,
+                       st.vs, nk, T, D, tid);
+    load_q(0);                                       // with K and V
+
+    // this warp's 16 keys: rows r0 .. r0 + 15 of the tile; a lane's two are
+    // r0 + lane / 4 and that + 8
+    const int r0 = warp * 16;
+    const int kpos_a = kb + r0 + (lane >> 2);
+    float dk_acc[C::DTL][4], dv_acc[C::DTL][4];
+#pragma unroll
+    for (int j = 0; j < C::DTL; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.0f;
+    const int a_off = (r0 + (lane & 15)) * LD + (lane >> 4) * 8;
+    const uint32_t k_a = smem_u32(sK + a_off), v_a = smem_u32(sV + a_off);
+    // B fragments of a (query, d) tile: as is for K Q^T and V dO^T,
+    // transposed for P^T dO and dS^T Q
+    const int b_off = ((lane & 7) + ((lane >> 4) << 3)) * LD
+                      + ((lane >> 3) & 1) * 8;
+    const int t_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * LD
+                      + (lane >> 4) * 8;
+
+    for (int it = 0; it < n_it; ++it) {
+        cp_async_wait<0>();                  // tile it (and K, V) copied
+        __syncthreads();                     // ... by every thread, and the
+                                             // other stage free
+        load_q(it + 1);                      // overlaps this tile's work
+        const int stg = it & 1, g = it / n_qt;
+        const int i0 = i_lo + (it - g * n_qt) * T, qpos0 = q_offset + i0;
+        // every query of the tile sees every key of this CTA's tile
+        const bool whole = kb + T <= kv_lim && i0 + T <= Sq
+                           && (!causal || kb + T - 1 <= qpos0)
+                           && (window <= 0 || qpos0 + T - 1 - kb < window);
+        const bf16* sQt = sQ + stg * T * LD;
+        const bf16* sGt = sG + stg * T * LD;
+        const float* sLt = sL + stg * T;
+        const float* sDt = sDi + stg * T;
+#pragma unroll 1
+        for (int sb = 0; sb < T / STEP; ++sb) {
+            // S^T = K Q^T and dP^T = V dO^T: 16 keys x STEP queries a warp
+            float s[C::NTS][4], dp[C::NTS][4];
+#pragma unroll
+            for (int j = 0; j < C::NTS; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+            const uint32_t q_b = smem_u32(sQt + sb * STEP * LD + b_off);
+            const uint32_t g_b = smem_u32(sGt + sb * STEP * LD + b_off);
+#pragma unroll
+            for (int ks = 0; ks < C::KS; ++ks) {
+                uint32_t ak[4], av[4];
+                ldsm_x4(ak, k_a + ks * 32);
+                ldsm_x4(av, v_a + ks * 32);
+#pragma unroll
+                for (int n2 = 0; n2 < C::NTS / 2; ++n2) {
+                    uint32_t bb[4];
+                    ldsm_x4(bb, q_b + (n2 * 16 * LD + ks * 16) * 2);
+                    mma_bf16(s[2 * n2], ak, bb[0], bb[1]);
+                    mma_bf16(s[2 * n2 + 1], ak, bb[2], bb[3]);
+                    ldsm_x4(bb, g_b + (n2 * 16 * LD + ks * 16) * 2);
+                    mma_bf16(dp[2 * n2], av, bb[0], bb[1]);
+                    mma_bf16(dp[2 * n2 + 1], av, bb[2], bb[3]);
+                }
+            }
+            // P^T and dS^T in place: element (key kpos_a + 8 (e / 2),
+            // query sb STEP + 8 j + 2 (lane % 4) + e % 2)
+#pragma unroll
+            for (int j = 0; j < C::NTS; ++j) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int qi = sb * STEP + j * 8 + 2 * (lane & 3) + (e & 1);
+                    float dx;
+                    const float x = capped(s[j][e], cap, scale, dx);
+                    float p = exp2f(fmaf(x, mul, -sLt[qi]));
+                    if (!whole && (i0 + qi >= Sq
+                                   || !visible(kpos_a + 8 * (e >> 1),
+                                               qpos0 + qi, kv_lim, causal,
+                                               window)))
+                        p = 0.0f;
+                    s[j][e] = p;
+                    dp[j][e] = p * (dp[j][e] - sDt[qi]) * dx;
+                }
+            }
+            // dV += P^T dO and dK += dS^T Q, 16 queries a step
+            const uint32_t g_t = smem_u32(sGt + sb * STEP * LD + t_off);
+            const uint32_t q_t = smem_u32(sQt + sb * STEP * LD + t_off);
+#pragma unroll
+            for (int kc = 0; kc < STEP / 16; ++kc) {
+                const uint32_t ap[4] = {
+                    pack_bf16(s[2 * kc][0], s[2 * kc][1]),
+                    pack_bf16(s[2 * kc][2], s[2 * kc][3]),
+                    pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+                    pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+                const uint32_t ad[4] = {
+                    pack_bf16(dp[2 * kc][0], dp[2 * kc][1]),
+                    pack_bf16(dp[2 * kc][2], dp[2 * kc][3]),
+                    pack_bf16(dp[2 * kc + 1][0], dp[2 * kc + 1][1]),
+                    pack_bf16(dp[2 * kc + 1][2], dp[2 * kc + 1][3])};
+#pragma unroll
+                for (int d2 = 0; d2 < C::DTL / 2; ++d2) {
+                    uint32_t bb[4];
+                    ldsm_x4_t(bb, g_t + (kc * 16 * LD + d2 * 16) * 2);
+                    mma_bf16(dv_acc[2 * d2], ap, bb[0], bb[1]);
+                    mma_bf16(dv_acc[2 * d2 + 1], ap, bb[2], bb[3]);
+                    ldsm_x4_t(bb, q_t + (kc * 16 * LD + d2 * 16) * 2);
+                    mma_bf16(dk_acc[2 * d2], ad, bb[0], bb[1]);
+                    mma_bf16(dk_acc[2 * d2 + 1], ad, bb[2], bb[3]);
+                }
+            }
+        }
+    }
+    cp_async_wait<0>();                      // no copy outlives the CTA
+
+    // dK (times the scale) and dV, rounded once; keys past Skv and columns
+    // past D dropped; a tile no query sees writes zeros
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+        const int kpos = kpos_a + 8 * rr;
+        if (kpos >= Skv) continue;
+        bf16* kp = dk + b * st.dkb + hk * st.dkh + (long long)kpos * st.dks;
+        bf16* vp = dv + b * st.dvb + hk * st.dvh + (long long)kpos * st.dvs;
+#pragma unroll
+        for (int j = 0; j < C::DTL; ++j) {
+            const int col = j * 8 + 2 * (lane & 3);
+            if (col < D) {
+                *reinterpret_cast<uint32_t*>(kp + col) =
+                    pack_bf16(dk_acc[j][2 * rr] * scale,
+                              dk_acc[j][2 * rr + 1] * scale);
+                *reinterpret_cast<uint32_t*>(vp + col) =
+                    pack_bf16(dv_acc[j][2 * rr], dv_acc[j][2 * rr + 1]);
+            }
+        }
+    }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(Bw<DP>::NTHR, Bw<DP>::Q_CTAS)
+flash_attention_bwd_dq_kernel(const bf16* __restrict__ q,
+                              const bf16* __restrict__ k,
+                              const bf16* __restrict__ v,
+                              const bf16* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ dsum,
+                              bf16* __restrict__ dq, int Hq, int G, int Sq,
+                              int Skv, int D, BwdStrides st, int causal,
+                              int window, float cap, int q_offset,
+                              int kv_valid, float scale) {
+    using C = Bw<DP>;
+    constexpr int T = C::TILE, LD = C::LDS, NTH = C::NTHR, STEP = C::STEP;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+    bf16* sG = sQ + T * LD;                          // dO
+    bf16* sK = sG + T * LD;                          // [2][T][LD]
+    bf16* sV = sK + 2 * T * LD;                      // [2][T][LD]
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int b = blockIdx.x / Hq, h = blockIdx.x - b * Hq, hk = h / G;
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * T, nq = min(T, Sq - q0);
+    const int qpos0 = q_offset + q0;
+    const KeyRange kr = key_range(qpos0, nq, Skv, causal, window, kv_valid);
+    const int kb0 = (kr.k_lo / T) * T;
+    const int n_tiles = kr.k_hi > kb0 ? (kr.k_hi - kb0 + T - 1) / T : 0;
+    const float mul = (cap > 0.0f ? 1.0f : scale) * kLog2e;
+    const bf16* kp = k + b * st.kb + hk * st.kh;
+    const bf16* vp = v + b * st.vb + hk * st.vh;
+
+    zero_pad<DP, LD, NTH>(sQ, 6 * T, D, tid);
+    if (D < DP) __syncthreads();
+
+    auto load_kv = [&](int i) {
+        if (i < n_tiles) {
+            const int kb = kb0 + i * T, stg = i & 1;
+            load_tile<LD, NTH>(sK + stg * T * LD, kp + (long long)kb * st.ks,
+                               st.ks, min(T, Skv - kb), T, D, tid);
+            load_tile<LD, NTH>(sV + stg * T * LD, vp + (long long)kb * st.vs,
+                               st.vs, min(T, Skv - kb), T, D, tid);
+        }
+        cp_async_commit();
+    };
+    load_tile<LD, NTH>(sQ, q + b * st.qb + h * st.qh + (long long)q0 * st.qs,
+                       st.qs, nq, T, D, tid);
+    load_tile<LD, NTH>(sG, dout + b * st.gb + h * st.gh
+                               + (long long)q0 * st.gs,
+                       st.gs, nq, T, D, tid);
+    load_kv(0);                                      // with Q and dO
+
+    // this lane's two query rows: r_a and r_a + 8; a row past Sq takes
+    // lse = +inf, so its p is 0
+    const int r_a = warp * 16 + (lane >> 2);
+    const int qpos_a = qpos0 + r_a, qpos_b = qpos_a + 8;
+    float l_r[2], d_r[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+        const int r = r_a + 8 * rr;
+        const long long at = ((long long)b * Hq + h) * Sq + q0 + r;
+        l_r[rr] = r < nq ? lse[at] : INFINITY;
+        d_r[rr] = r < nq ? dsum[at] : 0.0f;
+    }
+    float dq_acc[C::DTL][4];
+#pragma unroll
+    for (int j = 0; j < C::DTL; ++j)
+        dq_acc[j][0] = dq_acc[j][1] = dq_acc[j][2] = dq_acc[j][3] = 0.0f;
+    uint32_t qf[C::KS][4], gf[C::KS][4];
+    const int a_off = (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
+    const int b_off = ((lane & 7) + ((lane >> 4) << 3)) * LD
+                      + ((lane >> 3) & 1) * 8;
+    const int t_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * LD
+                      + (lane >> 4) * 8;
+    const int q_last = qpos0 + nq - 1;
+
+    for (int t = 0; t < n_tiles; ++t) {
+        const int kb = kb0 + t * T, stg = t & 1;
+        cp_async_wait<0>();                  // tile t (and Q, dO) copied
+        __syncthreads();
+        load_kv(t + 1);
+        if (t == 0) {
+#pragma unroll
+            for (int ks = 0; ks < C::KS; ++ks) {
+                ldsm_x4(qf[ks], smem_u32(sQ + a_off) + ks * 32);
+                ldsm_x4(gf[ks], smem_u32(sG + a_off) + ks * 32);
+            }
+        }
+        const bool whole = kb + T <= kr.kv_lim
+                           && (!causal || kb + T - 1 <= qpos0)
+                           && (window <= 0 || q_last - kb < window);
+#pragma unroll 1
+        for (int sb = 0; sb < T / STEP; ++sb) {
+            const int kbs = kb + sb * STEP;
+            const bf16* sKt = sK + (stg * T + sb * STEP) * LD;
+            const bf16* sVt = sV + (stg * T + sb * STEP) * LD;
+            // S = Q K^T and dP = dO V^T: 16 rows x STEP keys a warp
+            float s[C::NTS][4], dp[C::NTS][4];
+#pragma unroll
+            for (int j = 0; j < C::NTS; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+            const uint32_t k_b = smem_u32(sKt + b_off);
+            const uint32_t v_b = smem_u32(sVt + b_off);
+#pragma unroll
+            for (int ks = 0; ks < C::KS; ++ks) {
+#pragma unroll
+                for (int n2 = 0; n2 < C::NTS / 2; ++n2) {
+                    uint32_t bb[4];
+                    ldsm_x4(bb, k_b + (n2 * 16 * LD + ks * 16) * 2);
+                    mma_bf16(s[2 * n2], qf[ks], bb[0], bb[1]);
+                    mma_bf16(s[2 * n2 + 1], qf[ks], bb[2], bb[3]);
+                    ldsm_x4(bb, v_b + (n2 * 16 * LD + ks * 16) * 2);
+                    mma_bf16(dp[2 * n2], gf[ks], bb[0], bb[1]);
+                    mma_bf16(dp[2 * n2 + 1], gf[ks], bb[2], bb[3]);
+                }
+            }
+            // P and dS in place: rows r_a (e = 0, 1) and r_a + 8 (e = 2, 3)
+#pragma unroll
+            for (int j = 0; j < C::NTS; ++j) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    float dx;
+                    const float x = capped(s[j][e], cap, scale, dx);
+                    float p = exp2f(fmaf(x, mul, -l_r[e >> 1]));
+                    if (!whole) {
+                        const int kpos = kbs + j * 8 + 2 * (lane & 3) + (e & 1);
+                        if (!visible(kpos, e < 2 ? qpos_a : qpos_b, kr.kv_lim,
+                                     causal, window))
+                            p = 0.0f;
+                    }
+                    dp[j][e] = p * (dp[j][e] - d_r[e >> 1]) * dx;
+                }
+            }
+            // dQ += dS K, 16 keys a step
+            const uint32_t k_t = smem_u32(sKt + t_off);
+#pragma unroll
+            for (int kc = 0; kc < STEP / 16; ++kc) {
+                const uint32_t a[4] = {
+                    pack_bf16(dp[2 * kc][0], dp[2 * kc][1]),
+                    pack_bf16(dp[2 * kc][2], dp[2 * kc][3]),
+                    pack_bf16(dp[2 * kc + 1][0], dp[2 * kc + 1][1]),
+                    pack_bf16(dp[2 * kc + 1][2], dp[2 * kc + 1][3])};
+#pragma unroll
+                for (int d2 = 0; d2 < C::DTL / 2; ++d2) {
+                    uint32_t bb[4];
+                    ldsm_x4_t(bb, k_t + (kc * 16 * LD + d2 * 16) * 2);
+                    mma_bf16(dq_acc[2 * d2], a, bb[0], bb[1]);
+                    mma_bf16(dq_acc[2 * d2 + 1], a, bb[2], bb[3]);
+                }
+            }
+        }
+    }
+    cp_async_wait<0>();
+
+    // dQ times the scale, rounded once; rows past Sq dropped
+    bf16* dqp = dq + b * st.dqb + h * st.dqh + (long long)q0 * st.dqs;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+        const int r = r_a + 8 * rr;
+        if (r >= nq) continue;
+#pragma unroll
+        for (int j = 0; j < C::DTL; ++j) {
+            const int col = j * 8 + 2 * (lane & 3);
+            if (col < D)
+                *reinterpret_cast<uint32_t*>(dqp + (long long)r * st.dqs
+                                             + col) =
+                    pack_bf16(dq_acc[j][2 * rr] * scale,
+                              dq_acc[j][2 * rr + 1] * scale);
+        }
+    }
+}
+
+template <int DP>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* dsum,
+                       void* dq, void* dk, void* dv, int B, int Hq, int Hkv,
+                       int Sq, int Skv, int D, const BwdStrides& st,
+                       int causal, int window, float cap, int q_offset,
+                       int kv_valid, float scale, cudaStream_t stream) {
+    using C = Bw<DP>;
+    const int smem = (int)C::SMEM, G = Hq / Hkv;
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_bwd_dkdv_kernel<DP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(
+            flash_attention_bwd_dq_kernel<DP>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 g_kv((unsigned)(B * Hkv), (unsigned)((Skv + C::TILE - 1)
+                                                    / C::TILE));
+    flash_attention_bwd_dkdv_kernel<DP><<<g_kv, C::NTHR, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+        lse, dsum, (bf16*)dk, (bf16*)dv, Hkv, G, Sq, Skv, D, st, causal,
+        window, cap, q_offset, kv_valid, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const dim3 g_q((unsigned)(B * Hq), (unsigned)((Sq + C::TILE - 1)
+                                                  / C::TILE));
+    flash_attention_bwd_dq_kernel<DP><<<g_q, C::NTHR, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+        lse, dsum, (bf16*)dq, Hq, G, Sq, Skv, D, st, causal, window, cap,
+        q_offset, kv_valid, scale);
+    return cudaGetLastError();
+}
+
+// the instantiated width of the backward at head dimension D (0: none)
+__host__ int bwd_width(int D) {
+    const int w = tc_width(D);
+    return w <= 128 ? w : 0;
+}
+
+long long bwd_smem_bytes(int D) {
+    switch (bwd_width(D)) {
+        case 16: return Bw<16>::SMEM;
+        case 32: return Bw<32>::SMEM;
+        case 64: return Bw<64>::SMEM;
+        case 80: return Bw<80>::SMEM;
+        case 128: return Bw<128>::SMEM;
+        default: return 0;
+    }
+}
+
+cudaError_t dispatch_bwd(const void* q, const void* k, const void* v,
+                         const void* dout, const float* lse,
+                         const float* dsum, void* dq, void* dk, void* dv,
+                         int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                         const BwdStrides& st, int causal, int window,
+                         float cap, int q_offset, int kv_valid, float scale,
+                         cudaStream_t s) {
+#define FA_BWD(W)                                                          \
+    case W:                                                                \
+        return launch_bwd<W>(q, k, v, dout, lse, dsum, dq, dk, dv, B, Hq,  \
+                             Hkv, Sq, Skv, D, st, causal, window, cap,     \
+                             q_offset, kv_valid, scale, s)
+    switch (bwd_width(D)) {
+        FA_BWD(16);
+        FA_BWD(32);
+        FA_BWD(64);
+        FA_BWD(80);
+        FA_BWD(128);
+        default:
+            return cudaErrorInvalidValue;
+    }
+#undef FA_BWD
 }
 
 }  // namespace
@@ -672,27 +1247,67 @@ long long flash_attention_smem_bytes(int D, int dtype) {
 // D has unit stride.  dtype: 0 = float32 (the CUDA-core kernel), 1 =
 // bfloat16 (the tensor-core kernel: D a multiple of 16, base pointers and
 // strides 16-byte aligned, as the wrapper checks).  window <= 0 means none,
-// cap <= 0 none, kv_valid < 0 none; causal is 0 or 1.  Returns the CUDA
-// error code of the attribute call or of the launch (0 = launched); a
-// shape or dtype the kernels do not take returns cudaErrorInvalidValue.
+// cap <= 0 none, kv_valid < 0 none; causal is 0 or 1.  lse: null, or (bf16
+// at D <= 128 only) a contiguous f32 (B, Hq, Sq) buffer for each row's base-2
+// logsumexp, for the backward.  Returns the CUDA error code of the
+// attribute call or of the launch (0 = launched); a shape or dtype the
+// kernels do not take returns cudaErrorInvalidValue.
 int flash_attention_forward(const void* q, const void* k, const void* v,
                             void* o, int B, int Hq, int Hkv, int Sq, int Skv,
                             int D, const long long* strides, int causal,
                             int window, float cap, int q_offset, int kv_valid,
-                            float scale, int dtype, void* stream) {
+                            float scale, int dtype, void* stream,
+                            float* lse) {
     Strides st{strides[0], strides[1], strides[2], strides[3], strides[4],
                strides[5], strides[6], strides[7], strides[8], strides[9],
                strides[10], strides[11]};
     const int G = Hq / Hkv;
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err = cudaErrorInvalidValue;
-    if (dtype == 0)
+    if (lse && bwd_width(D) == 0) return (int)cudaErrorInvalidValue;
+    if (dtype == 0 && !lse)
         err = dispatch_f32(q, k, v, o, B, Hq, G, Sq, Skv, D, st, causal,
                            window, cap, q_offset, kv_valid, scale, s);
     else if (dtype == 1)
         err = dispatch_tc(q, k, v, o, B, Hq, G, Sq, Skv, D, st, causal,
-                          window, cap, q_offset, kv_valid, scale, s);
+                          window, cap, q_offset, kv_valid, scale, lse, s);
     return (int)err;
+}
+
+// Bytes of dynamic shared memory a backward CTA needs at head dimension D
+// (bf16; 0 where the backward kernels do not take D: above 128).
+long long flash_attention_bwd_smem_bytes(int D) { return bwd_smem_bytes(D); }
+
+// The bf16 backward from the training forward's outputs o and lse: dq, dk,
+// dv of a loss with gradient dout at o.  strides: 24 element strides, (B,
+// H, S) for q, k, v, o, dout, dq, dk, dv in that order (D unit stride;
+// 16-byte aligned base pointers and strides, as the wrapper checks; dq,
+// dk, dv are written in full).  dsum: f32 (B, Hq, Sq) scratch for Di; lse
+// as the forward wrote it.  Options as the forward's.  Three launches on
+// the stream; returns the first CUDA error code (0 = launched), or
+// cudaErrorInvalidValue at a D the kernels do not take.
+int flash_attention_backward(const void* q, const void* k, const void* v,
+                             const void* o, const void* dout,
+                             const float* lse, float* dsum, void* dq,
+                             void* dk, void* dv, int B, int Hq, int Hkv,
+                             int Sq, int Skv, int D,
+                             const long long* strides, int causal,
+                             int window, float cap, int q_offset,
+                             int kv_valid, float scale, void* stream) {
+    if (bwd_width(D) == 0 || Hkv <= 0 || Hq % Hkv)
+        return cudaErrorInvalidValue;
+    BwdStrides st;
+    memcpy(&st, strides, sizeof st);
+    cudaStream_t s = (cudaStream_t)stream;
+    const long long rows = (long long)B * Hq * Sq;
+    flash_attention_bwd_dsum_kernel<<<(unsigned)((rows + 7) / 8), 256, 0,
+                                      s>>>((const bf16*)o, (const bf16*)dout,
+                                           dsum, Hq, Sq, D, st, rows);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return (int)dispatch_bwd(q, k, v, dout, lse, dsum, dq, dk, dv, B, Hq, Hkv,
+                             Sq, Skv, D, st, causal, window, cap, q_offset,
+                             kv_valid, scale, s);
 }
 
 const char* flash_attention_error_string(int code) {

@@ -14,11 +14,16 @@ strided views (any strides over B, H and S, unit stride over D), so the
 decoder passes its (B, S, H, D) projections transposed, without a copy.
 ``LAUNCHES`` counts the launches, ``PATH_LAUNCHES`` splits them by kernel
 (``tensor_core``: bf16; ``cuda_core``: f32).  On the card, where a
-gradient is wanted, the call goes through ``_FlashFn``: its forward is the
-kernel's launch, its backward ``_autograd.plain_grads`` (autograd through
-the plain version) one batch row at a time (the plain version's float32 scores
-are (Hq, Sq, Skv) a row: 2.1 GB at 32 heads and 4096 tokens, against 8.6
-GB for a batch of 4), its gradients in the inputs' own layout.
+gradient is wanted, the call goes through ``_FlashFn``, its forward the
+kernel's launch.  Its backward takes one of two paths, chosen from the
+inputs: ``kernel`` for bf16 at D <= 128, where the forward's launch also
+writes each row's logsumexp and the backward is the source's three bf16
+tensor-core kernels (Di, then dK and dV, then dQ; no atomics, so the
+gradients are deterministic); ``plain`` for float32 and D > 128, autograd
+through the plain version (``_autograd.plain_grads``) one batch row at a
+time (its float32 scores are (Hq, Sq, Skv) a row: 2.1 GB at 32 heads and
+4096 tokens).  Either writes the gradients in the inputs' own layout.
+``BACKWARD_LAUNCHES`` counts the backward calls on the card by path.
 """
 from __future__ import annotations
 
@@ -34,13 +39,15 @@ from repro_torch.kernels.rmsnorm import DTYPE_CODES
 
 LAUNCHES = {"flash_attention": 0}
 PATH_LAUNCHES = {"tensor_core": 0, "cuda_core": 0}
+BACKWARD_LAUNCHES = {"kernel": 0, "plain": 0}
 
 MAX_HEAD_DIM = 256
+MAX_BACKWARD_HEAD_DIM = 128      # the backward kernels' widest instantiation
 _MAX_GRID_YZ = 65_535
 
 
 def reset_launch_counts():
-    for counts in (LAUNCHES, PATH_LAUNCHES):
+    for counts in (LAUNCHES, PATH_LAUNCHES, BACKWARD_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -56,8 +63,12 @@ def bind(lib):
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_forward.argtypes = (
             [vp] * 4 + [i] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
-            + [i, i, ctypes.c_float, i, i, ctypes.c_float, i, vp])
+            + [i, i, ctypes.c_float, i, i, ctypes.c_float, i, vp, vp])
         lib.flash_attention_forward.restype = i
+        lib.flash_attention_backward.argtypes = (
+            [vp] * 10 + [i] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+            + [i, i, ctypes.c_float, i, i, ctypes.c_float, vp])
+        lib.flash_attention_backward.restype = i
         lib.flash_attention_smem_bytes.argtypes = [i, i]
         lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
         lib.flash_attention_error_string.argtypes = [i]
@@ -118,10 +129,11 @@ def check_options(window, cap):
 
 
 def launch(lib, q, k, v, *, causal=True, window=None, cap=None, q_offset=0,
-           kv_valid=None, scale=None):
+           kv_valid=None, scale=None, lse=None):
     """One launch of the library's kernel for these checked CUDA tensors
     (no count): the tensor-core kernel for bfloat16, the CUDA-core kernel
-    for float32."""
+    for float32.  ``lse``: None, or (bfloat16) a contiguous float32 (B, Hq,
+    Sq) tensor the launch fills with each row's base-2 logsumexp."""
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
@@ -156,33 +168,113 @@ def launch(lib, q, k, v, *, causal=True, window=None, cap=None, q_offset=0,
             0 if window is None else int(window),
             0.0 if cap is None else float(cap), int(q_offset),
             -1 if kv_valid is None else int(kv_valid), float(scale),
-            DTYPE_CODES[q.dtype], stream)
+            DTYPE_CODES[q.dtype], stream,
+            None if lse is None else lse.data_ptr())
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"{lib.flash_attention_error_string(rc).decode()}")
     return out
 
 
+def _count(q):
+    LAUNCHES["flash_attention"] += 1
+    PATH_LAUNCHES["tensor_core" if q.dtype == torch.bfloat16
+                  else "cuda_core"] += 1
+
+
+def _kernel_backward(q) -> bool:
+    """Whether a gradient of flash at ``q`` runs the backward kernels: bf16
+    on the card at a head dim up to ``MAX_BACKWARD_HEAD_DIM`` (float32,
+    wider heads and the CPU take the plain version)."""
+    return (q.device.type == "cuda" and q.dtype == torch.bfloat16
+            and q.shape[-1] <= MAX_BACKWARD_HEAD_DIM)
+
+
+def launch_backward(lib, q, k, v, out, lse, grad_out, *, causal=True,
+                    window=None, cap=None, q_offset=0, kv_valid=None,
+                    scale=None):
+    """(dq, dk, dv) from the backward kernels for the training forward's
+    checked bf16 inputs, its output and logsumexp, and the output's
+    gradient; each gradient in its input's layout (no count)."""
+    if grad_out.stride(-1) != 1 or not aligned16(grad_out):
+        grad_out = grad_out.contiguous()
+    # empty_like keeps a dense view's strides: (B, H, S, D) views of
+    # (B, S, H, D) projections get their gradients in that layout
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if q.numel() == 0 or k.numel() == 0:
+        return [g.zero_() for g in grads]
+    tiles = max(-(-Sq // 64), -(-Skv // 64))
+    if tiles > _MAX_GRID_YZ:
+        raise ValueError(f"Sq={Sq}, Skv={Skv} exceed the backward's grid")
+    smem = lib.flash_attention_bwd_smem_bytes(D)
+    if not 0 < smem <= _MAX_SMEM:
+        raise ValueError(f"the flash backward kernels take D <= "
+                         f"{MAX_BACKWARD_HEAD_DIM} within {_MAX_SMEM} B of "
+                         f"shared memory, not D={D} ({smem} B)")
+    dsum = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    scale = D ** -0.5 if scale is None else scale
+    strides = (ctypes.c_longlong * 24)(*[
+        t.stride(i) for t in (q, k, v, out, grad_out, *grads)
+        for i in range(3)])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_backward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            grad_out.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+            *[g.data_ptr() for g in grads], B, Hq, Hkv, Sq, Skv, D, strides,
+            int(bool(causal)), 0 if window is None else int(window),
+            0.0 if cap is None else float(cap), int(q_offset),
+            -1 if kv_valid is None else int(kv_valid), float(scale), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: "
+                           f"{lib.flash_attention_error_string(rc).decode()}")
+    return grads
+
+
 class _FlashFn(torch.autograd.Function):
-    """Forward: the wrapper's call (the kernel on the card).  Backward:
+    """Forward: the wrapper's call (the kernel on the card), which also
+    writes the logsumexp where the backward runs the kernels.  Backward, in
+    a ``flash.backward`` device span: the backward kernels (inside a
+    ``flash.backward.kernel`` device span) where ``_kernel_backward``, else
     autograd through the plain version on the saved inputs, one batch row
-    at a time, a ``flash.backward`` device span."""
+    at a time."""
 
     @staticmethod
     def forward(ctx, q, k, v, kw):
-        ctx.save_for_backward(q, k, v)
         ctx.kw = kw
-        return flash_attention(q, k, v, **kw)
+        if not _kernel_backward(q):
+            ctx.save_for_backward(q, k, v)
+            return flash_attention(q, k, v, **kw)
+        B, Hq, Sq, _ = q.shape
+        lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+        out = launch(_lib(), q, k, v, lse=lse, **kw)
+        if out.numel():
+            _count(q)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        with tracing.device_span("flash.backward", device=grad_out.device):
-            return _FlashFn._backward(ctx, grad_out)
+        dev = grad_out.device
+        saved = ctx.saved_tensors     # once: remat's checkpoint unpacks once
+        with tracing.device_span("flash.backward", device=dev):
+            if len(saved) == 5:
+                with tracing.device_span("flash.backward.kernel", device=dev):
+                    grads = launch_backward(_lib(), *saved, grad_out,
+                                            **ctx.kw)
+                BACKWARD_LAUNCHES["kernel"] += 1
+            else:
+                grads = _FlashFn._backward(ctx, saved, grad_out)
+                if dev.type == "cuda":
+                    BACKWARD_LAUNCHES["plain"] += 1
+        need = ctx.needs_input_grad[:3]
+        return (*[g if n else None for g, n in zip(grads, need)], None)
 
     @staticmethod
-    def _backward(ctx, grad_out):
+    def _backward(ctx, saved, grad_out):
         need = ctx.needs_input_grad[:3]
-        saved = ctx.saved_tensors
         # empty_like keeps a dense view's strides: (B, H, S, D) views of
         # (B, S, H, D) projections get their gradients in that layout
         grads = [torch.empty_like(t) if n else None
@@ -194,7 +286,7 @@ class _FlashFn(torch.autograd.Function):
             for g, r in zip(grads, row):
                 if g is not None:
                     g[b:b + 1].copy_(r)
-        return (*grads, None)
+        return grads
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, cap=None,
@@ -216,7 +308,5 @@ def flash_attention(q, k, v, *, causal=True, window=None, cap=None,
         return _FlashFn.apply(q, k, v, kw)
     out = launch(_lib(), q, k, v, **kw)
     if out.numel():
-        LAUNCHES["flash_attention"] += 1
-        PATH_LAUNCHES["tensor_core" if q.dtype == torch.bfloat16
-                      else "cuda_core"] += 1
+        _count(q)
     return out

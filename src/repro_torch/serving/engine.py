@@ -35,6 +35,7 @@ on that mesh.
 from __future__ import annotations
 
 import dataclasses
+import gc
 
 import numpy as np
 import torch
@@ -178,12 +179,21 @@ class DecodeEngine:
         counters = _launch_counters()
         before = [dict(c) for c in counters]
         graph = torch.cuda.CUDAGraph()
-        with tracing.span("engine.graph.capture", key=n):
-            # thread_local: another thread of the process (a plane's pool,
-            # a refit's worker) may allocate on the card meanwhile
-            with torch.cuda.graph(graph, stream=self._stream,
-                                  capture_error_mode="thread_local"):
-                self._logits = self._decode()
+        # the cyclic collector is off while capturing: a dead engine's graph
+        # in a reference cycle, freed on this thread mid-capture, would
+        # destroy a CUDA graph there and invalidate the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with tracing.span("engine.graph.capture", key=n):
+                # thread_local: another thread of the process (a plane's
+                # pool, a refit's worker) may allocate on the card meanwhile
+                with torch.cuda.graph(graph, stream=self._stream,
+                                      capture_error_mode="thread_local"):
+                    self._logits = self._decode()
+        finally:
+            if collecting:
+                gc.enable()
         self._replay_launches = []
         for c, b in zip(counters, before):
             added = {k: c[k] - b[k] for k in c if c[k] != b[k]}

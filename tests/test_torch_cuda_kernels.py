@@ -1292,12 +1292,14 @@ def test_cuda_arma_fit_matches_sequential_plain(cuda_device, differenced):
 
 
 # ------------------------------------------ the training path's Functions --
-# a gradient through a Function (the kernel forward, the plain version's
-# backward on the saved inputs) against the plain version's own autograd
-# gradient on the same bf16 inputs: the backward is that plain version, so
-# the two differ only where a matmul takes another algorithm (flash's
-# backward runs a batch row at a time) -- at most one bf16 rounding of an
-# element, held within 1e-2 of the gradient's largest |element|
+# a gradient through a Function (the kernel forward, then the backward)
+# against the plain version's own autograd gradient on the same bf16
+# inputs.  The norm's and the scan's backward is that plain version on the
+# saved inputs, so the two differ only where a matmul takes another
+# algorithm; flash's bf16 backward is its kernels, whose products round P
+# and dS to bf16 once each before they meet dO, Q or K (FlashAttention-2's
+# precision).  Either is at most about one bf16 rounding of an element
+# (2^-8) apart, held within 1e-2 of the gradient's largest |element|
 GRAD_WIRING_REL = 1e-2
 
 
@@ -1336,9 +1338,10 @@ def test_cuda_training_function_matches_plain(cuda_device, kind):
     kernel once (through its ``autograd.Function``) and matches the plain
     version as the serving bars say (norm 8e-3 relative, flash 2e-2 and
     1e-2 of each row's scale, the scan's y 1e-2 of each row's scale); the
-    backward launches nothing, and every input's gradient of a seeded
-    scalar matches the plain version's within GRAD_WIRING_REL, in the
-    input's dtype and layout."""
+    backward launches no forward kernel (flash's counts one call of its
+    backward kernels, the others run the plain version), and every input's
+    gradient of a seeded scalar matches the plain version's within
+    GRAD_WIRING_REL, in the input's dtype and layout."""
     fn, plain, ins, kw = _train_case(kind, cuda_device)
     mod = TRAIN_KERNELS[kind]
     leaves = [t.detach().requires_grad_(True) for t in ins]
@@ -1357,6 +1360,8 @@ def test_cuda_training_function_matches_plain(cuda_device, kind):
         cuda_device)
     grads = torch.autograd.grad((y.float() * r).sum(), leaves)
     assert sum(mod.LAUNCHES.values()) == 1
+    if kind == "flash_attention":
+        assert tflash.BACKWARD_LAUNCHES == {"kernel": 1, "plain": 0}
     ref_leaves = [t.detach().requires_grad_(True) for t in ins]
     ref_grads = torch.autograd.grad(
         (plain(*ref_leaves, **kw).float() * r).sum(), ref_leaves)
@@ -1419,8 +1424,10 @@ def test_cuda_train_step_matches_plain_model(cuda_device, arch):
     """A smoke-size model's loss and gradients in bf16 with remat, the
     kernels' model against the plain versions swapped in: the loss within
     1e-2 relative, the flattened gradients' cosine above 0.99; the
-    kernels launched twice a layer step (the forward and remat's
-    recomputation) and the final norm once, the backward nothing."""
+    forward kernels launched twice a layer step (the forward and remat's
+    recomputation) and the final norm once; flash's backward runs its
+    kernels once a layer (at the smoke config's head dim 16), the norm's
+    and the scan's backward the plain version, which launches nothing."""
     from repro_torch.configs import smoke_config
     from repro_torch.data import SyntheticLMData
     from repro_torch.models.params import tree_leaves
@@ -1452,6 +1459,8 @@ def test_cuda_train_step_matches_plain_model(cuda_device, arch):
     got = {k: v for mod in TRAIN_KERNELS.values()
            for k, v in mod.LAUNCHES.items() if v}
     assert got == want
+    if arch != "mamba2-780m":
+        assert tflash.BACKWARD_LAUNCHES == {"kernel": n, "plain": 0}
     wloss, wg = _swapped_plain(run, [(trms, "rmsnorm"),
                                      (tflash, "flash_attention"),
                                      (tssd, "ssd_scan")])
@@ -1459,6 +1468,107 @@ def test_cuda_train_step_matches_plain_model(cuda_device, arch):
     assert abs(float(loss - wloss)) <= 1e-2 * abs(float(wloss))
     cos = float(g @ wg / (g.norm() * wg.norm()))
     assert cos > 0.99, cos
+
+
+# ------------------------------------------------- flash's backward kernels --
+# the backward kernels' dq, dk, dv against autograd through the plain version
+# in float32 on the same bf16 inputs: the kernels round P and dS to bf16
+# once each before their products (P^T dO, dS^T Q, dS K; f32 sums), and
+# each gradient to bf16 once, so an element may be off by about two bf16
+# roundings (2^-8 each) of the terms it sums -- held within 1e-2 of the
+# gradient's largest |element|, the training Functions' bar
+FLASH_BWD_REL = 1e-2
+
+FLASH_BWD_CASES = {
+    "causal, window 128 < S, G=1": (1, 300, 300, dict(causal=True,
+                                                      window=128)),
+    "causal, no window, G=4": (4, 300, 300, dict(causal=True)),
+    "non-causal, Skv != Sq": (4, 200, 260, dict(causal=False)),
+    "Sq off the tile, kv_valid < Skv, q_offset": (
+        1, 130, 200, dict(causal=True, q_offset=64, kv_valid=180)),
+    "q_offset, window, rows with no key": (
+        4, 97, 250, dict(causal=True, q_offset=150, window=100,
+                         kv_valid=120)),
+    "cap": (4, 150, 150, dict(causal=True, cap=5.0)),
+}
+
+
+def _flash_bwd_inputs(dev, G, Sq, Skv, D, seed):
+    """q, k, v as (B, H, S, D) views of (B, S, H, D) bf16 projections, and a
+    bf16 output gradient."""
+    g = torch.Generator().manual_seed(seed)
+    B, Hkv = 2, 2
+    q = torch.randn((B, Sq, Hkv * G, D), generator=g).to(dev, BF16)
+    k = torch.randn((B, Skv, Hkv, D), generator=g).to(dev, BF16)
+    v = torch.randn((B, Skv, Hkv, D), generator=g).to(dev, BF16)
+    dout = torch.randn((B, Hkv * G, Sq, D), generator=g).to(dev, BF16)
+    return [t.transpose(1, 2) for t in (q, k, v)], dout
+
+
+def _flash_kernel_grads(ins, kw, dout):
+    leaves = [t.detach().requires_grad_(True) for t in ins]
+    out = tflash.flash_attention(*leaves, **kw)
+    assert type(out.grad_fn).__name__ == "_FlashFnBackward"
+    return torch.autograd.grad(out, leaves, dout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("case", list(FLASH_BWD_CASES))
+def test_cuda_flash_backward_kernels_match_plain(cuda_device, D, case):
+    """dq, dk and dv from the backward kernels against autograd through the
+    plain version in float32 on the same bf16 inputs, within FLASH_BWD_REL
+    of each gradient's largest |element|; each gradient in its input's
+    dtype and (B, S, H, D) layout; one backward call on the kernel path."""
+    G, Sq, Skv, kw = FLASH_BWD_CASES[case]
+    ins, dout = _flash_bwd_inputs(cuda_device, G, Sq, Skv, D, seed=D + G)
+    tflash.reset_launch_counts()
+    got = _flash_kernel_grads(ins, kw, dout)
+    torch.cuda.synchronize()
+    assert tflash.BACKWARD_LAUNCHES == {"kernel": 1, "plain": 0}
+    assert tflash.LAUNCHES == {"flash_attention": 1}
+    leaves = [t.detach().float().requires_grad_(True) for t in ins]
+    want = torch.autograd.grad(tref.flash_attention(*leaves, **kw), leaves,
+                               dout.float())
+    for name, t, a, b in zip("qkv", ins, got, want):
+        assert a.dtype == t.dtype and a.shape == t.shape, name
+        assert a.stride() == t.stride(), name
+        err = float((a.float() - b).abs().max())
+        scale = float(b.abs().max())
+        assert err <= FLASH_BWD_REL * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128])
+def test_cuda_flash_backward_is_deterministic(cuda_device, D):
+    """Two backward calls on the same inputs give bit-equal gradients: the
+    kernels sum each gradient in one CTA, in a fixed order, with no
+    atomics."""
+    G, Sq, Skv, kw = FLASH_BWD_CASES["causal, no window, G=4"]
+    ins, dout = _flash_bwd_inputs(cuda_device, G, Sq, Skv, D, seed=3)
+    a = _flash_kernel_grads(ins, kw, dout)
+    b = _flash_kernel_grads(ins, kw, dout)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 64), (BF16, 256)])
+def test_cuda_flash_backward_plain_path(cuda_device, dtype, D):
+    """float32 and D = 256 keep the plain backward (the counter's ``plain``
+    path), their gradients autograd's through the plain version."""
+    ins, dout = _flash_bwd_inputs(cuda_device, 2, 70, 70, D, seed=5)
+    ins = [t.to(dtype) for t in ins]
+    dout = dout.to(dtype)
+    tflash.reset_launch_counts()
+    got = _flash_kernel_grads(ins, dict(causal=True), dout)
+    assert tflash.BACKWARD_LAUNCHES == {"kernel": 0, "plain": 1}
+    leaves = [t.detach().float().requires_grad_(True) for t in ins]
+    want = torch.autograd.grad(tref.flash_attention(*leaves, causal=True),
+                               leaves, dout.float())
+    for a, b in zip(got, want):
+        err = float((a.float() - b).abs().max())
+        assert err <= FLASH_BWD_REL * float(b.abs().max()), err
 
 
 # ------------------------------------------------------------- spans ----
@@ -1572,6 +1682,32 @@ def test_cuda_graphed_engine_equals_eager_engine(cuda_device):
     assert len(kept[0]) == len(kept[1]) == 24
     for i, (a, b) in enumerate(zip(*kept)):
         assert torch.equal(a, b), i
+
+
+@pytest.mark.cuda
+def test_cuda_engine_captures_with_the_collector_off(cuda_device):
+    """The engine captures its step with Python's cyclic collector off (a
+    dead engine's graph in a reference cycle, freed by a collection on the
+    capturing thread, would destroy a CUDA graph mid-capture and invalidate
+    the capture); the collector is on again after it, and the graph
+    replays."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving import DecodeEngine
+    cfg = get_config("h2o-danube-1.8b").replace(n_layers=2)
+    params = build_model(cfg).init(0, BF16, cuda_device)
+    eng = DecodeEngine(cfg, params, slots=4, max_len=128, device=cuda_device)
+    decode, seen = eng._decode, []
+
+    def watched():
+        if torch.cuda.is_current_stream_capturing():
+            seen.append(gc.isenabled())
+        return decode()
+    eng._decode = watched
+    _serve_both([eng], cfg.vocab, 3, (5, 20))
+    assert seen == [False] and gc.isenabled()
+    assert eng.graph is not None
 
 
 @pytest.mark.cuda

@@ -490,6 +490,33 @@ def test_cpu_runs_plain_and_counts_no_launch():
     assert tdec.LAUNCHES == {"decode_attention": 0}
 
 
+def test_flash_function_off_cuda_keeps_the_plain_backward():
+    """Flash's Function on CPU tensors (bf16 at D=16, where the card would
+    run the backward kernels) keeps the plain backward: its gradients are
+    autograd's through the plain version, in the inputs' (B, S, H, D)
+    layout, and no backward call is counted (the counter counts the
+    card's)."""
+    g = torch.Generator().manual_seed(4)
+    ins = [torch.randn((2, 12, h, 16), generator=g).to(torch.bfloat16)
+           .transpose(1, 2).requires_grad_(True) for h in (4, 2, 2)]
+    kw = dict(causal=True, window=5, cap=None, q_offset=0, kv_valid=None,
+              scale=None)
+    dout = torch.randn((2, 4, 12, 16), generator=g).to(torch.bfloat16)
+    tflash.reset_launch_counts()
+    got = torch.autograd.grad(tflash._FlashFn.apply(*ins, kw), ins, dout)
+    assert tflash.BACKWARD_LAUNCHES == {"kernel": 0, "plain": 0}
+    leaves = [t.detach().requires_grad_(True) for t in ins]
+    want = torch.autograd.grad(tref.flash_attention(*leaves, **kw), leaves,
+                               dout)
+    # the plain backward runs a batch row at a time: its f32 products may
+    # take another path than the whole batch's, so an element may sit one
+    # bf16 rounding away
+    for t, a, b in zip(ins, got, want):
+        assert a.dtype == t.dtype and a.stride() == t.stride()
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= 2.0 ** -8 * float(b.float().abs().max()), err
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     x = torch.randn(3, 8)
     with pytest.raises(TypeError):

@@ -53,7 +53,7 @@ def build(name, edits, out_dir):
     from repro_torch.kernels import _build
     lib = _build.build_variant(name, edits, out_dir)
     mine = [ln for ln in ptxas_summary(_build.build_log[-1][2])
-            if "<80>" in ln or "<bf16,1,1>" in ln]
+            if "<80,0>" in ln or "<bf16,1,1>" in ln]
     return lib, "; ".join(mine)
 
 
