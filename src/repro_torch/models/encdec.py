@@ -132,8 +132,8 @@ class EncDecLM:
 
         def body(x, p):
             with replicating(mesh):          # remat's recomputation too
-                x, _ = attn_sublayer(p["attn"], x, cfg, window=None,
-                                     causal=False, mesh=mesh, rules=rules)
+                x = attn_sublayer(p["attn"], x, cfg, window=None,
+                                  causal=False, mesh=mesh, rules=rules)
                 return mlp_sublayer(p["mlp"], x, cfg, mesh=mesh, rules=rules)
 
         body = remat(body, cfg.remat)
@@ -152,8 +152,8 @@ class EncDecLM:
 
         def body(x, p):
             with replicating(mesh):
-                x, _ = attn_sublayer(p["attn"], x, cfg, window=None,
-                                     mesh=mesh, rules=rules)
+                x = attn_sublayer(p["attn"], x, cfg, window=None,
+                                  mesh=mesh, rules=rules)
                 x = cross_sublayer(p["cross"], x, cfg, enc_out=enc_out,
                                    mesh=mesh, rules=rules)
                 return mlp_sublayer(p["mlp"], x, cfg, mesh=mesh, rules=rules)
@@ -196,10 +196,9 @@ class EncDecLM:
                                _dt(cfg.compute_dtype))
             for i in range(cfg.n_dec_layers):
                 p = _layer(params["dec_blocks"], i)
-                x, nc = attn_sublayer(p["attn"], x, cfg, window=None,
-                                      cache=_layer(cache["self"], i),
-                                      mode="decode", mesh=mesh, rules=rules)
-                cache["self"]["len"][i] = nc["len"]
+                x = attn_sublayer(p["attn"], x, cfg, window=None,
+                                  cache=_layer(cache["self"], i),
+                                  mode="decode", mesh=mesh, rules=rules)
                 x = cross_sublayer(p["cross"], x, cfg, kv=(
                     cache["cross_k"][i], cache["cross_v"][i]), mesh=mesh,
                     rules=rules)

@@ -238,9 +238,9 @@ def combine(expert_out, idx, wgt, S: int):
 
 def moe_block(p, x, cfg, mesh=None, rules=None, mode="train"):
     """x (B, S, d) -> (out (B, S, d) in x's dtype, the Switch load-balance
-    aux loss (f32 scalar)): the held experts' part, plus the shared
-    expert's output where the layer has one.  ``mode`` keys the
-    ``ROUTES`` counter."""
+    aux loss (f32 scalar) where ``mode`` is "train", else 0.0): the held
+    experts' part, plus the shared expert's output where the layer has
+    one.  ``mode`` keys the ``ROUTES`` counter."""
     with tracing.span("moe.block"):
         return _moe_block(p, x, cfg, mesh, rules, mode)
 
@@ -286,14 +286,16 @@ def _moe_block(p, x, cfg, mesh, rules, mode):
     out = (on_shards(lambda e, i, w: combine(e, i, w, S), [eout, idx, wgt],
                      [b, b, b], b) if sharded else combine(eout, idx, wgt, S))
 
-    # Switch-style load-balance aux loss
-    me = probs.mean(dim=(0, 1))                             # (E,)
-    top1 = torch.argmax(logits, dim=-1)
-    # each expert's share of the rows' top-1 picks: integer counts (exact in
-    # float32), through ops DTensor shards
-    ce = (top1[..., None] == torch.arange(E, device=x.device)).to(
-        torch.float32).sum(dim=(0, 1)) / (B * S)
-    aux = E * torch.sum(me * ce)
+    # Switch-style load-balance aux loss, which only training reads
+    aux = 0.0
+    if mode == "train":
+        me = probs.mean(dim=(0, 1))                         # (E,)
+        top1 = torch.argmax(logits, dim=-1)
+        # each expert's share of the rows' top-1 picks: integer counts
+        # (exact in float32), through ops DTensor shards
+        ce = (top1[..., None] == torch.arange(E, device=x.device)).to(
+            torch.float32).sum(dim=(0, 1)) / (B * S)
+        aux = E * torch.sum(me * ce)
     out = out.to(x.dtype)
     if cfg.d_ff_shared:
         out = out + mlp(p["shared"], x, cfg.mlp_act)

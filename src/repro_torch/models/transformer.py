@@ -43,11 +43,13 @@ and ``len`` (n_steps, B); per mamba entry the conv states ``conv_x``,
 ``conv_B``, ``conv_C`` (n_steps, B, K-1, .) in the compute dtype, a
 prompt's rounded through bfloat16 as the reference's merge rounds them,
 and the float32 SSM ``state`` (n_steps, B, H, P, N) -- but the port
-updates it in place: a decode step writes one row per slot and layer (and
-each layer's SSM entries whole), and ``prefill(..., cache=, rows=)``
-writes a prompt's rows and states into the given slots of a live cache.
-A write position past the cache end is clamped to the last row, as
-``lax.dynamic_update_slice`` clamps it.
+updates it in place, each layer as it runs, through one writer a kind
+(``_cache_append`` for attention rows and len, ``_put_states`` for mamba
+states): a decode step writes one row per slot and layer (and each
+layer's SSM entries whole), and a prefill its prompt's rows and states
+into the given slots of a live cache (``prefill(..., cache=, rows=)``)
+or of a new one.  A write position past the cache end is clamped to the
+last row, as ``lax.dynamic_update_slice`` clamps it.
 
 With ``cfg.kv_cache_dtype == "int8"`` an attention entry holds ``k`` and
 ``v`` as int8 codes and ``k_scale``, ``v_scale`` (n_steps, B, max_len, Hkv,
@@ -227,14 +229,16 @@ def _residual(x, dx, cfg):
     return x + dx * cfg.residual_mult
 
 
-def attn_sublayer(p, x, cfg, *, window, q_offset=0, cache=None, mode="train",
-                  causal=True, mesh=None, rules=None):
-    """Pre-norm attention residual sublayer.  cache: None (prefill) or one
-    layer's {'k', 'v', 'len'} for a decode append (written in place).
-    Returns (x_out, new_cache); in prefill mode new_cache = {'k', 'v'}
-    (post-rope) for the decode cache.  On a mesh q, k and v take the
-    placements of their logical axes (heads on 'model').  Without
-    ``cfg.use_rope`` q and k carry no positions."""
+def attn_sublayer(p, x, cfg, *, window, q_offset=0, cache=None, slots=None,
+                  mode="train", causal=True, mesh=None, rules=None):
+    """Pre-norm attention residual sublayer -> x_out.  cache: one layer's
+    {'k', 'v', 'len'} (int8: and the scales), written in place by
+    ``_cache_append``: a prefill writes its post-rope k and v at rows
+    [q_offset, q_offset + S) of the slots ``slots`` and attends over them
+    fresh; a decode step writes one row a slot at its len and attends over
+    the cache.  On a mesh q, k and v take the placements of their logical
+    axes (heads on 'model').  Without ``cfg.use_rope`` q and k carry no
+    positions."""
     B, S = x.shape[:2]
     xn = L.rmsnorm(p["ln"], x, cfg.norm_eps)
     q, k, v = _qkv(p, xn, cfg)
@@ -245,17 +249,16 @@ def attn_sublayer(p, x, cfg, *, window, q_offset=0, cache=None, mode="train",
                              mesh)
         v = shard_activation(v, ("batch", None, "act_kv_heads", None), rules,
                              mesh)
-    new_cache = None
-    if cache is None:
+    if mode != "decode":
         if cfg.use_rope:
             positions = q_offset + torch.arange(S, device=x.device)
             q = L.apply_rope(q, positions[None, :], cfg.rope_theta)
             k = L.apply_rope(k, positions[None, :], cfg.rope_theta)
+        if cache is not None:
+            _cache_append(cache, k, v, cfg, q_offset, slots)
         o = attention(q, k, v, impl=cfg.attn_impl, causal=causal,
                       window=window, cap=cfg.attn_softcap, q_offset=q_offset,
                       scale=cfg.attn_scale)
-        if mode == "prefill":
-            new_cache = {"k": k, "v": v}
     else:
         pos = cache["len"]                            # (B,) per-slot lengths
         if cfg.use_rope:
@@ -263,35 +266,72 @@ def attn_sublayer(p, x, cfg, *, window, q_offset=0, cache=None, mode="train",
                 None, :]
             q = L.apply_rope(q, positions, cfg.rope_theta)
             k = L.apply_rope(k, positions, cfg.rope_theta)
-        ck, cv = _cache_append(cache, k, v, cfg)
-        o = decode_attention(q, ck, cv, kv_valid=pos + 1, window=window,
+        valid = pos + 1                 # before the append moves len on
+        _cache_append(cache, k, v, cfg, pos)
+        ck, cv = cache["k"], cache["v"]
+        if cfg.kv_cache_dtype == "int8":
+            ck = _dequant_kv(ck, cache["k_scale"], k.dtype)
+            cv = _dequant_kv(cv, cache["v_scale"], v.dtype)
+        o = decode_attention(q, ck, cv, kv_valid=valid, window=window,
                              cap=cfg.attn_softcap, scale=cfg.attn_scale)
         # the reference's P.V einsum on the cache yields the cache's dtype
         o = o.to(cv.dtype).to(x.dtype)
-        new_cache = dict(cache)
-        new_cache["len"] = pos + 1
     Hq, Dh, d = p["w_o"].shape
     o = o.reshape(B, S, Hq * Dh) @ p["w_o"].reshape(Hq * Dh, d).to(x.dtype)
     if cfg.post_norm:
         o = L.rmsnorm(p["ln_post"], o, cfg.norm_eps)
-    return _residual(x, o, cfg), new_cache
+    return _residual(x, o, cfg)
 
 
-def _row_update(buf, val, pos):
-    """buf (B, S, H, D) <- val (B, T, H, D) written in place at per-row
-    positions pos (B,), each clamped to [0, S - T] as
+def _held_slots(buf, slots):
+    """buf's local tensor (a DTensor's shard, a plain buf itself), and for
+    each of the slot indices ``slots`` it holds the pair (j, its local
+    slot number) -- one pair of ``slice(None)`` where ``slots`` is None
+    (every slot).  Ints, not an index list: a list indexing a card tensor
+    is copied to the card first, which waits for the card."""
+    local = buf.to_local() if is_dtensor(buf) else buf
+    if slots is None:
+        return local, [(slice(None), slice(None))]
+    off = local_box(buf)[0][0] if is_dtensor(buf) else 0
+    return local, [(j, s - off) for j, s in enumerate(slots)
+                   if 0 <= s - off < local.shape[0]]
+
+
+def _row_update(buf, val, pos, slots=None):
+    """buf (B, S, ...) <- val (n, T, ...) written in place at rows [pos,
+    pos + T) of the slots ``slots`` (n slot indices; None: every slot, n =
+    B), rounded to buf's dtype.  pos is an int, or per slot (B,) where
+    ``slots`` is None; each start is clamped to [0, S - T] as
     ``lax.dynamic_update_slice`` clamps it: a slot decoding past the cache
     end rewrites its last row.  A DTensor buf is written on its local
-    shard, in place: val and pos are laid out as its slots and heads
-    first, and where the sequence is sharded (one row a slot, T = 1) a
-    slot whose row lies on another rank rewrites one of its own rows with
+    shard, in place: val and pos are laid out as its slots (where
+    ``slots`` is None) and as its dims past 1 first; of ``slots`` only
+    those the rank holds are written, and where dim 1 is sharded only the
+    rows the rank holds -- an int pos's [start, start + T) intersected with
+    the rank's range, or, for a per-slot pos (one row a slot, T = 1), a
+    row that lies on another rank rewrites one of the rank's own rows with
     the value it holds."""
     S, T = buf.shape[1], val.shape[1]
+    if T > S:
+        raise ValueError(f"a {T}-row write does not fit a cache of {S}")
+    if isinstance(pos, int):
+        start = min(max(pos, 0), S - T)
+        off, n = 0, S
+        if is_dtensor(buf):
+            (_, off, *_), (_, n, *_) = local_box(buf)
+            val = local_like(val, buf, {d: d for d in range(buf.ndim) if d > 1
+                                        or (d == 0 and slots is None)})
+        buf, held = _held_slots(buf, slots)
+        lo, hi = max(start, off), min(start + T, off + n)
+        if hi > lo:
+            for j, s in held:
+                buf[s, lo - off:hi - off].copy_(val[j, lo - start:hi - start])
+        return
     start = pos.long().clamp(0, S - T)
     n_seq = S
     if is_dtensor(buf):
-        (_, off, _, _), (_, n_seq, _, _) = local_box(buf)
-        val = local_like(val, buf, {0: 0, 2: 2, 3: 3})
+        (_, off, *_), (_, n_seq, *_) = local_box(buf)
+        val = local_like(val, buf, {d: d for d in range(buf.ndim) if d != 1})
         start = local_like(start, buf, {0: 0}) - off
         buf = buf.to_local()
     idx = start[:, None] + torch.arange(T, device=buf.device)[None, :]
@@ -320,22 +360,35 @@ def _dequant_kv(kq, scale, dtype):
     return (kq * scale).to(dtype)           # int8 * float32 -> float32
 
 
-def _cache_append(cache, k, v, cfg):
-    """Write k, v (B, T, H, D) at per-slot positions cache['len'] (B,) into
-    the cache, in place: rounded to its dtype, or as int8 codes and scales;
-    return the whole cache's k and v for the attention (an int8 cache
-    dequantised into k's dtype)."""
-    pos = cache["len"]
-    if cfg.kv_cache_dtype != "int8":
-        _row_update(cache["k"], k, pos)
-        _row_update(cache["v"], v, pos)
-        return cache["k"], cache["v"]
+def _cache_append(cache, k, v, cfg, pos, slots=None):
+    """The one writer of an attention cache: k, v (n, T, H, D) written in
+    place at rows [pos, pos + T) of the slots ``slots`` (``_row_update``:
+    a prefill's int pos and slots, a decode step's per-slot pos =
+    cache['len'] and every slot), rounded to the cache's dtype or as int8
+    codes and scales; those slots' len becomes pos + T."""
+    int8 = cfg.kv_cache_dtype == "int8"
     for f, t in (("k", k), ("v", v)):
-        q, sc = _quant_kv(t)
-        _row_update(cache[f], q, pos)
-        _row_update(cache[f + "_scale"], sc, pos)
-    return (_dequant_kv(cache["k"], cache["k_scale"], k.dtype),
-            _dequant_kv(cache["v"], cache["v_scale"], v.dtype))
+        for g, a in zip((f, f + "_scale"), _quant_kv(t) if int8 else (t,)):
+            _row_update(cache[g], a, pos, slots)
+    if slots is None:
+        cache["len"].copy_(pos + k.shape[1])
+        return
+    ln, held = _held_slots(cache["len"], slots)
+    for _, s in held:
+        ln[s] = pos + k.shape[1]
+
+
+def _put_states(cache, new, slots=None):
+    """The one writer of a mamba cache: the conv and SSM states ``new``
+    written whole, in place, into the slots ``slots`` (None: every slot, a
+    decode step, which carries the conv states in the compute dtype).  A
+    prefill's conv states are rounded through bfloat16 on the way, as the
+    reference rounds them into the bfloat16 cache of its
+    ``init_ssm_cache``."""
+    for f, a in new.items():
+        if slots is not None and f != "state":
+            a = a.to(KV_CACHE_DTYPE)
+        _row_update(cache[f], a, 0, slots)
 
 
 def mlp_sublayer(p, x, cfg, mesh=None, rules=None):
@@ -350,13 +403,15 @@ def mlp_sublayer(p, x, cfg, mesh=None, rules=None):
 
 # ============================================================ block step ===
 def make_block_step(cfg: ModelConfig, mode: str, mesh=None, rules=None,
-                    shared_params=None, embed0=None):
+                    shared_params=None, embed0=None, slots=None):
     """Returns step(carry, step_params, step_idx, cache_slice) -> (carry,
-    new_cache_slice, aux).  carry = (x, q_offset); mode: 'train' |
-    'prefill' | 'decode'.  The hybrid family's shared blocks
-    (``shared_params``, stacked) read ``embed0``: the prompt's embedding in
-    a prefill, the new token's in a decode step.  On a mesh the carry takes
-    the placements of ("batch", "resid_seq", "embed")."""
+    aux).  carry = (x, q_offset); mode: 'train' | 'prefill' | 'decode'.
+    A cached mode (prefill, decode) has a cache slice, which each layer
+    writes in place: a prefill into the slots ``slots``, a decode step into
+    every slot.  The hybrid family's shared blocks (``shared_params``,
+    stacked) read ``embed0``: the prompt's embedding in a prefill, the new
+    token's in a decode step.  On a mesh the carry takes the placements of
+    ("batch", "resid_seq", "embed")."""
     pattern, _ = _pattern(cfg)
     window_for = {"local": cfg.sliding_window, "global": None,
                   "block": cfg.sliding_window, "attn": None}
@@ -369,11 +424,10 @@ def make_block_step(cfg: ModelConfig, mode: str, mesh=None, rules=None,
             x = shard_activation(x, ("batch", "resid_seq", "embed"), rules,
                                  mesh)
         aux = 0.0
-        new_cache = {}
+        cache_slice = cache_slice or {}
         for i, kind in enumerate(pattern):
             p = step_params[f"s{i}_{kind}"]
-            ckey = f"s{i}"
-            csl = cache_slice.get(ckey) if mode == "decode" else None
+            csl = cache_slice.get(f"s{i}")
             if kind == "mamba":
                 # no pre-norm in the ssm and hybrid families, as in the JAX
                 # model
@@ -382,17 +436,15 @@ def make_block_step(cfg: ModelConfig, mode: str, mesh=None, rules=None,
                     dx, nc = ssm.mamba_decode(p["mamba"], xn, cfg, csl)
                 else:
                     dx, nc = ssm.mamba_block(p["mamba"], xn, cfg)
+                if csl is not None:
+                    _put_states(csl, nc, slots)
                 x = _residual(x, dx, cfg)
-                new_cache[ckey] = nc
                 if not hybrid_moe:
                     continue
             else:
-                x, nc = attn_sublayer(p["attn"], x, cfg,
-                                      window=window_for[kind],
-                                      q_offset=q_offset, cache=csl, mode=mode,
-                                      mesh=mesh, rules=rules)
-                if nc is not None:
-                    new_cache[ckey] = nc
+                x = attn_sublayer(p["attn"], x, cfg, window=window_for[kind],
+                                  q_offset=q_offset, cache=csl, slots=slots,
+                                  mode=mode, mesh=mesh, rules=rules)
             if cfg.family in ("moe", "hybrid_moe"):
                 xn = L.rmsnorm(p["ln_moe"], x, cfg.norm_eps)
                 dx, a = moe.moe_block(p["moe"], xn, cfg, mesh=mesh,
@@ -405,15 +457,13 @@ def make_block_step(cfg: ModelConfig, mode: str, mesh=None, rules=None,
             sel = _layer(shared_params,
                          step_idx % max(cfg.n_shared_blocks, 1))
             xi = torch.cat([x, embed0], dim=-1) @ sel["w_in"].to(x.dtype)
-            csl = cache_slice.get("shared") if mode == "decode" else None
-            h, nc = attn_sublayer(sel["attn"], xi, cfg, window=None,
-                                  q_offset=q_offset, cache=csl, mode=mode,
-                                  mesh=mesh, rules=rules)
+            h = attn_sublayer(sel["attn"], xi, cfg, window=None,
+                              q_offset=q_offset,
+                              cache=cache_slice.get("shared"), slots=slots,
+                              mode=mode, mesh=mesh, rules=rules)
             h = mlp_sublayer(sel["mlp"], h, cfg, mesh=mesh, rules=rules)
             x = x + (h - xi)      # residual contribution of the shared block
-            if nc is not None:
-                new_cache["shared"] = nc
-        return (x, q_offset), (new_cache or None), aux
+        return (x, q_offset), aux
 
     return step
 
@@ -504,76 +554,6 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
-def _put_slots(dst, a, rows, seq=None):
-    """dst (n, slots, ...) <- a (n, len(rows), ...), or the number ``a``,
-    in place at the slots ``rows`` (at their rows [0, seq) where ``seq``
-    is given), rounded to dst's dtype.  A DTensor dst is written on its
-    local shard: the slots and rows this rank holds, a laid out as dst on
-    its other dims first."""
-    js, rows = list(range(len(rows))), [int(r) for r in rows]
-    lo, hi = 0, seq
-    if is_dtensor(dst):
-        off, size = local_box(dst)
-        if isinstance(a, torch.Tensor):
-            a = local_like(a, dst, {d: d for d in range(dst.ndim)
-                                    if d != 1 and (seq is None or d != 2)})
-        dst = dst.to_local()
-        mine = [(j, r - off[1]) for j, r in zip(js, rows)
-                if 0 <= r - off[1] < size[1]]
-        js, rows = [j for j, _ in mine], [r for _, r in mine]
-        if seq is not None:
-            lo, hi = off[2], min(seq, off[2] + size[2])
-    if not rows or (seq is not None and hi <= lo):
-        return
-    if isinstance(a, torch.Tensor):
-        a = a[:, js].to(dst.dtype)
-        if seq is not None:
-            a = a[:, :, lo:hi]
-    if seq is None:
-        dst[:, rows] = a
-    else:
-        dst[:, rows, :hi - lo] = a
-
-
-def _merge_prefill_cache(cfg, B, S, max_len, raw, *, cache=None, rows=None,
-                         device="cpu", mesh=None, rules=None):
-    """raw: per pattern entry, stacked over n_steps, either attention's
-    {'k', 'v'} (n_steps, B, S, H, D) or mamba's conv and SSM states.
-    Writes them, rounded to the cache's dtypes (k and v of an int8 cache as
-    codes and scales), into the slots ``rows`` of ``cache`` (in place; a
-    new cache of B slots when None, on a mesh laid out by
-    ``decode_cache_axes``): k and v into rows [0, S), with those slots'
-    len set to S, and the mamba states whole, replacing what the slots
-    held.  The conv states are rounded through bfloat16 on the way, as
-    the reference rounds them into the bfloat16 cache of its
-    ``init_ssm_cache`` (its decode steps then carry them in the compute
-    dtype).  Rows past S keep what they held: a slot never reads a row at
-    or past its len."""
-    if cache is None:
-        cache = shard_tree(init_decode_cache(cfg, B, max_len, prefilled=S,
-                                             device=device),
-                           decode_cache_axes(cfg), rules, mesh)
-        rows = range(B)
-    for key, src in raw.items():
-        dst = cache[key]
-        if "state" in src:
-            for f, a in src.items():
-                _put_slots(dst[f], a if f == "state" else
-                           a.to(KV_CACHE_DTYPE), rows)
-            continue
-        if S > dst["k"].shape[2]:
-            raise ValueError(f"a {S}-token prompt does not fit the cache")
-        for f in ("k", "v"):
-            if cfg.kv_cache_dtype == "int8":
-                q, sc = _quant_kv(src[f])
-                _put_slots(dst[f], q, rows, S)
-                _put_slots(dst[f + "_scale"], sc, rows, S)
-            else:
-                _put_slots(dst[f], src[f].to(KV_CACHE_DTYPE), rows, S)
-        _put_slots(dst["len"], S, rows)
-    return cache
-
-
 def decode_cache_axes(cfg: ModelConfig) -> dict:
     """Logical-axes tree mirroring init_decode_cache (for sharding specs)."""
     pattern, _ = _pattern(cfg)
@@ -644,43 +624,33 @@ class DecoderLM:
         logits = L.unembed_logits(head, x, cfg.vocab, cfg.final_softcap)
         return logits if cfg.logits_div == 1.0 else logits / cfg.logits_div
 
-    def _run(self, params, x, mode, q_offset=0, cache=None, mesh=None,
-             rules=None):
-        """The layer loop; returns the final hidden state, in prefill the
-        stacked raw per-layer k/v and mamba states, and the aux loss summed
-        over the layers (0.0 but for the MoE family).  In decode, the new
-        lengths and mamba states go back into ``cache`` (k and v rows were
-        written in place by the attention).  ``x`` is the embedded input,
-        which the hybrid family's shared blocks read at every step."""
+    def _run(self, params, x, mode, q_offset=0, cache=None, slots=None,
+             mesh=None, rules=None):
+        """The layer loop; returns the final hidden state and the aux loss
+        summed over the layers (0.0 but for the MoE families in training).
+        A prefill or decode step writes each layer's rows and states into
+        ``cache`` in place (a prefill into the slots ``slots``).  ``x`` is
+        the embedded input, which the hybrid family's shared blocks read at
+        every step."""
         step = make_block_step(self.cfg, mode, mesh, rules,
-                               shared_params=params.get("shared"), embed0=x)
+                               shared_params=params.get("shared"), embed0=x,
+                               slots=slots)
         n_steps = _pattern(self.cfg)[1]
-        carry, raws, aux = (x, q_offset), [], 0.0
+        carry, aux = (x, q_offset), 0.0
         if mode == "train":
             def layer(x, sp, i):
                 with replicating(mesh):      # remat's recomputation too
                     return step((x, q_offset), sp, i, None)
             body = remat(layer, self.cfg.remat)
             for i in range(n_steps):
-                carry, _, a = body(carry[0], _layer(params["blocks"], i), i)
+                carry, a = body(carry[0], _layer(params["blocks"], i), i)
                 aux = aux + a
-            return carry[0], raws, aux
+            return carry[0], aux
         for i in range(n_steps):
-            csl = _layer(cache, i) if cache is not None else None
-            carry, nc, a = step(carry, _layer(params["blocks"], i), i, csl)
+            carry, a = step(carry, _layer(params["blocks"], i), i,
+                            _layer(cache, i))
             aux = aux + a
-            if mode == "decode":
-                for key, c in nc.items():
-                    # attention wrote its k, v rows in place; mamba's
-                    # states come back whole
-                    for f in (("len",) if "len" in c else c):
-                        cache[key][f][i] = c[f]
-            elif mode == "prefill":
-                raws.append(nc)
-        if mode == "prefill":
-            raws = {key: {f: torch.stack([r[key][f] for r in raws])
-                          for f in raws[0][key]} for key in raws[0]}
-        return carry[0], raws, aux
+        return carry[0], aux
 
     # ---- forward (the training body)
     def forward(self, params, tokens, *, extra_embeds=None, q_offset=0,
@@ -700,8 +670,8 @@ class DecoderLM:
                                _dt(self.cfg.compute_dtype))
         if mesh is not None:
             x = shard_activation(x, ("batch", "seq", "embed"), rules, mesh)
-        x, _, aux = self._run(params, x, "train", q_offset, mesh=mesh,
-                              rules=rules)
+        x, aux = self._run(params, x, "train", q_offset, mesh=mesh,
+                           rules=rules)
         return self._head(params, x), torch.as_tensor(
             aux, dtype=torch.float32, device=x.device)
 
@@ -725,19 +695,25 @@ class DecoderLM:
                 cache=None, rows=None, mesh=None, rules=None):
         """tokens (B, S) and an optional prefix ``extra_embeds`` (B, P, d)
         -> (logits of the last position (B, 1, V), cache): P + S rows of
-        k/v (or the mamba states after them).  With ``cache`` and ``rows``
-        (B slot indices) they go into those slots of that cache, in place;
-        otherwise into a new cache of B slots and ``max_len`` (default
-        P + S) positions (on a mesh laid out by ``decode_cache_axes``)."""
+        k/v (or the mamba states after them), each layer's written in
+        place as it runs.  With ``cache`` and ``rows`` (B slot indices) they
+        go into those slots of that cache; otherwise into a new cache of B
+        slots and ``max_len`` (default P + S) positions (on a mesh laid out
+        by ``decode_cache_axes``).  The slots' len becomes P + S; rows past
+        it keep what they held: a slot never reads a row at or past its
+        len."""
         with replicating(mesh):
             x = self._embed_inputs(params, tokens, extra_embeds,
                                    _dt(self.cfg.compute_dtype))
             B, S = x.shape[:2]
-            x, raw, _ = self._run(params, x, "prefill", mesh=mesh,
-                                  rules=rules)
-            cache = _merge_prefill_cache(
-                self.cfg, B, S, max_len or S, raw, cache=cache, rows=rows,
-                device=x.device, mesh=mesh, rules=rules)
+            if cache is None:
+                cache = shard_tree(init_decode_cache(
+                    self.cfg, B, max_len or S, device=x.device),
+                    decode_cache_axes(self.cfg), rules, mesh)
+                rows = range(B)
+            x, _ = self._run(params, x, "prefill", cache=cache,
+                             slots=[int(r) for r in rows], mesh=mesh,
+                             rules=rules)
             return self._head(params, x[:, -1:]), cache
 
     # ---- decode
@@ -749,6 +725,6 @@ class DecoderLM:
         with replicating(mesh):
             x = self._embed_inputs(params, tokens, None,
                                    _dt(self.cfg.compute_dtype))
-            x, _, _ = self._run(params, x, "decode", cache=cache, mesh=mesh,
-                                rules=rules)
+            x, _ = self._run(params, x, "decode", cache=cache, mesh=mesh,
+                             rules=rules)
             return self._head(params, x), cache

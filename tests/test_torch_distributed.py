@@ -485,7 +485,7 @@ _CACHE_WRITE_BODY = r"""
 import numpy as np
 from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.models.transformer import _put_slots, _row_update
+from repro_torch.models.transformer import _row_update
 mesh = make_mesh((2, 2), ("data", "model"), "cpu")
 rng = np.random.default_rng(5)
 RESULT = {}
@@ -502,24 +502,22 @@ for name, pl in (("slots", (Shard(0), Shard(2))),
         _row_update(got, val, pos)
     RESULT["row/" + name] = bool(torch.equal(got.full_tensor(), want))
     # a prefill's slots [2, 0] at rows [0, 5), and a state written whole
-    dst = torch.from_numpy(rng.normal(0, 1, (1, 4, 8, 2, 3)).astype(
-        np.float32))
-    a = torch.from_numpy(rng.normal(0, 1, (1, 2, 5, 2, 3)).astype(np.float32))
+    # (its heads, dim 1, sharded where the sequence's are not)
+    dst = torch.from_numpy(rng.normal(0, 1, (4, 8, 2, 3)).astype(np.float32))
+    a = torch.from_numpy(rng.normal(0, 1, (2, 5, 2, 3)).astype(np.float32))
     want = dst.clone()
-    _put_slots(want, a, [2, 0], 5)
-    _put_slots(want[:, :, 0], a[:, :, 0], [2, 0])
-    got = distribute_tensor(dst, mesh, tuple(
-        Shard(p.dim + 1) if isinstance(p, Shard) else p for p in pl),
-        src_data_rank=None)
+    _row_update(want, a, 0, [2, 0])
+    _row_update(want[:, 0], a[:, 0], 0, [2, 0])
+    got = distribute_tensor(dst, mesh, pl, src_data_rank=None)
     with torch.no_grad():
-        _put_slots(got, a, [2, 0], 5)
+        _row_update(got, a, 0, [2, 0])
     full = got.full_tensor()
-    state = distribute_tensor(full[:, :, 0].contiguous(), mesh, tuple(
-        Shard({0: 1, 2: 2}[p.dim]) if isinstance(p, Shard) and p.dim != 1
+    state = distribute_tensor(full[:, 0].contiguous(), mesh, tuple(
+        Shard({0: 0, 2: 1}[p.dim]) if isinstance(p, Shard) and p.dim != 1
         else Replicate() for p in pl), src_data_rank=None)
     with torch.no_grad():
-        _put_slots(state, a[:, :, 0], [2, 0])
-    full[:, :, 0] = state.full_tensor()
+        _row_update(state, a[:, 0], 0, [2, 0])
+    full[:, 0] = state.full_tensor()
     RESULT["slots/" + name] = bool(torch.equal(full, want))
 """
 

@@ -252,6 +252,21 @@ def test_route_counters_count_held_pairs_and_rows(smoke):
     assert moe.route_counts("train", "meta") == (0, 0)
 
 
+@pytest.mark.parametrize("mode", ["prefill", "decode"])
+def test_serving_modes_skip_the_aux_loss(smoke, mode):
+    """The Switch aux loss is for training only: a prefill's or a decode
+    step's MoE layer returns 0.0 and the same output as training's, which
+    keeps a positive aux."""
+    cfg, p = smoke
+    layer = tree_map(lambda t: t[0], p["blocks"]["s0_mamba"]["moe"])
+    x = torch.randn((3, 1 if mode == "decode" else 17, cfg.d_model),
+                    generator=torch.Generator().manual_seed(7))
+    out, aux = moe.moe_block(layer, x, cfg, mode=mode)
+    want, train_aux = moe.moe_block(layer, x, cfg)
+    assert aux == 0.0 and float(train_aux) > 0
+    assert torch.equal(out, want)
+
+
 def test_spans_cover_the_moe_and_mamba_layers(smoke):
     cfg, p = smoke
     tracing.reset()
